@@ -1,0 +1,193 @@
+"""Fused WOLA analysis and synthesis: the CUDA kernels' wrappers and their
+plain-torch versions.
+
+Counterpart of ``beamform_tpu/kernels/wola_pallas.py``: ``wola_analysis``
+replaces ``_fwd_kernel`` (via ``stft_planes``) and ``wola_synthesis``
+replaces ``_inv_kernel`` plus the fold and mirror before it (via
+``istft_ext_fused``). The kernels are in ``csrc/wola.cu``.
+
+Routing: a CPU tensor takes the plain version; a CUDA tensor launches the
+hand-written kernel or raises (unsupported size or dtype, bad layout, a
+launch error). There is no fallback from one to the other. Each wrapper
+counts its kernel launches in ``.launches``.
+"""
+
+from __future__ import annotations
+
+from functools import lru_cache
+
+import numpy as np
+import torch
+
+from beamform_tpu_torch.dsp.wola import frame_signal_carry, sqrt_hann
+from beamform_tpu_torch.kernels._build import build, check
+
+MIN_NFFT, MAX_NFFT = 256, 4096
+
+
+def fold_ext(y_ext: torch.Tensor, nfft: int) -> torch.Tensor:
+    """(..., NB) extended-layout bins -> (..., N/2+1) Hermitian rFFT bins:
+    bin h-1 becomes the blend (y[h-1] + conj(y[h+1])) / 2 of itself and
+    the shadow, and bins 0 and h keep only their real part, which is what
+    real(ifft(.)) does to the self-conjugate bins."""
+    h = nfft // 2
+    y_r = y_ext[..., :h + 1].clone()
+    y_r[..., h - 1] = 0.5 * (y_ext[..., h - 1] + y_ext[..., h + 1].conj())
+    y_r[..., 0] = y_r[..., 0].real.to(y_r.dtype)
+    y_r[..., h] = y_r[..., h].real.to(y_r.dtype)
+    return y_r
+
+
+# ---------------------------------------------------------------------------
+# plain versions (the CPU path, and the kernels' oracle on the card)
+# ---------------------------------------------------------------------------
+
+
+def wola_analysis_plain(x: torch.Tensor, tail: torch.Tensor,
+                        with_mag: bool = False):
+    """x (C, T*hop) + tail (C, hop) -> (spec (T, C, hop+2) complex,
+    mag (T, hop+2) | None, new_tail (C, hop)).
+
+    Frames -> periodic sqrt-Hann -> full nfft-point FFT, keeping bins
+    0..h+1: bin h+1 is conj(X[h-1]), the extended layout's shadow bin.
+    ``mag`` is the energy-gate statistic sum_c |X| / (C * nfft)
+    (mvdr.cpp:79-82).
+    """
+    hop = tail.shape[-1]
+    nfft = 2 * hop
+    frames, new_tail = frame_signal_carry(x, hop, tail)      # (C, T, nfft)
+    win = torch.as_tensor(sqrt_hann(nfft), dtype=x.dtype, device=x.device)
+    spec = torch.fft.fft(frames * win, dim=-1)[..., :hop + 2]
+    spec = spec.movedim(0, 1).contiguous()                    # (T, C, NB)
+    mag = None
+    if with_mag:
+        mag = spec.abs().sum(dim=1) / (x.shape[0] * nfft)
+    return spec, mag, new_tail
+
+
+def wola_synthesis_plain(y_ext: torch.Tensor, out_prev: torch.Tensor):
+    """y_ext (C, T, hop+2) complex + out_prev (C, hop) -> (out (C, T*hop),
+    new_prev (C, hop)).
+
+    :func:`fold_ext` -> inverse real FFT
+    (x 1/nfft) -> synthesis window -> 50% overlap-add with the carry.
+    """
+    hop = y_ext.shape[-1] - 2
+    nfft = 2 * hop
+    p = torch.fft.irfft(fold_ext(y_ext, nfft), n=nfft, dim=-1)
+    win = torch.as_tensor(sqrt_hann(nfft), dtype=p.dtype, device=p.device)
+    p = p * win
+    out = p[..., :hop].clone()
+    out[..., 1:, :] += p[..., :-1, hop:]
+    out[..., 0, :] += out_prev.to(p.dtype)
+    return out.reshape(p.shape[:-2] + (-1,)), p[..., -1, hop:]
+
+
+# ---------------------------------------------------------------------------
+# CUDA wrappers
+# ---------------------------------------------------------------------------
+
+
+def _check_nfft(nfft: int):
+    if nfft & (nfft - 1) or not MIN_NFFT <= nfft <= MAX_NFFT:
+        raise ValueError(
+            f"the CUDA WOLA kernels take power-of-two nfft in "
+            f"[{MIN_NFFT}, {MAX_NFFT}], got {nfft}; other sizes run on the "
+            "CPU only (see ROADMAP.md §1)")
+
+
+def _check(t: torch.Tensor, name: str, dtype, shape, device):
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name} has dtype {t.dtype}, the CUDA kernel "
+                         f"takes {dtype}; float64 runs on the CPU only "
+                         "(see ROADMAP.md §1)")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
+                         f"{tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+@lru_cache(maxsize=8)
+def _tables(nfft: int, device: torch.device):
+    """(window (nfft,), twiddles (nfft/2, 2)) as float32 on ``device``,
+    computed in float64: tw[j] = exp(-2 pi i j / nfft)."""
+    ang = -2.0 * np.pi * np.arange(nfft // 2, dtype=np.float64) / nfft
+    tw = np.stack([np.cos(ang), np.sin(ang)], axis=-1)
+    win = sqrt_hann(nfft)
+    return (torch.as_tensor(win, dtype=torch.float32, device=device),
+            torch.as_tensor(tw, dtype=torch.float32, device=device))
+
+
+def _launch_ctx(device: torch.device):
+    lib = build()["lib"]
+    stream = torch.cuda.current_stream(device).cuda_stream
+    return lib, stream
+
+
+def wola_analysis(x: torch.Tensor, tail: torch.Tensor,
+                  with_mag: bool = False):
+    """Fused WOLA analysis; see :func:`wola_analysis_plain` for the
+    contract. On CUDA: float32, contiguous, nfft = 2*hop a power of two in
+    [256, 4096]."""
+    if not x.is_cuda:
+        return wola_analysis_plain(x, tail, with_mag)
+    c, s = x.shape
+    hop = tail.shape[-1]
+    _check_nfft(2 * hop)
+    if s % hop or s == 0:
+        raise ValueError(f"x length {s} must be a positive multiple of hop "
+                         f"{hop}")
+    t = s // hop
+    _check(x, "x", torch.float32, (c, s), x.device)
+    _check(tail, "tail", torch.float32, (c, hop), x.device)
+    nb = hop + 2
+    win, tw = _tables(2 * hop, x.device)
+    spec = torch.empty((t, c, nb), dtype=torch.complex64, device=x.device)
+    mag = (torch.empty((t, nb), dtype=torch.float32, device=x.device)
+           if with_mag else None)
+    with torch.cuda.device(x.device):
+        lib, stream = _launch_ctx(x.device)
+        code = lib.bf_wola_analysis(
+            x.data_ptr(), tail.data_ptr(), win.data_ptr(), tw.data_ptr(),
+            spec.data_ptr(), mag.data_ptr() if with_mag else None,
+            c, t, hop, stream)
+    check(lib, code, "wola_analysis")
+    wola_analysis.launches += 1
+    return spec, mag, x[:, -hop:].contiguous()
+
+
+def wola_synthesis(y_ext: torch.Tensor, out_prev: torch.Tensor):
+    """Fused WOLA synthesis; see :func:`wola_synthesis_plain` for the
+    contract. On CUDA: complex64 ``y_ext`` (C, T, hop+2) and float32
+    ``out_prev`` (C, hop), contiguous, nfft a power of two in
+    [256, 4096]."""
+    if not y_ext.is_cuda:
+        return wola_synthesis_plain(y_ext, out_prev)
+    if y_ext.dim() != 3 or y_ext.shape[1] == 0:
+        raise ValueError(f"y_ext must be (C, T>0, NB), got "
+                         f"{tuple(y_ext.shape)}")
+    c, t, nb = y_ext.shape
+    hop = nb - 2
+    _check_nfft(2 * hop)
+    _check(y_ext, "y_ext", torch.complex64, (c, t, nb), y_ext.device)
+    _check(out_prev, "out_prev", torch.float32, (c, hop), y_ext.device)
+    win, tw = _tables(2 * hop, y_ext.device)
+    out = torch.empty((c, t * hop), dtype=torch.float32, device=y_ext.device)
+    new_prev = torch.empty((c, hop), dtype=torch.float32,
+                           device=y_ext.device)
+    with torch.cuda.device(y_ext.device):
+        lib, stream = _launch_ctx(y_ext.device)
+        code = lib.bf_wola_synthesis(
+            y_ext.data_ptr(), out_prev.data_ptr(), win.data_ptr(),
+            tw.data_ptr(), out.data_ptr(), new_prev.data_ptr(), c, t, hop,
+            stream)
+    check(lib, code, "wola_synthesis")
+    wola_synthesis.launches += 1
+    return out, new_prev
+
+
+wola_analysis.launches = 0
+wola_synthesis.launches = 0

@@ -1,0 +1,26 @@
+"""Model registry. Only ``das`` is ported so far; the other nodes of
+``beamform_tpu.models`` follow in the order of ROADMAP.md §1."""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional
+
+from beamform_tpu_torch.config import ArrayConfig, EngineConfig, make_params
+from beamform_tpu_torch.geometry import ArrayGeometry
+from beamform_tpu_torch.models.das import DasModel
+
+MODEL_REGISTRY: Dict[str, Any] = {"das": DasModel}
+
+
+def get_model(name: str, engine: EngineConfig, array_cfg: ArrayConfig,
+              param_overrides: Optional[Dict[str, Any]] = None,
+              device="cpu"):
+    """Build a model from configs the way a launch file builds a node, with
+    its constants on ``device``."""
+    if name not in MODEL_REGISTRY:
+        raise NotImplementedError(
+            f"model {name!r} is not ported to beamform_tpu_torch yet; "
+            f"ported: {', '.join(MODEL_REGISTRY)} (see ROADMAP.md §1)")
+    return MODEL_REGISTRY[name](engine, ArrayGeometry.from_config(array_cfg),
+                                make_params(name, param_overrides),
+                                device=device)

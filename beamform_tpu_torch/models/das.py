@@ -1,0 +1,73 @@
+"""Delay-and-sum beamformer (frequency domain).
+
+Reference: das.cpp, per bin y(f) = w(f)^H x(f) / M (das.cpp:60-63) with
+steering weights w_m(f) = exp(-i 2 pi f tau_m), mic0 = 1 (das.cpp:27-45).
+
+Counterpart of ``beamform_tpu/models/das.py``. On CUDA the WOLA analysis and
+synthesis run in the hand-written kernels (``kernels/wola.py``); the
+weight-and-sum over mics stays plain torch, as the JAX package leaves it to
+XLA outside any Pallas kernel. Streaming state is the WOLA boundary carry.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from beamform_tpu_torch.config import DasParams, EngineConfig
+from beamform_tpu_torch.geometry import ArrayGeometry
+from beamform_tpu_torch.models import common
+from beamform_tpu_torch.models.batching import BatchableModel
+
+
+class DasModel(BatchableModel, nn.Module):
+    name = "das"
+
+    def __init__(self, engine: EngineConfig, geom: ArrayGeometry,
+                 params: DasParams = DasParams(), device="cpu"):
+        super().__init__()
+        self.engine, self.geom, self.params = engine, geom, params
+        self.rdtype, self.cdtype = common.dtypes_of(engine)
+        self.register_buffer(
+            "window", common.make_window(engine, self.rdtype).to(device))
+        self.register_buffer(
+            "freqs", torch.as_tensor(common.make_freqs_ext(engine),
+                                     device=device))
+
+    @property
+    def device(self) -> torch.device:
+        return self.window.device
+
+    def stream_init(self) -> common.WolaCarry:
+        return common.wola_carry_init(self.engine, self.geom.num_mics,
+                                      self.rdtype, self.device)
+
+    def _forward(self, x, thetas, w_idx, carry: common.WolaCarry):
+        """x (M, T*hop), unique thetas (U,), per-frame index (T,) ->
+        ((T*hop,) output, new carry)."""
+        w_uniq = common.weights_for_thetas(self.geom, self.freqs, thetas,
+                                           self.rdtype, self.cdtype)
+        spec, tail = common.stft_ext_carry(x, self.engine, self.window,
+                                           self.cdtype, carry.tail)
+        m = spec.shape[1]                                  # (T, M, NB)
+        # one steering for the whole chunk broadcasts instead of gathering
+        # a (T, M, NB) weight tensor
+        w = w_uniq if w_uniq.shape[0] == 1 else w_uniq[w_idx]
+        y = (w.conj() * spec).sum(dim=1) / m               # (T, NB)
+        out, prev = common.istft_ext_carry(y, self.engine, self.window,
+                                           carry.out_prev)
+        return out, common.WolaCarry(tail, prev)
+
+    @torch.no_grad()
+    def process_chunk(self, x_chunk, theta, state: common.WolaCarry):
+        """Streaming step: (M, C*hop) in, ((C*hop,) out, new state)."""
+        x = torch.as_tensor(x_chunk).to(device=self.device, dtype=self.rdtype)
+        t = x.shape[-1] // self.engine.hop
+        uniq, w_idx = self._theta_ctrl(theta, t)
+        return self._forward(x, uniq, w_idx, state)
+
+    def process(self, x, theta=0.0) -> torch.Tensor:
+        """x: (M, S) -> (S',), S' = S rounded up to a hop multiple."""
+        x = common.prepare_input(x, self.engine, self.rdtype, self.device)
+        out, _ = self.process_chunk(x, theta, self.stream_init())
+        return out

@@ -1,0 +1,220 @@
+"""Command-line interface of the port: ``beamform-tpu-torch das``.
+
+Counterpart of ``beamform_tpu/runtime/cli.py`` for the ported slice: the
+offline and ``--stream`` paths of the ``das`` node, WAV in and WAV out, with
+an xRT (audio-seconds per wall-second) report. ``--device`` picks the torch
+device (default ``cuda``, which must be present). Other nodes, the live
+runtimes and output resampling are not ported yet and fail with a message
+that says so.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+import time
+
+import numpy as np
+import torch
+
+from beamform_tpu_torch.config import (EngineConfig, load_array_config,
+                                       load_rosjack_config,
+                                       parse_array_config)
+from beamform_tpu_torch.models import MODEL_REGISTRY, get_model
+from beamform_tpu_torch.runtime import wav as wav_io
+
+# the JAX CLI's nodes; every one but those in MODEL_REGISTRY is not ported
+NODES = ("das", "mvdr", "lcmv", "gss", "gsc", "phase", "mcra", "phasempf",
+         "ref", "read", "write")
+# JAX CLI flags of paths not ported yet (live runtimes, live steering,
+# interference control)
+UNPORTED_FLAGS = ("--live", "--jack", "--interference-events",
+                  "--theta-control", "--interf-control")
+
+
+def build_parser():
+    p = argparse.ArgumentParser(
+        prog="beamform-tpu-torch",
+        description="Multichannel beamforming on PyTorch/CUDA (the port of "
+                    "beamform-tpu)")
+    p.add_argument("node", choices=NODES, help="beamformer / node to run")
+    p.add_argument("--in", dest="input", required=True,
+                   help="multichannel input WAV (one channel per mic)")
+    p.add_argument("--out", dest="output", default=None,
+                   help="output WAV path (default: rosjack write_file_path "
+                        "or <in>.<node>.wav)")
+    p.add_argument("--device", default="cuda",
+                   help="torch device to run on (default: cuda)")
+    p.add_argument("--array-config", default=None,
+                   help="beamform_config.yaml (mic geometry, initial angle)")
+    p.add_argument("--rosjack-config", default=None,
+                   help="rosjack_config.yaml (output path policy)")
+    p.add_argument("--theta", type=float, default=None,
+                   help="steering angle in degrees (default: config "
+                        "initial_angle)")
+    p.add_argument("--theta-timeline", default=None,
+                   help="CSV/JSON file of per-frame angles, or "
+                        "'t0:a0,t1:a1,...' second:angle change points")
+    p.add_argument("--window-size", type=int, default=1024,
+                   help="hop size in samples (JACK buffer size equivalent)")
+    p.add_argument("--dtype", choices=("float32", "float64"),
+                   default="float32")
+    p.add_argument("--out-format", choices=("pcm16", "pcm24", "pcm32",
+                                            "float32"), default="pcm16")
+    p.add_argument("--report-json", action="store_true",
+                   help="print a one-line JSON run report to stdout")
+    p.add_argument("--stream", type=int, default=None, metavar="FRAMES",
+                   help="process in streaming chunks of FRAMES hops instead "
+                        "of one call")
+    p.add_argument("--save-state", default=None,
+                   help="checkpoint the streaming state to this .npz at end")
+    p.add_argument("--load-state", default=None,
+                   help="resume streaming state from a .npz checkpoint")
+    for flag in UNPORTED_FLAGS:
+        p.add_argument(flag, nargs="?", const=True, default=None,
+                       help=argparse.SUPPRESS)
+    return p
+
+
+def theta_from_spec(spec: str, num_frames: int, hop: int, fs: int,
+                    initial: float) -> np.ndarray:
+    """Change-point spec 'sec:angle,...' (or a .json/.csv file of per-frame
+    angles) -> per-frame timeline."""
+    th = np.full(num_frames, initial, dtype=np.float64)
+    if spec.endswith((".json", ".csv")):
+        if spec.endswith(".json"):
+            with open(spec) as f:
+                vals = np.asarray(json.load(f), dtype=np.float64).ravel()
+        else:
+            vals = np.loadtxt(spec, delimiter=",", dtype=np.float64).ravel()
+        if len(vals) == 0:
+            return th
+        if len(vals) > num_frames:   # longer file: extra angles are unused
+            print(f"note: theta timeline has {len(vals)} frames, stream has "
+                  f"{num_frames}; ignoring the tail", file=sys.stderr)
+            return vals[:num_frames]
+        if len(vals) < num_frames:   # shorter file: last angle holds
+            vals = np.concatenate(
+                [vals, np.full(num_frames - len(vals), vals[-1])])
+        return vals
+    for item in spec.split(","):
+        t_s, a = item.split(":")
+        frame = int(float(t_s) * fs / hop)
+        th[min(frame, num_frames - 1):] = float(a)
+    return th
+
+
+def _not_ported(args):
+    """The reason this run asks for something not ported yet, or None."""
+    if args.node not in MODEL_REGISTRY:
+        return f"node {args.node!r}"
+    for flag in UNPORTED_FLAGS:
+        if getattr(args, flag[2:].replace("-", "_")) is not None:
+            return flag
+    return None
+
+
+def _run_stream(model, x, theta, args, hop):
+    from beamform_tpu_torch.runtime.streaming import StreamingSession
+    sess = StreamingSession(model)
+    if args.load_state:
+        sess.load(args.load_state)
+    chunk = args.stream * hop
+    xp = np.pad(x, ((0, 0), (0, (-x.shape[1]) % chunk)))
+    outs = []
+    for i in range(0, xp.shape[1], chunk):
+        th = theta
+        if isinstance(theta, np.ndarray):
+            f0 = i // hop
+            th = theta[f0:f0 + args.stream]
+            if len(th) == 0:         # trailing padded chunk: theta holds
+                th = float(theta[-1])
+        outs.append(sess.process(xp[:, i:i + chunk], th).cpu().numpy())
+    if args.save_state:
+        sess.save(args.save_state)
+    return np.concatenate(outs)[:x.shape[1] + (-x.shape[1]) % hop]
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+    missing = _not_ported(args)
+    if missing:
+        print(f"error: {missing} is not ported to beamform_tpu_torch yet "
+              "(see ROADMAP.md §1); use beamform-tpu", file=sys.stderr)
+        return 2
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("--device cuda: no CUDA device is available "
+                           "(pass --device cpu to run on the CPU)")
+
+    x, fs = wav_io.read_wav(args.input)
+    if args.array_config:
+        array_cfg = load_array_config(args.array_config)
+    else:
+        # no geometry given: co-located mics, one per input channel
+        array_cfg = parse_array_config(
+            {f"mic{i}": {"id": i, "x": 0.0, "y": 0.0}
+             for i in range(x.shape[0])})
+        print(f"note: no --array-config; assuming {x.shape[0]} co-located "
+              "mics (no steering)", file=sys.stderr)
+    rosjack = (load_rosjack_config(args.rosjack_config)
+               if args.rosjack_config else None)
+    if rosjack and rosjack.ros_output_sample_rate not in (None, fs):
+        print("error: output resampling (ros_output_sample_rate) is not "
+              "ported to beamform_tpu_torch yet (see ROADMAP.md §1)",
+              file=sys.stderr)
+        return 2
+    engine = EngineConfig(sample_rate=fs, window_size=args.window_size,
+                          dtype=args.dtype)
+    if array_cfg.num_mics not in (0, x.shape[0]):
+        print(f"note: config has {array_cfg.num_mics} mics, input has "
+              f"{x.shape[0]} channels; using the first "
+              f"{min(array_cfg.num_mics, x.shape[0])}", file=sys.stderr)
+        x = x[:array_cfg.num_mics]
+
+    theta = args.theta if args.theta is not None else array_cfg.initial_angle
+    if args.theta_timeline:
+        num_frames = -(-x.shape[1] // engine.hop)
+        theta = theta_from_spec(args.theta_timeline, num_frames, engine.hop,
+                                fs, float(theta))
+
+    model = get_model(args.node, engine, array_cfg, device=device)
+    t0 = time.perf_counter()
+    if args.stream:
+        y = _run_stream(model, x, theta, args, engine.hop)
+    else:
+        y = model.process(x, theta).cpu().numpy()
+    wall = time.perf_counter() - t0
+    audio_sec = x.shape[1] / fs
+    xrt = audio_sec / wall if wall > 0 else float("inf")
+
+    out_path = args.output
+    if out_path is None and rosjack and rosjack.write_file_path:
+        out_path = rosjack.write_file_path
+    if out_path is None:
+        out_path = args.input + f".{args.node}.wav"
+    wav_io.write_wav(out_path, y, fs, fmt=args.out_format)
+
+    clip = int(np.sum(np.abs(y) >= 1.0))
+    if clip:
+        print(f"warning: {clip} output samples out of [-1,1] range",
+              file=sys.stderr)
+    report = {
+        "node": args.node, "input": args.input, "output": out_path,
+        "device": str(device), "mics": int(x.shape[0]),
+        "samples": int(x.shape[1]), "sample_rate": fs,
+        "wall_s": round(wall, 4), "xrt": round(xrt, 2),
+        "clipped_samples": clip,
+    }
+    if args.report_json:
+        print(json.dumps(report))
+    else:
+        print(f"{args.node}: {audio_sec:.2f}s audio in {wall:.3f}s "
+              f"({xrt:.1f}x real-time, {device}) -> {out_path}",
+              file=sys.stderr)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
