@@ -4,7 +4,9 @@ The JAX package stays the reference; this package re-implements it slice
 by slice in PyTorch, with every Pallas kernel of a ported slice replaced by
 a kernel written by hand for NVIDIA Hopper (``csrc/``). Ported so far: the
 delay-and-sum path (offline, streaming, CLI) through the fused WOLA
-analysis and synthesis kernels. ROADMAP.md lists what follows.
+analysis and synthesis kernels, and MVDR (``stream`` and ``dense``
+solvers) through the streaming Cholesky solve and the batched Gauss-Jordan
+inverse kernels. ROADMAP.md lists what follows.
 
 Importing this package never loads JAX.
 """

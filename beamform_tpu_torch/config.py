@@ -13,8 +13,8 @@ reference semantics as the JAX package:
 * interference slots ``angle_interf1..`` are parsed until a value with
   ``abs(angle) > 180`` (sentinel 181.0) is found (``util.h:94-113``).
 
-Only ``das`` has a parameter class so far; the other nodes' classes arrive
-with their models (ROADMAP.md §1).
+Only the ported nodes (``das``, ``mvdr``) have parameter classes so far;
+the other nodes' classes arrive with their models (ROADMAP.md §1).
 """
 
 from __future__ import annotations
@@ -157,7 +157,28 @@ class DasParams:
     """das.cpp has no extra parameters."""
 
 
-PARAM_CLASSES = {"das": DasParams}
+@dataclass(frozen=True)
+class MvdrParams:
+    """mvdr.cpp:146-187 defaults."""
+
+    past_windows: int = 10
+    freq_mag_threshold: float = 1.5
+    freq_max: float = 4000.0
+    freq_min: float = 400.0
+    out_amp: float = 4.5
+    # implementation strategy, not a reference param (models/mvdr.py
+    # select_solver_strategy): "auto" runs the CUDA streaming solve kernel
+    # on a CUDA float32 engine within its capacity and the dense block
+    # pipeline elsewhere; "stream" forces the streaming solve (its plain
+    # version on the CPU), "dense" the block pipeline (the Gauss-Jordan
+    # kernel on CUDA); "sparse" is the deprecated float64 alias of "dense";
+    # "mega" is not ported yet and raises.
+    solver: str = "auto"
+
+
+PARAM_CLASSES = {"das": DasParams, "mvdr": MvdrParams}
+# implementation knobs are not reference parameters: no warn-and-default
+_IMPL_KNOBS = {"solver"}
 
 
 def load_launch_params(node: str, path: Optional[str] = None
@@ -189,6 +210,8 @@ def make_params(model: str, overrides: Optional[Dict[str, Any]] = None):
     kw = {k: v for k, v in (overrides or {}).items() if k in fields}
     obj = cls(**kw)
     for f in dataclasses.fields(cls):
+        if f.name in _IMPL_KNOBS:
+            continue
         if f.name in kw:
             log.info("%s/%s: %s", model, f.name, kw[f.name])
         else:

@@ -1,0 +1,141 @@
+"""Streaming MVDR solve: the CUDA kernel's wrapper and its plain-torch
+version.
+
+Counterpart of ``beamform_tpu/kernels/mvdr_stream.py``: :func:`mvdr_stream`
+replaces ``_kernel`` (reached through ``mvdr_stream_pallas``). Reference
+semantics (mvdr.cpp:84-114): per frame t and in-band bin, R is the sum of
+x x^H over the ``W`` frames BEFORE t (the carried history, then the chunk's
+own frames) times ``ones + 0.001 I`` elementwise, w = R^-1 d / (d^H R^-1 d)
+and y = w^H x_t where the energy gate passes, else the passthrough
+0.01 * x_t[mic 0] (mvdr.cpp:96). The solve is a Cholesky factorisation
+with one iterative-refinement pass, as the JAX kernel's ``refine=True``.
+The kernel is in ``csrc/mvdr_stream.cu``.
+
+Unlike the JAX kernel, the passthrough is part of the contract (the JAX
+caller applies it with a ``where``), and solves are skipped per (frame,
+bin) rather than per frame; the gated outputs are the same. Each window
+sum is computed directly, so a chunk's output does not depend on where
+the chunk starts.
+
+Routing: a CPU tensor takes the plain version (float32 or float64); a CUDA
+tensor launches the kernel or raises. ``mvdr_stream.launches`` counts
+launches.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from beamform_tpu_torch.kernels._build import (check, check_tensor,
+                                               launch_context)
+
+#: capacity of the CUDA kernel: one problem in at most 32 lanes (a warp)
+MAX_MICS = 32
+#: a block stages 32 frames plus their W-frame history, 8 bins wide, for
+#: M rounded up to a power of two, in at most the card's 227 KB of shared
+#: memory per block
+_TILE_FRAMES, _TILE_BINS, MAX_SMEM = 32, 8, 232448
+#: problems per plain-version batch (bounds its memory on the card)
+_PLAIN_CHUNK = 1 << 16
+
+
+def _lanes(m: int) -> int:
+    return max(4, 1 << (m - 1).bit_length())
+
+
+def smem_bytes(m: int, w_hist: int) -> int:
+    return (_TILE_FRAMES + w_hist) * _lanes(m) * _TILE_BINS * 8
+
+
+def stream_fits(m: int, w_hist: int) -> bool:
+    """The CUDA kernel's capacity rule: M <= 32 and the staged tile fits
+    in shared memory (W <= 195 at 16 mics, W <= 81 at 32)."""
+    return 1 <= m <= MAX_MICS and smem_bytes(m, w_hist) <= MAX_SMEM
+
+
+def white_r(m: int, rdtype, device=None) -> torch.Tensor:
+    """ones + 0.001 on the diagonal (mvdr.cpp:239-243)."""
+    return (torch.ones((m, m), dtype=rdtype, device=device)
+            + 0.001 * torch.eye(m, dtype=rdtype, device=device))
+
+
+def _cholesky_refined_solve(r: torch.Tensor, d: torch.Tensor):
+    """R^-1 d by Cholesky with one refinement pass; r (P, M, M), d (P, M)."""
+    low = torch.linalg.cholesky_ex(r).L
+    b = d[..., None]
+    u = torch.cholesky_solve(b, low)
+    u = u + torch.cholesky_solve(b - r @ u, low)
+    return u[..., 0]
+
+
+def mvdr_stream_plain(x: torch.Tensor, hist: torch.Tensor, d: torch.Tensor,
+                      w_idx: torch.Tensor, gate: torch.Tensor,
+                      ib: torch.Tensor) -> torch.Tensor:
+    """The kernel's plain version.
+
+    x     (T, M, NB) complex spectra of the chunk (the analysis output)
+    hist  (W, M, NIB) the W in-band frames before x[0]
+    d     (U, M, NIB) steering vectors; w_idx (T,) int index into U
+    gate  (T, NIB) bool energy gate; ib (NIB,) int bins of x in the band
+    -> y  (T, NIB): the MVDR output where the gate passes, 0.01 * x[:, 0]
+    where it fails.
+    """
+    w = hist.shape[0]
+    x_ib = x.index_select(2, ib)                          # (T, M, NIB)
+    ext = torch.cat([hist, x_ib], dim=0)                  # (W+T, M, NIB)
+    y = 0.01 * x_ib[:, 0, :]
+    white = white_r(x.shape[1], x.real.dtype, x.device)
+    tt, bb = torch.nonzero(gate, as_tuple=True)
+    offs = torch.arange(w, device=x.device)
+    for s in range(0, len(tt), _PLAIN_CHUNK):
+        t, b = tt[s:s + _PLAIN_CHUNK], bb[s:s + _PLAIN_CHUNK]
+        win = ext[t[:, None] + offs, :, b[:, None]]        # (P, W, M)
+        r = torch.einsum("pwi,pwj->pij", win, win.conj()) * white
+        dv = d[w_idx[t], :, b]                             # (P, M)
+        u = _cholesky_refined_solve(r, dv)
+        den = (dv.conj() * u).sum(-1)                      # d^H u
+        num = (u.conj() * x_ib[t, :, b]).sum(-1)           # u^H x
+        y[t, b] = num / den.conj()
+    return y
+
+
+def mvdr_stream(x: torch.Tensor, hist: torch.Tensor, d: torch.Tensor,
+                w_idx: torch.Tensor, gate: torch.Tensor,
+                ib: torch.Tensor) -> torch.Tensor:
+    """Streaming MVDR solve; see :func:`mvdr_stream_plain` for the
+    contract. On CUDA: complex64 x, hist and d, int64 w_idx and ib, bool
+    gate, all contiguous, within :func:`stream_fits`. The kernel checks the
+    index tensors' bounds itself, so the call never synchronises: an index
+    out of range gives NaN where the plain version raises."""
+    if not x.is_cuda:
+        return mvdr_stream_plain(x, hist, d, w_idx, gate, ib)
+    t, m, nb = x.shape
+    w, _, nib = hist.shape
+    u = d.shape[0]
+    if t == 0 or w == 0 or nib == 0:
+        raise ValueError(f"empty chunk, history or band: T={t}, W={w}, "
+                         f"NIB={nib}")
+    if not stream_fits(m, w):
+        raise ValueError(f"the CUDA MVDR stream kernel takes M <= "
+                         f"{MAX_MICS} and a tile within {MAX_SMEM} bytes "
+                         f"of shared memory, got M={m}, W={w}")
+    dev = x.device
+    check_tensor(x, "x", torch.complex64, (t, m, nb), dev)
+    check_tensor(hist, "hist", torch.complex64, (w, m, nib), dev)
+    check_tensor(d, "d", torch.complex64, (u, m, nib), dev)
+    check_tensor(w_idx, "w_idx", torch.int64, (t,), dev)
+    check_tensor(gate, "gate", torch.bool, (t, nib), dev)
+    check_tensor(ib, "ib", torch.int64, (nib,), dev)
+    y = torch.empty((t, nib), dtype=torch.complex64, device=dev)
+    with torch.cuda.device(dev):
+        lib, stream = launch_context(dev)
+        code = lib.bf_mvdr_stream(
+            x.data_ptr(), ib.data_ptr(), hist.data_ptr(), d.data_ptr(),
+            w_idx.data_ptr(), gate.data_ptr(), y.data_ptr(), t, m, nb, nib,
+            w, u, stream)
+    check(lib, code, "mvdr_stream")
+    mvdr_stream.launches += 1
+    return y
+
+
+mvdr_stream.launches = 0

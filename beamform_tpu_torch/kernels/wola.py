@@ -20,7 +20,8 @@ import numpy as np
 import torch
 
 from beamform_tpu_torch.dsp.wola import frame_signal_carry, sqrt_hann
-from beamform_tpu_torch.kernels._build import build, check
+from beamform_tpu_torch.kernels._build import (check, check_tensor,
+                                               launch_context)
 
 MIN_NFFT, MAX_NFFT = 256, 4096
 
@@ -96,20 +97,6 @@ def _check_nfft(nfft: int):
             "CPU only (see ROADMAP.md §1)")
 
 
-def _check(t: torch.Tensor, name: str, dtype, shape, device):
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise ValueError(f"{name} has dtype {t.dtype}, the CUDA kernel "
-                         f"takes {dtype}; float64 runs on the CPU only "
-                         "(see ROADMAP.md §1)")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
-                         f"{tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
 @lru_cache(maxsize=8)
 def _tables(nfft: int, device: torch.device):
     """(window (nfft,), twiddles (nfft/2, 2)) as float32 on ``device``,
@@ -119,12 +106,6 @@ def _tables(nfft: int, device: torch.device):
     win = sqrt_hann(nfft)
     return (torch.as_tensor(win, dtype=torch.float32, device=device),
             torch.as_tensor(tw, dtype=torch.float32, device=device))
-
-
-def _launch_ctx(device: torch.device):
-    lib = build()["lib"]
-    stream = torch.cuda.current_stream(device).cuda_stream
-    return lib, stream
 
 
 def wola_analysis(x: torch.Tensor, tail: torch.Tensor,
@@ -141,15 +122,15 @@ def wola_analysis(x: torch.Tensor, tail: torch.Tensor,
         raise ValueError(f"x length {s} must be a positive multiple of hop "
                          f"{hop}")
     t = s // hop
-    _check(x, "x", torch.float32, (c, s), x.device)
-    _check(tail, "tail", torch.float32, (c, hop), x.device)
+    check_tensor(x, "x", torch.float32, (c, s), x.device)
+    check_tensor(tail, "tail", torch.float32, (c, hop), x.device)
     nb = hop + 2
     win, tw = _tables(2 * hop, x.device)
     spec = torch.empty((t, c, nb), dtype=torch.complex64, device=x.device)
     mag = (torch.empty((t, nb), dtype=torch.float32, device=x.device)
            if with_mag else None)
     with torch.cuda.device(x.device):
-        lib, stream = _launch_ctx(x.device)
+        lib, stream = launch_context(x.device)
         code = lib.bf_wola_analysis(
             x.data_ptr(), tail.data_ptr(), win.data_ptr(), tw.data_ptr(),
             spec.data_ptr(), mag.data_ptr() if with_mag else None,
@@ -172,14 +153,14 @@ def wola_synthesis(y_ext: torch.Tensor, out_prev: torch.Tensor):
     c, t, nb = y_ext.shape
     hop = nb - 2
     _check_nfft(2 * hop)
-    _check(y_ext, "y_ext", torch.complex64, (c, t, nb), y_ext.device)
-    _check(out_prev, "out_prev", torch.float32, (c, hop), y_ext.device)
+    check_tensor(y_ext, "y_ext", torch.complex64, (c, t, nb), y_ext.device)
+    check_tensor(out_prev, "out_prev", torch.float32, (c, hop), y_ext.device)
     win, tw = _tables(2 * hop, y_ext.device)
     out = torch.empty((c, t * hop), dtype=torch.float32, device=y_ext.device)
     new_prev = torch.empty((c, hop), dtype=torch.float32,
                            device=y_ext.device)
     with torch.cuda.device(y_ext.device):
-        lib, stream = _launch_ctx(y_ext.device)
+        lib, stream = launch_context(y_ext.device)
         code = lib.bf_wola_synthesis(
             y_ext.data_ptr(), out_prev.data_ptr(), win.data_ptr(),
             tw.data_ptr(), out.data_ptr(), new_prev.data_ptr(), c, t, hop,

@@ -1,5 +1,5 @@
-"""Model registry. Only ``das`` is ported so far; the other nodes of
-``beamform_tpu.models`` follow in the order of ROADMAP.md §1."""
+"""Model registry. ``das`` and ``mvdr`` are ported so far; the other nodes
+of ``beamform_tpu.models`` follow in the order of ROADMAP.md §1."""
 
 from __future__ import annotations
 
@@ -8,8 +8,9 @@ from typing import Any, Dict, Optional
 from beamform_tpu_torch.config import ArrayConfig, EngineConfig, make_params
 from beamform_tpu_torch.geometry import ArrayGeometry
 from beamform_tpu_torch.models.das import DasModel
+from beamform_tpu_torch.models.mvdr import MvdrModel
 
-MODEL_REGISTRY: Dict[str, Any] = {"das": DasModel}
+MODEL_REGISTRY: Dict[str, Any] = {"das": DasModel, "mvdr": MvdrModel}
 
 
 def get_model(name: str, engine: EngineConfig, array_cfg: ArrayConfig,

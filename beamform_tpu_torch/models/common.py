@@ -1,4 +1,5 @@
-"""Shared building blocks for the beamformer models (the subset DAS needs).
+"""Shared building blocks for the beamformer models (the subset DAS and
+MVDR need).
 
 Counterpart of ``beamform_tpu/models/common.py``: per-bin C++ loops become
 batched tensor ops over ``(frames, mics, bins)``.
@@ -119,6 +120,18 @@ def stft_ext_carry(x: torch.Tensor, engine: EngineConfig,
     return spec.movedim(0, 1), new_tail
 
 
+def stft_ext_carry_mag(x: torch.Tensor, engine: EngineConfig,
+                       window: torch.Tensor, cdtype, tail: torch.Tensor):
+    """:func:`stft_ext_carry` plus the energy-gate statistic: ((T, M, NB)
+    spectra, (T, NB) :func:`mag_mean_over_mics`, new_tail). On CUDA the
+    analysis kernel computes the statistic in the same launch."""
+    if x.is_cuda:
+        _require_kernel_layout(engine)
+        return wola_analysis(x.contiguous(), tail, with_mag=True)
+    spec, new_tail = stft_ext_carry(x, engine, window, cdtype, tail)
+    return spec, mag_mean_over_mics(spec, engine.fft_win), new_tail
+
+
 def istft_ext_carry(y_ext: torch.Tensor, engine: EngineConfig,
                     window: torch.Tensor, out_prev: torch.Tensor):
     """Streaming synthesis: (T, NB) + out_prev (hop,) -> ((T*hop,) stream,
@@ -130,6 +143,22 @@ def istft_ext_carry(y_ext: torch.Tensor, engine: EngineConfig,
         return out[0], prev[0]
     p = synth_frames_ext(y_ext, engine) * window
     return overlap_add_carry(p, engine.hop, out_prev)
+
+
+def band_mask(freqs: np.ndarray, fmin: float, fmax: float) -> np.ndarray:
+    """Static in-band bin mask: fmin <= |f| <= fmax over the (quirky)
+    frequency vector (mvdr.cpp:84,109). Bin 0 is handled separately by
+    every node (y[0] = X0[0]) and is excluded here."""
+    m = (np.abs(freqs) >= fmin) & (np.abs(freqs) <= fmax)
+    m[0] = False
+    return m
+
+
+def mag_mean_over_mics(x_spec: torch.Tensor, nfft: int) -> torch.Tensor:
+    """(..., M, NB) -> (..., NB): mean |X| over mics / nfft, the energy-gate
+    statistic (mvdr.cpp:79-82: sum |X_i| / (M * fft_win)). ``nfft`` is the
+    true FFT length, independent of the bin-layout width."""
+    return x_spec.abs().sum(dim=-2) / (x_spec.shape[-2] * nfft)
 
 
 def theta_per_frame(theta, num_frames: int) -> np.ndarray:

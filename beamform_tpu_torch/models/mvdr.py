@@ -1,0 +1,237 @@
+"""MVDR beamformer with band/energy-gated frequency subset.
+
+Reference: mvdr.cpp — per bin, sample covariance R from the last
+``past_windows`` FFTs with 1.001 multiplicative diagonal loading
+(R = (P P^H) .* whiteR, mvdr.cpp:87, 239-243), distortionless weights
+w = R^-1 d / (d^H R^-1 d) (mvdr.cpp:88-94), band gate ``freq_min..freq_max``
+(else output 0), energy gate ``freq_mag_threshold`` on the mic-mean |X|
+(else passthrough 0.01 * X0), ``out_amp`` gain on the processed window
+(mvdr.cpp:112-114). The FFT history shifts every frame for in-band bins
+regardless of the energy gate (mvdr.cpp:100-101).
+
+Counterpart of ``beamform_tpu/models/mvdr.py`` with two solver strategies
+(:func:`select_solver_strategy`):
+
+* ``stream``: WOLA analysis with the gate statistic, the streaming solve
+  (``kernels/mvdr_stream.py``: the CUDA kernel, or its plain version on the
+  CPU), WOLA synthesis. The CUDA float32 production path.
+* ``dense``: the JAX package's block pipeline: outer products and the
+  banded window sum as ``torch.einsum`` (the JAX package leaves them to
+  XLA), a batched Gauss-Jordan inverse (``kernels/linalg.py``: the CUDA
+  kernel, or the plain version on the CPU) refined at the right-hand side.
+
+The JAX package's ``mega`` strategy (one fused program) is not ported yet.
+Streaming state is ``(WolaCarry, hist)``: hist is the (W, M, NIB) complex
+history of in-band spectra, as in the JAX package, so checkpoints move
+between the two. Singular cold-start covariances give non-finite weights,
+like the reference; parity scenes keep the first W hops below the gate.
+"""
+
+from __future__ import annotations
+
+import warnings
+
+import numpy as np
+import torch
+from torch import nn
+
+from beamform_tpu_torch.config import EngineConfig, MvdrParams
+from beamform_tpu_torch.geometry import ArrayGeometry
+from beamform_tpu_torch.kernels.linalg import MAX_M, gj_inverse
+# white_r is part of this module's surface; it lives with the streaming
+# solve, whose plain version needs it too
+from beamform_tpu_torch.kernels.mvdr_stream import (mvdr_stream, stream_fits,
+                                                    white_r)
+from beamform_tpu_torch.models import common
+from beamform_tpu_torch.models.batching import BatchableModel
+
+SOLVERS = ("auto", "stream", "dense", "sparse", "mega")
+
+
+def select_solver_strategy(solver: str, cdtype, m: int, w_hist: int,
+                           device: torch.device) -> str:
+    """MVDR solver policy: "stream" or "dense".
+
+    "auto" runs the streaming solve kernel on a CUDA float32 engine within
+    its capacity (``kernels/mvdr_stream.stream_fits``: M <= 32 and the
+    staged tile within shared memory), and "dense" everywhere else.
+    "stream" on CUDA runs the kernel or raises past its capacity; on the CPU
+    it runs the plain version in float32 or float64. "dense" runs the
+    Gauss-Jordan kernel for a CUDA tensor and the plain inverse on the CPU.
+    On CUDA both kernels take at most 32 mics, so more raise whatever the
+    solver; "dense" covers only a ``past_windows`` past the stream tile.
+    Legacy "sparse" with float64 maps to "dense" with a deprecation warning
+    (with float32 it is "stream"), as in the JAX package. "mega" is not
+    ported and raises. float64 on CUDA raises in the kernels.
+    """
+    if solver not in SOLVERS:
+        raise ValueError(f"unknown MVDR solver {solver!r}; one of "
+                         f"{', '.join(SOLVERS)}")
+    if solver == "mega":
+        raise NotImplementedError(
+            "solver='mega' (kernels/mega_stream.py) is not ported to "
+            "beamform_tpu_torch yet (see ROADMAP.md §2, row 4); use "
+            "'auto', 'stream' or 'dense'")
+    if solver == "sparse" and cdtype != torch.complex64:
+        warnings.warn(
+            "solver='sparse' with float64 is deprecated: the gated-sparse "
+            "path was replaced by the float32 stream kernel; running the "
+            "dense solver", DeprecationWarning, stacklevel=3)
+        return "dense"
+    cuda = torch.device(device).type == "cuda"
+    if cuda and m > MAX_M:
+        raise ValueError(
+            f"{m} mics exceed the capacity of the CUDA MVDR kernels (M <= "
+            f"{MAX_M} for both the stream and the Gauss-Jordan kernel) — run "
+            "on the CPU")
+    if solver in ("stream", "sparse"):
+        if cuda and not stream_fits(m, w_hist):
+            raise ValueError(
+                f"solver='stream' exceeds the CUDA kernel's capacity ({m} "
+                f"mics, past_windows {w_hist}; see kernels/mvdr_stream."
+                "stream_fits) — use solver='dense'")
+        return "stream"
+    if solver == "dense":
+        return "dense"
+    return ("stream" if cuda and cdtype == torch.complex64
+            and stream_fits(m, w_hist) else "dense")
+
+
+def batched_inv(a: torch.Tensor, polish: bool = True) -> torch.Tensor:
+    """Batched complex inverse of (..., M, M) (replaces Eigen .inverse()):
+    the Gauss-Jordan kernel for a CUDA tensor, the plain version on the
+    CPU. ``polish=False`` leaves the refinement to the caller
+    (:func:`mvdr_solve`)."""
+    m = a.shape[-1]
+    return gj_inverse(a.reshape(-1, m, m).contiguous(),
+                      polish=polish).reshape(a.shape)
+
+
+def mvdr_solve(r: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
+    """w = R^-1 d / (d^H R^-1 d) per bin; r (..., M, M), d (..., M).
+
+    The unpolished Gauss-Jordan inverse is refined on the right-hand side:
+    one residual step reproduces the Newton-polished solution exactly.
+    """
+    inv = batched_inv(r, polish=False)
+    x0 = (inv @ d[..., None])[..., 0]
+    resid = d - (r @ x0[..., None])[..., 0]
+    num = x0 + (inv @ resid[..., None])[..., 0]
+    den = (d.conj() * num).sum(-1)
+    return num / den[..., None]
+
+
+class MvdrModel(BatchableModel, nn.Module):
+    name = "mvdr"
+
+    def __init__(self, engine: EngineConfig, geom: ArrayGeometry,
+                 params: MvdrParams = MvdrParams(), device="cpu"):
+        super().__init__()
+        self.engine, self.geom, self.params = engine, geom, params
+        self.rdtype, self.cdtype = common.dtypes_of(engine)
+        freqs = common.make_freqs_ext(engine)
+        self.register_buffer(
+            "window", common.make_window(engine, self.rdtype).to(device))
+        self.register_buffer("freqs", torch.as_tensor(freqs, device=device))
+        # in-band bin indices (not part of the state dict: derived from
+        # params, like the JAX model's host constant ``ib``)
+        ib = np.nonzero(common.band_mask(freqs, params.freq_min,
+                                         params.freq_max))[0]
+        self.register_buffer("ib", torch.as_tensor(ib, device=device),
+                             persistent=False)
+
+    @property
+    def device(self) -> torch.device:
+        return self.window.device
+
+    def stream_init(self):
+        return (common.wola_carry_init(self.engine, self.geom.num_mics,
+                                       self.rdtype, self.device),
+                torch.zeros((self.params.past_windows, self.geom.num_mics,
+                             len(self.ib)), dtype=self.cdtype,
+                            device=self.device))
+
+    def _block_frames(self, t: int) -> int:
+        """Frames per dense covariance block, as the JAX model: the block's
+        outer-product workspace (CB+W, NIB, M, M) complex stays ~128 MB."""
+        m = self.geom.num_mics
+        budget = 128e6 / (max(len(self.ib), 1) * m * m * 8)
+        return max(8, min(128, int(budget) - self.params.past_windows, t))
+
+    def _strategy(self) -> str:
+        return select_solver_strategy(self.params.solver, self.cdtype,
+                                      self.geom.num_mics,
+                                      self.params.past_windows, self.device)
+
+    def _forward(self, x, thetas, w_idx, state):
+        """x (M, T*hop), unique thetas (U,), per-frame index (T,) ->
+        ((T*hop,) output, new state)."""
+        p = self.params
+        carry, hist0 = state
+        spec, mag, tail = common.stft_ext_carry_mag(
+            x, self.engine, self.window, self.cdtype, carry.tail)
+        w_uniq = common.weights_for_thetas(self.geom, self.freqs, thetas,
+                                           self.rdtype, self.cdtype)
+        d_ib = w_uniq.index_select(2, self.ib)              # (U, M, NIB)
+        gate = mag.index_select(1, self.ib) > p.freq_mag_threshold
+        if self._strategy() == "stream":
+            y_ib = mvdr_stream(spec, hist0, d_ib, w_idx, gate, self.ib)
+        else:
+            y_ib = self._solve_dense(spec.index_select(2, self.ib), hist0,
+                                     d_ib, w_idx, gate)
+        # history: the last W in-band frames seen (mvdr.cpp:100-101)
+        t, w = spec.shape[0], p.past_windows
+        if t >= w:
+            hist = spec[t - w:].index_select(2, self.ib)
+        else:
+            hist = torch.cat([hist0[t:], spec.index_select(2, self.ib)])
+
+        y = torch.zeros((t, spec.shape[2]), dtype=self.cdtype,
+                        device=spec.device)                  # (T, NB)
+        y.index_copy_(1, self.ib, y_ib)
+        y[:, 0] = spec[:, 0, 0]                               # mvdr.cpp:76
+        out, prev = common.istft_ext_carry(y, self.engine, self.window,
+                                           carry.out_prev)
+        return out * p.out_amp, (common.WolaCarry(tail, prev), hist)
+
+    def _solve_dense(self, x_ib, hist0, d_ib, w_idx, gate):
+        """The block pipeline: (T, M, NIB) in-band spectra -> (T, NIB)
+        gated output."""
+        w = self.params.past_windows
+        t = x_ib.shape[0]
+        cb = self._block_frames(t)
+        wr = white_r(x_ib.shape[1], self.rdtype, x_ib.device)
+        # sliding-window selector: G[c] = sum of the W frames BEFORE frame c
+        # (the reference updates history after solving, mvdr.cpp:87,100-101)
+        ones = torch.ones((cb, cb + w), dtype=self.rdtype,
+                          device=x_ib.device)
+        band = (ones.tril(w - 1) - ones.tril(-1)).to(self.cdtype)
+        ext = torch.cat([hist0, x_ib], dim=0)               # (W+T, M, NIB)
+        y_ib = torch.empty((t, x_ib.shape[2]), dtype=self.cdtype,
+                           device=x_ib.device)
+        for c0 in range(0, t, cb):
+            n = min(cb, t - c0)
+            e = ext[c0:c0 + n + w]                          # (W+n, M, NIB)
+            o = torch.einsum("tmn,tkn->tnmk", e, e.conj())
+            g = torch.einsum("ct,tnmk->cnmk", band[:n, :n + w], o)
+            d = d_ib[w_idx[c0:c0 + n]].movedim(1, -1)       # (n, NIB, M)
+            w_opt = mvdr_solve(g * wr, d)
+            xb = x_ib[c0:c0 + n]
+            y_bf = torch.einsum("tnm,tmn->tn", w_opt.conj(), xb)
+            y_ib[c0:c0 + n] = torch.where(gate[c0:c0 + n], y_bf,
+                                          0.01 * xb[:, 0, :])
+        return y_ib
+
+    @torch.no_grad()
+    def process_chunk(self, x_chunk, theta, state):
+        """Streaming step: (M, C*hop) in, ((C*hop,) out, new state)."""
+        x = torch.as_tensor(x_chunk).to(device=self.device, dtype=self.rdtype)
+        t = x.shape[-1] // self.engine.hop
+        uniq, w_idx = self._theta_ctrl(theta, t)
+        return self._forward(x, uniq, w_idx, state)
+
+    def process(self, x, theta=0.0) -> torch.Tensor:
+        """x: (M, S) -> (S',), S' = S rounded up to a hop multiple."""
+        x = common.prepare_input(x, self.engine, self.rdtype, self.device)
+        out, _ = self.process_chunk(x, theta, self.stream_init())
+        return out

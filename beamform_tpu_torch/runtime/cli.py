@@ -1,8 +1,10 @@
-"""Command-line interface of the port: ``beamform-tpu-torch das``.
+"""Command-line interface of the port: ``beamform-tpu-torch {das,mvdr}``.
 
 Counterpart of ``beamform_tpu/runtime/cli.py`` for the ported slice: the
-offline and ``--stream`` paths of the ``das`` node, WAV in and WAV out, with
-an xRT (audio-seconds per wall-second) report. ``--device`` picks the torch
+offline and ``--stream`` paths of the ``das`` and ``mvdr`` nodes, WAV in
+and WAV out, with an xRT (audio-seconds per wall-second) report. Node
+parameters start from the reference's launch preset and take ``--param
+KEY=VALUE`` overrides, as in the JAX CLI. ``--device`` picks the torch
 device (default ``cuda``, which must be present). Other nodes, the live
 runtimes and output resampling are not ported yet and fail with a message
 that says so.
@@ -19,6 +21,7 @@ import numpy as np
 import torch
 
 from beamform_tpu_torch.config import (EngineConfig, load_array_config,
+                                       load_launch_params,
                                        load_rosjack_config,
                                        parse_array_config)
 from beamform_tpu_torch.models import MODEL_REGISTRY, get_model
@@ -31,6 +34,19 @@ NODES = ("das", "mvdr", "lcmv", "gss", "gsc", "phase", "mcra", "phasempf",
 # interference control)
 UNPORTED_FLAGS = ("--live", "--jack", "--interference-events",
                   "--theta-control", "--interf-control")
+
+
+def _parse_value(v: str):
+    """A ``--param`` value: bool, int, float, else the string."""
+    low = v.lower()
+    if low in ("true", "false"):
+        return low == "true"
+    for kind in (int, float):
+        try:
+            return kind(v)
+        except ValueError:
+            pass
+    return v
 
 
 def build_parser():
@@ -60,6 +76,15 @@ def build_parser():
                    help="hop size in samples (JACK buffer size equivalent)")
     p.add_argument("--dtype", choices=("float32", "float64"),
                    default="float32")
+    p.add_argument("--param", action="append", default=[],
+                   metavar="KEY=VALUE",
+                   help="node hyperparameter override (repeatable), e.g. "
+                        "--param freq_max=16000")
+    p.add_argument("--launch-preset", choices=("on", "off"), default="on",
+                   help="start from the reference's launch/*.launch "
+                        "per-node parameters (configs/launch_params.yaml), "
+                        "then apply --param overrides; 'off' starts from "
+                        "the in-code node defaults instead (default: on)")
     p.add_argument("--out-format", choices=("pcm16", "pcm24", "pcm32",
                                             "float32"), default="pcm16")
     p.add_argument("--report-json", action="store_true",
@@ -103,6 +128,18 @@ def theta_from_spec(spec: str, num_frames: int, hop: int, fs: int,
         frame = int(float(t_s) * fs / hop)
         th[min(frame, num_frames - 1):] = float(a)
     return th
+
+
+def _node_params(args) -> dict:
+    """Launch preset (on by default) overlaid with --param overrides."""
+    params = (load_launch_params(args.node)
+              if args.launch_preset == "on" else {})
+    for kv in args.param:
+        k, sep, v = kv.partition("=")
+        if not sep:
+            raise ValueError(f"--param {kv!r} is not KEY=VALUE")
+        params[k] = _parse_value(v)
+    return params
 
 
 def _not_ported(args):
@@ -179,7 +216,8 @@ def main(argv=None) -> int:
         theta = theta_from_spec(args.theta_timeline, num_frames, engine.hop,
                                 fs, float(theta))
 
-    model = get_model(args.node, engine, array_cfg, device=device)
+    model = get_model(args.node, engine, array_cfg, _node_params(args),
+                      device=device)
     t0 = time.perf_counter()
     if args.stream:
         y = _run_stream(model, x, theta, args, engine.hop)

@@ -1,13 +1,16 @@
 """Streaming engine: chunked online processing with explicit state.
 
-Every model's streaming state is an explicit tuple of tensors (the WOLA
-boundary carries), so chunked execution equals one offline call and a
+Every model's streaming state is an explicit (possibly nested) tuple or
+NamedTuple of tensors: the WOLA boundary carry, plus e.g. MVDR's complex
+covariance history. Chunked execution equals one offline call and a
 session can be checkpointed mid-stream and resumed elsewhere.
 
 The checkpoint format is the JAX package's (``beamform_tpu.runtime
-.streaming``): an ``.npz`` with the state's leaves in order as ``leaf_0``,
-``leaf_1``, ... plus ``__frames_done__`` and ``__last_theta__``, so
-checkpoints move between the two packages in both directions.
+.streaming``): an ``.npz`` with the state's leaves as ``leaf_0``,
+``leaf_1``, ... in ``jax.tree.flatten`` order (depth first, which
+``torch.utils._pytree`` shares for tuples and NamedTuples) plus
+``__frames_done__`` and ``__last_theta__``, so checkpoints move between the
+two packages in both directions.
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+from torch.utils import _pytree as pytree
 
 from beamform_tpu_torch.config import ArrayConfig, EngineConfig
 from beamform_tpu_torch.models import get_model
@@ -59,8 +63,8 @@ class StreamingSession:
 
     def save(self, path: str):
         """Checkpoint the full streaming state to an .npz file."""
-        arrays = {f"leaf_{i}": v.cpu().numpy()
-                  for i, v in enumerate(self.state)}
+        leaves, _ = pytree.tree_flatten(self.state)
+        arrays = {f"leaf_{i}": v.cpu().numpy() for i, v in enumerate(leaves)}
         arrays["__frames_done__"] = np.asarray(self.frames_done)
         arrays["__last_theta__"] = np.asarray(self._last_theta)
         np.savez(path, **arrays)
@@ -68,10 +72,11 @@ class StreamingSession:
     def load(self, path: str):
         """Restore a checkpoint created by :meth:`save` (of either
         package)."""
+        refs, spec = pytree.tree_flatten(self.state)
         with np.load(path) as data:
-            self.state = type(self.state)(*(
-                torch.as_tensor(data[f"leaf_{i}"]).to(ref)
-                for i, ref in enumerate(self.state)))
+            self.state = pytree.tree_unflatten(
+                [torch.as_tensor(data[f"leaf_{i}"]).to(ref)
+                 for i, ref in enumerate(refs)], spec)
             self.frames_done = int(data["__frames_done__"])
             self._last_theta = float(data["__last_theta__"])
 

@@ -6,12 +6,15 @@ Run from the root of a checkout, with no arguments:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from ``beamform_tpu_torch/csrc``, checks
-each kernel against its plain-torch version at the main path's shapes,
-drives the delay-and-sum main path (16 mics of the aira16 array, 48 kHz,
-30 s, hop 1024) through ``run_offline``, ``StreamingSession`` and the CLI,
-checks the output against the float64 CPU path, and measures the DAS path's
-xRT. Every phase raises on failure, so the script exits non-zero without
-its final line; it also fails without a CUDA device. It imports no JAX.
+each kernel against its plain-torch version at the main paths' shapes,
+and drives two main paths at full width (16 mics of the aira16 array,
+48 kHz, 30 s, hop 1024) through ``run_offline``, ``StreamingSession`` and
+the CLI: delay-and-sum, and MVDR under the reference's launch preset with
+the ``auto`` (streaming solve) and ``dense`` (Gauss-Jordan) solvers, on
+noise and on a speech-like input. It checks each output against the
+float64 CPU path and measures each path's xRT. Every phase raises on
+failure, so the script exits non-zero without its final line; it also
+fails without a CUDA device. It imports no JAX.
 
 The last two lines of standard output are one JSON object per kernel
 (``{"kernels": [...]}``) and the result line
@@ -36,6 +39,15 @@ SECONDS = 30.0           # the headline input of bench.py (xrt_das_16ch_48kHz)
 HOP = 1024               # EngineConfig's default window_size
 THETA = 20.0
 KERNEL_REL_TOL = 1e-5    # kernel vs plain torch, max error / max |ref|
+# the MVDR kernels vs their plain versions, max error / max |ref|: float32
+# solves and inverses of 1.001-loaded rank-10 covariances of 16 mics, whose
+# condition reaches ~1e4, so float32 round-off is amplified up to that much
+# (measured on an H100: mvdr_stream 1.9e-4, gj_inverse 4.9e-5 and 1.2e-4
+# with the polish). Each kernel is also held to F64_FACTOR times its plain
+# float32 version's own error against the plain version in complex128.
+MVDR_STREAM_REL_TOL = 5e-4
+GJ_REL_TOL = 2e-4
+F64_FACTOR = 2.0
 DAS_ABS_TOL = 1e-3       # float32 on the card vs float64 CPU (BASELINE.md)
 STREAM_TOL = 1e-5        # chunked vs offline, both on the card
 REPS = 20
@@ -63,6 +75,32 @@ def make_input(num_mics: int, seconds: float) -> np.ndarray:
     return x
 
 
+def make_speech_input(num_mics: int, seconds: float) -> np.ndarray:
+    """bench.py's make_speech_input: pink-ish noise under a ~4 Hz syllabic
+    envelope and ~0.4 Hz phrase pauses, with a quiet lead-in, so the energy
+    gate passes a minority of (frame, bin) pairs."""
+    rng = np.random.default_rng(7)
+    n = int(seconds * FS)
+    w = rng.standard_normal((num_mics, n), dtype=np.float32)
+    spec = np.fft.rfft(w, axis=-1)
+    f = np.fft.rfftfreq(n, 1.0 / FS)
+    spec *= 1.0 / np.sqrt(1.0 + f / 300.0)
+    x = np.fft.irfft(spec, n=n, axis=-1)
+    x /= np.std(x)
+    t = np.arange(n) / FS
+    syllab = np.clip(np.sin(2 * np.pi * 3.7 * t) + 0.2, 0.0, 1.0)
+    phrase = (np.sin(2 * np.pi * 0.37 * t + 1.0) > -0.2).astype(np.float64)
+    x = 0.15 * x * (syllab * phrase)[None, :]
+    x[:, :12 * HOP] *= 1e-3
+    return x.astype(np.float32)
+
+
+def mvdr_preset(**kw) -> dict:
+    """The reference's launch preset for mvdr, plus overrides."""
+    from beamform_tpu_torch.config import load_launch_params
+    return dict(load_launch_params("mvdr"), **kw)
+
+
 def aira16():
     from beamform_tpu_torch.config import load_array_config
     return load_array_config(
@@ -72,6 +110,25 @@ def aira16():
 def engine(dtype="float32"):
     from beamform_tpu_torch.config import EngineConfig
     return EngineConfig(sample_rate=FS, window_size=HOP, dtype=dtype)
+
+
+def counters():
+    """Every kernel wrapper of the port, by the name the kernels line
+    uses."""
+    from beamform_tpu_torch.kernels import linalg, mvdr_stream, wola
+    return {"wola_analysis": wola.wola_analysis,
+            "wola_synthesis": wola.wola_synthesis,
+            "mvdr_stream": mvdr_stream.mvdr_stream,
+            "gj_inverse": linalg.gj_inverse}
+
+
+def reset_launches():
+    for fn in counters().values():
+        fn.launches = 0
+
+
+def read_launches() -> dict:
+    return {name: fn.launches for name, fn in counters().items()}
 
 
 def cuda_ms(fn, reps=REPS) -> float:
@@ -96,6 +153,26 @@ def _err(got, ref):
     abs_err = max(float((g - r).abs().max()) for g, r in zip(got, ref))
     scale = max(float(r.abs().max()) for r in ref)
     return abs_err, abs_err / scale
+
+
+def check_mvdr_kernel(label, got, ref, f64, bar, ms, plain_ms) -> float:
+    """Hold a float32 MVDR kernel's output to its plain float32 version
+    (``bar`` of peak) and, against the plain version in complex128 on the
+    same operands, to F64_FACTOR times the plain float32 version's own
+    error. Logs the numbers; returns the max abs error against plain."""
+    import torch
+    abs_err, rel_err = _err([got], [ref])
+    k64 = _err([got.cdouble()], [f64])[1]
+    p64 = _err([ref.cdouble()], [f64])[1]
+    log(f"kernel {label}: max_abs_err {abs_err:.3e} rel {rel_err:.3e} (bar "
+        f"{bar:g}); vs complex128 kernel {k64:.3e}, plain {p64:.3e} (bar "
+        f"{F64_FACTOR:g}x plain); {ms:.4f} ms vs plain torch "
+        f"{plain_ms:.4f} ms")
+    if not (rel_err <= bar and k64 <= F64_FACTOR * p64
+            and torch.isfinite(torch.view_as_real(got)).all()):
+        raise AssertionError(f"{label}: rel err {rel_err}, vs complex128 "
+                             f"{k64} (plain {p64})")
+    return abs_err
 
 
 # ---------------------------------------------------------------------------
@@ -175,16 +252,13 @@ def phase_das(x: np.ndarray):
     """The main path: run_offline on the card, counted launches, checked
     against the float64 CPU path. Returns (output, launch counts)."""
     from beamform_tpu_torch import run_offline
-    from beamform_tpu_torch.kernels import wola as kw
     cfg = aira16()
-    kw.wola_analysis.launches = 0
-    kw.wola_synthesis.launches = 0
+    reset_launches()
     y = run_offline("das", x, engine=engine(), array_cfg=cfg, theta=THETA,
                     device=DEVICE)
-    launches = {"analysis": kw.wola_analysis.launches,
-                "synthesis": kw.wola_synthesis.launches}
+    launches = read_launches()
     log(f"das main path launches: {launches}")
-    if min(launches.values()) < 1:
+    if min(launches["wola_analysis"], launches["wola_synthesis"]) < 1:
         raise AssertionError(f"a kernel of the main path never launched: "
                              f"{launches}")
     n_out = -(-x.shape[1] // HOP) * HOP
@@ -213,7 +287,8 @@ def phase_das(x: np.ndarray):
     return y, launches
 
 
-def phase_streaming(x: np.ndarray, y_offline: np.ndarray, tmp: str):
+def phase_streaming(x: np.ndarray, y_offline: np.ndarray, tmp: str,
+                    node: str = "das", params=None):
     """StreamingSession in 64-frame chunks == offline; a save/load in the
     middle resumes identically."""
     from beamform_tpu_torch.models import get_model
@@ -224,69 +299,77 @@ def phase_streaming(x: np.ndarray, y_offline: np.ndarray, tmp: str):
     starts = list(range(0, xp.shape[1], chunk))
     half = len(starts) // 2
 
-    sess = StreamingSession(get_model("das", engine(), cfg, device=DEVICE))
+    def session():
+        return StreamingSession(get_model(node, engine(), cfg, params,
+                                          device=DEVICE))
+
+    sess = session()
     outs = [sess.process(xp[:, i:i + chunk], THETA).cpu().numpy()
             for i in starts]
     got = np.concatenate(outs)[:len(y_offline)]
     err = float(np.abs(got - y_offline).max())
-    log(f"streaming 64-frame chunks vs offline: max abs err {err:.3e} "
-        f"(bar {STREAM_TOL:g})")
+    log(f"{node} streaming 64-frame chunks vs offline: max abs err "
+        f"{err:.3e} (bar {STREAM_TOL:g})")
     if not err <= STREAM_TOL:
-        raise AssertionError(f"streaming err {err}")
+        raise AssertionError(f"{node} streaming err {err}")
 
-    first = StreamingSession(get_model("das", engine(), cfg, device=DEVICE))
+    first = session()
     outs2 = [first.process(xp[:, i:i + chunk], THETA).cpu().numpy()
              for i in starts[:half]]
-    ckpt = os.path.join(tmp, "state.npz")
+    ckpt = os.path.join(tmp, f"{node}_state.npz")
     first.save(ckpt)
-    second = StreamingSession(get_model("das", engine(), cfg, device=DEVICE))
+    second = session()
     second.load(ckpt)
     outs2 += [second.process(xp[:, i:i + chunk]).cpu().numpy()
               for i in starts[half:]]
     resumed = np.concatenate(outs2)[:len(y_offline)]
     err2 = float(np.abs(resumed - got).max())
-    log(f"streaming save/load at chunk {half}: max abs err vs uninterrupted "
-        f"{err2:.3e}")
+    log(f"{node} streaming save/load at chunk {half}: max abs err vs "
+        f"uninterrupted {err2:.3e}")
     if not err2 <= STREAM_TOL or second.frames_done != len(starts) * 64:
         raise AssertionError(f"resume err {err2}, frames "
                              f"{second.frames_done}")
 
 
-def phase_cli(x: np.ndarray, tmp: str):
-    """``beamform-tpu-torch das --device cuda`` on a 2 s 16-ch WAV ==
-    run_offline on the same samples."""
+def phase_cli(x: np.ndarray, tmp: str, node: str = "das", params=None):
+    """``beamform-tpu-torch <node> --device cuda`` on a 2 s 16-ch WAV ==
+    run_offline on the same samples with ``params`` (the node's launch
+    preset, which the CLI applies by default)."""
     from beamform_tpu_torch import run_offline
     from beamform_tpu_torch.runtime import cli, wav
-    src = os.path.join(tmp, "in.wav")
-    dst = os.path.join(tmp, "out.wav")
+    src = os.path.join(tmp, f"{node}_in.wav")
+    dst = os.path.join(tmp, f"{node}_out.wav")
     wav.write_wav(src, x[:, :2 * FS], FS, fmt="float32")
     cfg_path = os.path.join(ROOT, "beamform_tpu_torch", "configs",
                             "aira16.yaml")
-    rc = cli.main(["das", "--in", src, "--out", dst, "--array-config",
+    rc = cli.main([node, "--in", src, "--out", dst, "--array-config",
                    cfg_path, "--theta", str(THETA), "--device", DEVICE,
                    "--out-format", "float32"])
     if rc != 0:
         raise AssertionError(f"cli returned {rc}")
     got, fs = wav.read_wav(dst)
     xin, _ = wav.read_wav(src)
-    ref = run_offline("das", xin, engine=engine(), array_cfg=aira16(),
-                      theta=THETA, device=DEVICE)
+    ref = run_offline(node, xin, engine=engine(), array_cfg=aira16(),
+                      theta=THETA, params=params, device=DEVICE)
     err = float(np.abs(got[0] - ref).max())
-    log(f"cli das --device {DEVICE} vs run_offline: max abs err {err:.3e}")
+    log(f"cli {node} --device {DEVICE} vs run_offline: max abs err "
+        f"{err:.3e}")
     if fs != FS or got.shape != (1, ref.shape[0]) or not err <= 1e-6:
         raise AssertionError(f"cli output mismatch: {got.shape} err {err}")
 
 
-def phase_xrt(x: np.ndarray, card: str):
-    """xRT of the DAS path after warm-up, each run synchronised: with the
+def phase_xrt(x: np.ndarray, card: str, node: str = "das", params=None,
+              label: str = "noise"):
+    """xRT of a node's path after warm-up, each run synchronised: with the
     input already on the card (model.process) and end to end from host
-    numpy to host numpy (run_offline)."""
+    numpy to host numpy (run_offline); then a torch.profiler breakdown of
+    one device-resident call."""
     import torch
     from beamform_tpu_torch import run_offline
     from beamform_tpu_torch.models import get_model
     cfg = aira16()
     seconds = x.shape[1] / FS
-    model = get_model("das", engine(), cfg, device=DEVICE)
+    model = get_model(node, engine(), cfg, params, device=DEVICE)
     xd = torch.as_tensor(x, device=DEVICE)
 
     def on_device():
@@ -294,8 +377,8 @@ def phase_xrt(x: np.ndarray, card: str):
         torch.cuda.synchronize()
 
     def host_to_host():
-        run_offline("das", x, engine=engine(), array_cfg=cfg, theta=THETA,
-                    device=DEVICE)
+        run_offline(node, x, engine=engine(), array_cfg=cfg, theta=THETA,
+                    params=params, device=DEVICE)
 
     for name, fn in (("device-resident", on_device),
                      ("host-to-host run_offline", host_to_host)):
@@ -308,7 +391,7 @@ def phase_xrt(x: np.ndarray, card: str):
             torch.cuda.synchronize()
             walls.append(time.perf_counter() - t0)
         med = float(np.median(walls))
-        log(f"das xRT ({name}, 16 ch, 48 kHz, {seconds:g} s): "
+        log(f"{node} xRT ({name}, {label}, 16 ch, 48 kHz, {seconds:g} s): "
             f"{seconds / med:.1f}x real time (median {med * 1e3:.3f} ms of "
             f"10, min {min(walls) * 1e3:.3f}, max {max(walls) * 1e3:.3f}) "
             f"on {card}")
@@ -322,11 +405,172 @@ def phase_xrt(x: np.ndarray, card: str):
                   reverse=True)
     total = sum(getattr(e, "device_time_total", 0.0) for e in rows
                 if not e.key.startswith(("aten::", "cuda")))
-    log(f"profile of one device-resident das call (device kernel time "
-        f"{total / 1e3:.3f} ms):")
+    log(f"profile of one device-resident {node} call ({label}; device "
+        f"kernel time {total / 1e3:.3f} ms):")
     for e in rows[:12]:
         log(f"  {getattr(e, 'device_time_total', 0.0) / 1e3:9.3f} ms "
             f"x{e.count:<4d} {e.key[:90]}")
+
+
+def phase_mvdr_kernels(x: np.ndarray) -> dict:
+    """The MVDR kernels against their plain versions on the card, on the
+    main path's real operands: the analysis of the 30 s input under the
+    launch preset (678 in-band bins, 1407 frames, W = 10) for mvdr_stream,
+    with one steering and with a theta timeline; one dense block of
+    covariances (82 frames x 678 bins = 55,596 16 x 16 matrices) for
+    gj_inverse. Returns the numbers per kernel."""
+    import torch
+    from beamform_tpu_torch.kernels import linalg as kl
+    from beamform_tpu_torch.kernels import mvdr_stream as km
+    from beamform_tpu_torch.kernels.wola import wola_analysis
+    from beamform_tpu_torch.models import common, get_model
+    from beamform_tpu_torch.models.mvdr import white_r
+    dev = torch.device(DEVICE)
+    params = mvdr_preset()
+    model = get_model("mvdr", engine(), aira16(), params, device=dev)
+    xp = common.prepare_input(x, engine(), torch.float32, dev)
+    spec, mag, _ = wola_analysis(xp, torch.zeros((16, HOP), device=dev),
+                                 with_mag=True)
+    t, m, _ = spec.shape
+    ib, w = model.ib, params["past_windows"]
+    gate = mag.index_select(1, ib) > params["freq_mag_threshold"]
+    hist = torch.zeros((w, m, len(ib)), dtype=torch.complex64, device=dev)
+    results = {}
+
+    th = np.full(t, 10.0)
+    th[t // 2:] = -40.0
+    for label, theta in (("one steering", THETA), ("theta timeline", th)):
+        uniq, w_idx = model._theta_ctrl(theta, t)
+        d = common.weights_for_thetas(model.geom, model.freqs, uniq,
+                                      torch.float32, torch.complex64)
+        d = d.index_select(2, ib)
+        args = (spec, hist, d, w_idx, gate, ib)
+        got = km.mvdr_stream(*args)
+        ref = km.mvdr_stream_plain(*args)
+        f64 = km.mvdr_stream_plain(spec.cdouble(), hist.cdouble(),
+                                   d.cdouble(), w_idx, gate, ib)
+        torch.cuda.synchronize()
+        ms = cuda_ms(lambda: km.mvdr_stream(*args))
+        plain_ms = cuda_ms(lambda: km.mvdr_stream_plain(*args), reps=3)
+        abs_err = check_mvdr_kernel(
+            f"mvdr_stream M={m} NIB={len(ib)} T={t} W={w} U={d.shape[0]} "
+            f"({label}; gate passes {float(gate.float().mean()):.4f} of "
+            "(frame, bin) pairs)", got, ref, f64, MVDR_STREAM_REL_TOL, ms,
+            plain_ms)
+        del f64
+        results.setdefault("mvdr_stream", dict(max_abs_err=abs_err, ms=ms,
+                                               plain_ms=plain_ms))
+
+    # one dense block, as MvdrModel._solve_dense builds it
+    cb = model._block_frames(t)
+    c0 = max(w, min(4 * cb, t - cb))              # past the quiet lead-in
+    e = spec[c0 - w:c0 + cb].index_select(2, ib)
+    o = torch.einsum("tmn,tkn->tnmk", e, e.conj())
+    ones = torch.ones((cb, cb + w), device=dev)
+    band = (ones.tril(w - 1) - ones.tril(-1)).to(torch.complex64)
+    r = (torch.einsum("ct,tnmk->cnmk", band, o)
+         * white_r(m, torch.float32, dev)).reshape(-1, m, m).contiguous()
+    for polish in (False, True):
+        got = kl.gj_inverse(r, polish=polish)
+        ref = kl.gj_inverse_plain(r, polish=polish)
+        f64 = kl.gj_inverse_plain(r.cdouble(), polish=polish)
+        torch.cuda.synchronize()
+        ms = cuda_ms(lambda: kl.gj_inverse(r, polish=polish))
+        plain_ms = cuda_ms(lambda: kl.gj_inverse_plain(r, polish=polish),
+                           reps=5)
+        abs_err = check_mvdr_kernel(
+            f"gj_inverse B={r.shape[0]} M={m} polish={polish}", got, ref,
+            f64, GJ_REL_TOL, ms, plain_ms)
+        del f64
+        if not polish:
+            results["gj_inverse"] = dict(max_abs_err=abs_err, ms=ms,
+                                         plain_ms=plain_ms)
+    return results
+
+
+def phase_mvdr(x: np.ndarray, xs: np.ndarray) -> tuple:
+    """The MVDR main path under the launch preset: run_offline with the
+    ``auto`` (streaming solve) and ``dense`` (Gauss-Jordan) solvers, on the
+    noise input and the speech-like input, with counted launches, checked
+    against the float64 CPU path and against each other. Returns (auto
+    output on noise, {solver: that path's own launch counts})."""
+    import torch
+    from beamform_tpu_torch import run_offline
+    from beamform_tpu_torch.models import common, get_model
+    cfg = aira16()
+    t = -(-x.shape[1] // HOP)
+    th = np.full(t, 10.0)
+    th[t // 2:] = -40.0
+
+    def run(sig, solver, theta=THETA, dtype="float32", device=DEVICE):
+        return run_offline("mvdr", sig, engine=engine(dtype), array_cfg=cfg,
+                           theta=theta, params=mvdr_preset(solver=solver),
+                           device=device)
+
+    # each path's own launches: one analysis, one synthesis, and one stream
+    # solve (auto) or one Gauss-Jordan inverse per dense block (dense)
+    expect = {"auto": dict(wola_analysis=1, wola_synthesis=1, mvdr_stream=1,
+                           gj_inverse=0),
+              "dense": dict(wola_analysis=1, wola_synthesis=1, mvdr_stream=0)}
+    outs, launches = {}, {}
+    for solver in ("auto", "dense"):
+        reset_launches()
+        outs[("noise", solver)] = run(x, solver)
+        launches[solver] = got = read_launches()
+        log(f"mvdr {solver} main path launches (noise): {got}")
+        if (any(got[k] != n for k, n in expect[solver].items())
+                or (solver == "dense" and got["gj_inverse"] < 1)):
+            raise AssertionError(f"mvdr {solver} launches {got}, expected "
+                                 f"{expect[solver]}")
+    outs.update({("noise timeline", "auto"): run(x, "auto", th),
+                 ("speech", "auto"): run(xs, "auto"),
+                 ("speech", "dense"): run(xs, "dense")})
+    t0 = time.perf_counter()
+    refs = {"noise": run(x, "stream", dtype="float64", device="cpu"),
+            "noise timeline": run(x, "stream", th, "float64", "cpu"),
+            "speech": run(xs, "stream", dtype="float64", device="cpu")}
+    log(f"mvdr float64 CPU references (plain stream solver, full 30 s): "
+        f"{time.perf_counter() - t0:.1f} s")
+    # The speech input's phrase pauses hold more than W frames of exact
+    # zeros, so the first frame after each pause that passes the gate sees
+    # a zero covariance: the reference's Eigen inverse, and every path
+    # here, gives non-finite output for that frame's two hops. The card
+    # must be non-finite exactly where the float64 path is, and within the
+    # bar everywhere else; the noise input must be finite throughout.
+    n_out = t * HOP
+    for (inp, solver), y in outs.items():
+        finite = np.isfinite(refs[inp])
+        if (y.shape != (n_out,) or not np.array_equal(np.isfinite(y), finite)
+                or (inp != "speech" and not finite.all())):
+            raise AssertionError(f"mvdr {inp} {solver}: shape {y.shape} / "
+                                 "non-finite samples differ")
+        dev = float(np.abs(y[finite] - refs[inp][finite]).max())
+        log(f"mvdr {inp} {solver} {DEVICE} float32 vs cpu float64: max "
+            f"sample deviation {dev:.3e} (bar {DAS_ABS_TOL:g}, peak "
+            f"{np.abs(refs[inp][finite]).max():.3e}; non-finite samples "
+            f"{int((~finite).sum())} on both)")
+        if not dev <= DAS_ABS_TOL:
+            raise AssertionError(f"mvdr {inp} {solver} deviation {dev}")
+    for inp in ("noise", "speech"):
+        finite = np.isfinite(refs[inp])
+        diff = float(np.abs(outs[(inp, "auto")][finite]
+                            - outs[(inp, "dense")][finite]).max())
+        log(f"mvdr {inp}: auto (stream kernel) vs dense (GJ kernel) on the "
+            f"card: max sample difference {diff:.3e}")
+        if not diff <= DAS_ABS_TOL:
+            raise AssertionError(f"mvdr {inp} auto vs dense {diff}")
+
+    model = get_model("mvdr", engine(), cfg, mvdr_preset(), device=DEVICE)
+    for inp, sig in (("noise", x), ("speech", xs)):
+        xp = common.prepare_input(sig, engine(), torch.float32, DEVICE)
+        _, mag, _ = common.stft_ext_carry_mag(
+            xp, engine(), model.window, torch.complex64,
+            torch.zeros((16, HOP), device=DEVICE))
+        share = float((mag.index_select(1, model.ib)
+                       > model.params.freq_mag_threshold).float().mean())
+        log(f"mvdr {inp}: the energy gate passes {share:.4f} of "
+            f"{mag.shape[0]} x {len(model.ib)} (frame, bin) pairs")
+    return outs[("noise", "auto")], launches
 
 
 def main() -> int:
@@ -343,21 +587,40 @@ def main() -> int:
 
     phase_build()
     x = make_input(16, SECONDS)
+    xs = make_speech_input(16, SECONDS)
     t_main = -(-x.shape[1] // HOP)
     kern = phase_kernels(t_main)
-    y, launches = phase_das(x)
+    kern = {"wola_analysis": kern["analysis"],
+            "wola_synthesis": kern["synthesis"], **phase_mvdr_kernels(x)}
+    y, das_launches = phase_das(x)
     with tempfile.TemporaryDirectory(prefix=".chip_smoke_", dir=ROOT) as tmp:
         phase_streaming(x, y, tmp)
         phase_cli(x, tmp)
     phase_xrt(x, card)
+    y_mvdr, mvdr_launches = phase_mvdr(x, xs)
+    with tempfile.TemporaryDirectory(prefix=".chip_smoke_", dir=ROOT) as tmp:
+        phase_streaming(x, y_mvdr, tmp, "mvdr", mvdr_preset())
+        phase_cli(x, tmp, "mvdr", mvdr_preset())
+    phase_xrt(x, card, "mvdr", mvdr_preset(), "noise")
+    phase_xrt(xs, card, "mvdr", mvdr_preset(), "speech")
+    phase_xrt(x, card, "mvdr", mvdr_preset(solver="dense"), "noise, dense")
 
-    src = "beamform_tpu_torch/csrc/wola.cu"
-    replaces = {"analysis": "beamform_tpu/kernels/wola_pallas.py:120",
-                "synthesis": "beamform_tpu/kernels/wola_pallas.py:280"}
+    launches = {"wola_analysis": das_launches["wola_analysis"],
+                "wola_synthesis": das_launches["wola_synthesis"],
+                "mvdr_stream": mvdr_launches["auto"]["mvdr_stream"],
+                "gj_inverse": mvdr_launches["dense"]["gj_inverse"]}
+    csrc = "beamform_tpu_torch/csrc/"
+    meta = {"wola_analysis": ("wola.cu",
+                              "beamform_tpu/kernels/wola_pallas.py:120"),
+            "wola_synthesis": ("wola.cu",
+                               "beamform_tpu/kernels/wola_pallas.py:280"),
+            "mvdr_stream": ("mvdr_stream.cu",
+                            "beamform_tpu/kernels/mvdr_stream.py:209"),
+            "gj_inverse": ("linalg.cu", "beamform_tpu/kernels/linalg.py:70")}
     log(json.dumps({"kernels": [
-        {"name": f"wola_{k}", "route": "cuda", "source": src,
-         "replaces": replaces[k], "launches": launches[k], **kern[k]}
-        for k in ("analysis", "synthesis")]}))
+        {"name": k, "route": "cuda", "source": csrc + meta[k][0],
+         "replaces": meta[k][1], "launches": launches[k], **kern[k]}
+        for k in meta]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -55,6 +55,12 @@ def test_interference_sentinel_and_rosjack_config():
                 == dataclasses.asdict(jcfg.parse_rosjack_config(rj)))
 
 
+def test_mvdr_params_match():
+    for kw in ({}, tcfg.load_launch_params("mvdr"), {"solver": "dense"}):
+        assert (dataclasses.asdict(tcfg.make_params("mvdr", kw))
+                == dataclasses.asdict(jcfg.make_params("mvdr", kw)))
+
+
 def test_engine_config_and_das_params_match():
     for kw in ({}, {"window_size": 128, "dtype": "float64",
                     "exact_freqs": True}):
@@ -63,4 +69,4 @@ def test_engine_config_and_das_params_match():
         assert (t.hop, t.fft_win) == (j.hop, j.fft_win)
     assert tcfg.make_params("das", {"unknown": 1}) == tcfg.DasParams()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tcfg.make_params("mvdr")
+        tcfg.make_params("lcmv")

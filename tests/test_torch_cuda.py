@@ -14,14 +14,23 @@ import pytest
 import torch
 
 from beamform_tpu_torch import run_offline
-from beamform_tpu_torch.config import EngineConfig, load_array_config
+from beamform_tpu_torch.config import (EngineConfig, load_array_config,
+                                       load_launch_params)
+from beamform_tpu_torch.kernels import linalg as kl
+from beamform_tpu_torch.kernels import mvdr_stream as km
 from beamform_tpu_torch.kernels import wola as kw
 from beamform_tpu_torch.models import get_model
+from beamform_tpu_torch.runtime.streaming import StreamingSession
 
 pytestmark = pytest.mark.cuda
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 REL = 1e-5      # float32 kernel vs float32 torch.fft: sums in another order
+# float32 MVDR solves of random covariances with W < M, conditioned only by
+# the 1.001 loading: each float32 result carries 1e-4 of round-off or more
+# (more at 32 mics), so the kernel is held to no more than twice the plain
+# float32 version's error against float64, and to 1e-3 of the plain version
+MVDR_REL = 1e-3
 
 
 @pytest.fixture
@@ -106,3 +115,158 @@ def test_das_on_cuda_matches_float64_cpu(cuda):
                       array_cfg=cfg, theta=th, device="cpu")
     # BASELINE budget is 1e-3; float32 round-off here is ~1e-6
     assert np.abs(got - ref).max() <= 1e-5
+
+
+def _cplx(rng, shape, device):
+    return torch.complex(*(torch.as_tensor(rng.standard_normal(shape),
+                                           dtype=torch.float32)
+                           for _ in range(2))).to(device)
+
+
+@pytest.mark.parametrize("m,nib,t,u", [(16, 37, 45, 1), (16, 37, 45, 3),
+                                       (3, 9, 70, 2), (32, 11, 33, 1)])
+@pytest.mark.parametrize("gate_kind", ["all", "random", "none"])
+def test_mvdr_stream_kernel_matches_plain(cuda, m, nib, t, u, gate_kind):
+    """Ragged bins and frames (not multiples of the 8 x 32 tile), several
+    steerings, a band that is not contiguous, and gate patterns."""
+    rng = np.random.default_rng(m * 100 + nib)
+    w, nb = 10, 2 * nib + 5
+    x = _cplx(rng, (t, m, nb), cuda)
+    hist = _cplx(rng, (w, m, nib), cuda)
+    d = _cplx(rng, (u, m, nib), cuda)
+    ib = torch.as_tensor(np.sort(rng.choice(np.arange(1, nb), nib,
+                                            replace=False)), device=cuda)
+    w_idx = torch.as_tensor(rng.integers(0, u, t), device=cuda)
+    gate = torch.as_tensor({"all": np.ones((t, nib), bool),
+                            "none": np.zeros((t, nib), bool),
+                            "random": rng.random((t, nib)) < 0.5}[gate_kind],
+                           device=cuda)
+    before = km.mvdr_stream.launches
+    got = km.mvdr_stream(x, hist, d, w_idx, gate, ib)
+    torch.cuda.synchronize()
+    assert km.mvdr_stream.launches == before + 1
+    ref = km.mvdr_stream_plain(x, hist, d, w_idx, gate, ib)
+    f64 = km.mvdr_stream_plain(x.cdouble(), hist.cdouble(), d.cdouble(),
+                               w_idx, gate, ib)
+    assert got.shape == (t, nib) and got.dtype == torch.complex64
+    assert torch.isfinite(torch.view_as_real(got)).all()
+    assert torch.equal(got[~gate], ref[~gate])      # 0.01 * x0, exactly
+    if gate_kind != "none":
+        assert _rel(got, ref) < MVDR_REL
+        assert _rel(got.cdouble(), f64) <= max(2 * _rel(ref.cdouble(), f64),
+                                               1e-6)
+
+
+@pytest.mark.parametrize("m", [3, 16, 32])
+@pytest.mark.parametrize("b", [1, 37, 1000])
+@pytest.mark.parametrize("polish", [False, True])
+def test_gj_inverse_kernel_matches_plain(cuda, m, b, polish):
+    rng = np.random.default_rng(m + b)
+    a = _cplx(rng, (b, m, m), cuda)
+    a = (a @ a.conj().transpose(1, 2) / m
+         + 0.5 * torch.eye(m, device=cuda)).contiguous()
+    before = kl.gj_inverse.launches
+    got = kl.gj_inverse(a, polish=polish)
+    torch.cuda.synchronize()
+    assert kl.gj_inverse.launches == before + 1
+    ref = kl.gj_inverse_plain(a, polish=polish)
+    assert got.shape == a.shape and _rel(got, ref) < REL
+    eye = torch.eye(m, device=cuda, dtype=a.dtype)
+    assert float((a @ got - eye).abs().max()) < 1e-4
+
+
+def test_mvdr_kernels_raise_on_what_they_do_not_take(cuda):
+    a = torch.eye(40, dtype=torch.complex64, device=cuda)[None]
+    with pytest.raises(ValueError, match="M <= 32"):
+        kl.gj_inverse(a)
+    with pytest.raises(ValueError, match="ROADMAP"):
+        kl.gj_inverse(a[:, :8, :8].to(torch.complex128).contiguous())
+    with pytest.raises(ValueError, match="contiguous"):
+        kl.gj_inverse(torch.eye(8, dtype=torch.complex64,
+                                device=cuda)[None].transpose(1, 2)
+                      .expand(2, 8, 8))
+    t, m, nib = 4, 4, 3
+    z = torch.zeros
+    args = dict(x=z((t, m, nib), dtype=torch.complex64, device=cuda),
+                hist=z((2, m, nib), dtype=torch.complex64, device=cuda),
+                d=z((1, m, nib), dtype=torch.complex64, device=cuda),
+                w_idx=z(t, dtype=torch.int64, device=cuda),
+                gate=z((t, nib), dtype=torch.bool, device=cuda),
+                ib=torch.arange(nib, device=cuda))
+    with pytest.raises(ValueError, match="ROADMAP"):
+        km.mvdr_stream(**dict(args, x=args["x"].cdouble()))
+    with pytest.raises(ValueError, match="dtype"):
+        km.mvdr_stream(**dict(args, w_idx=args["w_idx"].int()))
+    with pytest.raises(ValueError, match="M <= 32"):
+        km.mvdr_stream(**dict(args, x=z((t, 40, nib), dtype=torch.complex64,
+                                         device=cuda)))
+
+
+def test_mvdr_stream_index_out_of_range_gives_nan(cuda):
+    """The kernel checks its index tensors on the card: an out-of-range bin
+    poisons its own bin, an out-of-range steering its own frame's solves;
+    everything else matches the plain version."""
+    rng = np.random.default_rng(9)
+    t, m, nib, w = 40, 16, 9, 10
+    x = _cplx(rng, (t, m, 2 * nib), cuda)
+    hist = _cplx(rng, (w, m, nib), cuda)
+    d = _cplx(rng, (2, m, nib), cuda)
+    ib = torch.arange(0, 2 * nib, 2, device=cuda)
+    w_idx = torch.as_tensor(rng.integers(0, 2, t), device=cuda)
+    gate = torch.ones((t, nib), dtype=torch.bool, device=cuda)
+    gate[::3] = False
+    ref = km.mvdr_stream_plain(x, hist, d, w_idx, gate, ib)
+    for bad_ib, bad_w in ((-1, None), (2 * nib, None), (None, 2),
+                          (None, -1)):
+        ib2, w_idx2 = ib.clone(), w_idx.clone()
+        if bad_ib is not None:
+            ib2[4] = bad_ib
+        if bad_w is not None:
+            w_idx2[7] = bad_w
+        got = km.mvdr_stream(x, hist, d, w_idx2, gate, ib2)
+        nan = torch.zeros((t, nib), dtype=torch.bool, device=cuda)
+        if bad_ib is not None:
+            nan[:, 4] = True
+        else:
+            nan[7] = gate[7]
+        assert torch.isnan(got[nan]).all()
+        assert _rel(got[~nan], ref[~nan]) < MVDR_REL
+
+
+@pytest.mark.parametrize("solver", ["auto", "dense"])
+def test_mvdr_on_cuda_matches_float64_cpu(cuda, solver):
+    cfg = load_array_config(os.path.join(ROOT, "beamform_tpu_torch",
+                                         "configs", "aira16.yaml"))
+    rng = np.random.default_rng(5)
+    x = (0.1 * rng.standard_normal((16, 60 * 1024))).astype(np.float32)
+    x[:, :12 * 1024] *= 1e-4                  # quiet lead-in > past_windows
+    th = np.full(60, 20.0)
+    th[35:] = -35.0
+    params = dict(load_launch_params("mvdr"), solver=solver)
+    before = (km.mvdr_stream.launches, kl.gj_inverse.launches)
+    got = run_offline("mvdr", x, engine=EngineConfig(), array_cfg=cfg,
+                      theta=th, params=params, device=cuda)
+    ran = (km.mvdr_stream.launches - before[0],
+           kl.gj_inverse.launches - before[1])
+    assert ran == ((1, 0) if solver == "auto" else (0, 1))
+    ref = run_offline("mvdr", x, engine=EngineConfig(dtype="float64"),
+                      array_cfg=cfg, theta=th, params=params, device="cpu")
+    assert np.isfinite(got).all()
+    assert np.abs(got - ref).max() <= 1e-3      # BASELINE budget
+
+
+def test_mvdr_stream_chunks_equal_offline_on_cuda(cuda):
+    """Each window sum is recomputed from the frames it covers, so chunked
+    output equals offline output bit for bit."""
+    cfg = load_array_config(os.path.join(ROOT, "beamform_tpu_torch",
+                                         "configs", "aira16.yaml"))
+    rng = np.random.default_rng(6)
+    x = (0.1 * rng.standard_normal((16, 48 * 1024))).astype(np.float32)
+    x[:, :12 * 1024] *= 1e-4
+    model = get_model("mvdr", EngineConfig(), cfg, load_launch_params("mvdr"),
+                      device=cuda)
+    offline = model.process(x, 20.0)
+    sess = StreamingSession(model)
+    chunks = [sess.process(x[:, i:i + 7 * 1024], 20.0)
+              for i in range(0, x.shape[1], 7 * 1024)]
+    assert torch.equal(torch.cat(chunks), offline)
