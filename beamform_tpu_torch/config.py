@@ -13,8 +13,8 @@ reference semantics as the JAX package:
 * interference slots ``angle_interf1..`` are parsed until a value with
   ``abs(angle) > 180`` (sentinel 181.0) is found (``util.h:94-113``).
 
-Only the ported nodes (``das``, ``mvdr``) have parameter classes so far;
-the other nodes' classes arrive with their models (ROADMAP.md §1).
+Only the ported nodes (``das``, ``mvdr``, ``lcmv``) have parameter classes
+so far; the other nodes' classes arrive with their models (ROADMAP.md §1).
 """
 
 from __future__ import annotations
@@ -176,7 +176,20 @@ class MvdrParams:
     solver: str = "auto"
 
 
-PARAM_CLASSES = {"das": DasParams, "mvdr": MvdrParams}
+@dataclass(frozen=True)
+class LcmvParams:
+    """lcmv.cpp:171-219 defaults."""
+
+    past_windows: int = 10
+    freq_mag_threshold: float = 1.5
+    freq_max: float = 4000.0
+    freq_min: float = 400.0
+    out_amp: float = 4.5
+    interf_angle_threshold: float = 5.0
+    solver: str = "auto"          # see MvdrParams.solver
+
+
+PARAM_CLASSES = {"das": DasParams, "mvdr": MvdrParams, "lcmv": LcmvParams}
 # implementation knobs are not reference parameters: no warn-and-default
 _IMPL_KNOBS = {"solver"}
 

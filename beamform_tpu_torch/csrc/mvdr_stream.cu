@@ -39,7 +39,9 @@
 //
 // Rows beyond M are an identity block (zero spectra, unit diagonal, zero
 // steering), so the M x M solve is unchanged. Pivots use 1.f / sqrtf(),
-// not rsqrtf(); no fast-math intrinsics.
+// not rsqrtf(); no fast-math intrinsics. The staging, the window
+// covariance with its factor and the refined solve are in stream_solve.cuh,
+// shared with the LCMV kernel (lcmv_stream.cu).
 //
 // The index tensors are checked here, not on the host (which would cost a
 // synchronisation per call). Neither is dereferenced out of range: a bin
@@ -49,71 +51,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "stream_solve.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kBins = 8;      // bins per block
-constexpr int kFrames = 32;   // frames per block; kBins * kFrames problems
-
-template <int MP>
-__device__ __forceinline__ float2 shfl(unsigned mask, float2 v, int src) {
-  return make_float2(__shfl_sync(mask, v.x, src, MP),
-                     __shfl_sync(mask, v.y, src, MP));
-}
-
-template <int MP>
-__device__ __forceinline__ float2 group_sum(unsigned mask, float2 v) {
-#pragma unroll
-  for (int off = MP / 2; off > 0; off >>= 1) {
-    v.x += __shfl_xor_sync(mask, v.x, off, MP);
-    v.y += __shfl_xor_sync(mask, v.y, off, MP);
-  }
-  return v;
-}
-
-__device__ __forceinline__ float2 cmul(float2 a, float2 b) {
-  return make_float2(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);
-}
-// a * conj(b)
-__device__ __forceinline__ float2 cmul_conj(float2 a, float2 b) {
-  return make_float2(a.x * b.x + a.y * b.y, a.y * b.x - a.x * b.y);
-}
-
-// L z = b with L's row ``i`` (strictly lower part) in l and 1/L[i][i] in
-// linv; returns z_i.
-template <int MP>
-__device__ __forceinline__ float2 fwd_solve(unsigned mask,
-                                            const float2 (&l)[MP], float linv,
-                                            int i, float2 b) {
-  float2 z = make_float2(0.f, 0.f);
-#pragma unroll
-  for (int k = 0; k < MP; ++k) {
-    const float2 zk = shfl<MP>(mask, make_float2(b.x * linv, b.y * linv), k);
-    if (i == k) z = zk;
-    if (i > k) {
-      const float2 p = cmul(l[k], zk);
-      b = make_float2(b.x - p.x, b.y - p.y);
-    }
-  }
-  return z;
-}
-
-// L^H u = z; returns u_i.
-template <int MP>
-__device__ __forceinline__ float2 bwd_solve(unsigned mask,
-                                            const float2 (&l)[MP], float linv,
-                                            int i, float2 z) {
-  float2 u = make_float2(0.f, 0.f);
-#pragma unroll
-  for (int k = MP - 1; k >= 0; --k) {
-    // sum over rows j > k of conj(L[j][k]) u_j
-    float2 p = make_float2(0.f, 0.f);
-    if (i > k) p = cmul_conj(u, l[k]);
-    p = group_sum<MP>(mask, p);
-    if (i == k) u = make_float2((z.x - p.x) * linv, (z.y - p.y) * linv);
-  }
-  return u;
-}
+using namespace bf_stream;
 
 template <int MP>
 __global__ void __launch_bounds__(kThreads)
@@ -128,28 +70,8 @@ __global__ void __launch_bounds__(kThreads)
   extern __shared__ float2 xs[];  // [kFrames + W][MP][kBins]
   const int b0 = blockIdx.x * kBins;
   const int t0 = blockIdx.y * kFrames;
-  const int ne = kFrames + W;
   const float nan = __int_as_float(0x7fc00000);
-
-  // stage extended frames t0 .. t0 + kFrames + W - 1 (frame e < W is
-  // hist[e], else spec[e - W]); zeros past T, M or NIB
-  for (int idx = threadIdx.x; idx < ne * MP * kBins; idx += kThreads) {
-    const int bb = idx % kBins;
-    const int m = (idx / kBins) % MP;
-    const int e = t0 + idx / (kBins * MP);
-    const int bin = b0 + bb;
-    float2 v = make_float2(0.f, 0.f);
-    if (m < M && bin < NIB) {
-      if (e < W) {
-        v = hist[((size_t)e * M + m) * NIB + bin];
-      } else if (e - W < T) {
-        const int64_t k = ib[bin];
-        v = (k >= 0 && k < NB) ? spec[((size_t)(e - W) * M + m) * NB + k]
-                               : make_float2(nan, nan);
-      }
-    }
-    xs[idx] = v;
-  }
+  stage_frames<MP>(xs, spec, ib, hist, T, M, NB, NIB, W, b0, t0);
   __syncthreads();
 
   constexpr int kSlots = kThreads / MP;
@@ -171,45 +93,9 @@ __global__ void __launch_bounds__(kThreads)
       continue;
     }
 
-    // row i of S = sum_w x_w x_w^H over the W frames before t
-    float2 a[MP];
-#pragma unroll
-    for (int j = 0; j < MP; ++j) a[j] = make_float2(0.f, 0.f);
-    for (int w = 0; w < W; ++w) {
-      const float2* row = xs + (lt + w) * MP * kBins + bb;
-      const float2 xi = row[i * kBins];
-#pragma unroll
-      for (int j = 0; j < MP; ++j) {
-        const float2 o = cmul_conj(xi, row[j * kBins]);
-        a[j] = make_float2(a[j].x + o.x, a[j].y + o.y);
-      }
-    }
-    // R = S .* (ones + 0.001 I); real diagonal; identity rows beyond M
-    float2 r[MP];
-#pragma unroll
-    for (int j = 0; j < MP; ++j) {
-      if (j == i) a[j] = make_float2(i < M ? a[j].x + 0.001f * a[j].x : 1.f,
-                                     0.f);
-      r[j] = a[j];
-    }
-
-    // right-looking Cholesky: a[k] becomes L[i][k] for k < i
-    float linv = 0.f;
-#pragma unroll
-    for (int k = 0; k < MP; ++k) {
-      const float piv = __shfl_sync(mask, a[k].x, k, MP);
-      const float il = 1.f / sqrtf(piv);
-      if (i == k) linv = il;
-      if (i > k) a[k] = make_float2(a[k].x * il, a[k].y * il);
-#pragma unroll
-      for (int j = k + 1; j < MP; ++j) {
-        const float2 ljk = shfl<MP>(mask, a[k], j);  // L[j][k], in lane j
-        if (i >= j) {
-          const float2 p = cmul_conj(a[k], ljk);
-          a[j] = make_float2(a[j].x - p.x, a[j].y - p.y);
-        }
-      }
-    }
+    float2 a[MP], r[MP];
+    float linv;
+    covariance_cholesky<MP>(mask, xs, lt, bb, i, M, W, a, r, linv);
 
     float2 di = make_float2(0.f, 0.f);
     const int64_t ui = w_idx[t];
@@ -217,20 +103,7 @@ __global__ void __launch_bounds__(kThreads)
       di = make_float2(nan, nan);
     else if (i < M)
       di = d[((size_t)ui * M + i) * NIB + bin];
-    float2 u = bwd_solve<MP>(mask, a, linv, i,
-                             fwd_solve<MP>(mask, a, linv, i, di));
-    // one refinement pass: u += R^-1 (d - R u)
-    float2 ru = make_float2(0.f, 0.f);
-#pragma unroll
-    for (int j = 0; j < MP; ++j) {
-      const float2 p = cmul(r[j], shfl<MP>(mask, u, j));
-      ru = make_float2(ru.x + p.x, ru.y + p.y);
-    }
-    const float2 c = bwd_solve<MP>(
-        mask, a, linv, i,
-        fwd_solve<MP>(mask, a, linv, i,
-                      make_float2(di.x - ru.x, di.y - ru.y)));
-    u = make_float2(u.x + c.x, u.y + c.y);
+    const float2 u = refined_solve<MP>(mask, a, r, linv, i, di);
 
     const float2 den = group_sum<MP>(mask, cmul_conj(u, di));   // d^H u
     const float2 num = group_sum<MP>(mask, cmul_conj(xt, u));   // u^H x

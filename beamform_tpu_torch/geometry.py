@@ -99,13 +99,37 @@ def steering_weights(freqs: torch.Tensor, delays: torch.Tensor, *,
     """w[m, k] = exp(-i 2 pi f_k tau_m), row 0 the constant ``row0_scale``
     (das.cpp:27-45). ``delays (..., M)`` -> weights ``(..., M, K)`` in the
     complex dtype matching ``delays``; built from cos/sin, like the JAX
-    package, so both evaluate the same real arithmetic."""
+    package, so both evaluate the same real arithmetic.
+
+    ``row0_scale`` is a scalar, or a tensor of the delays' leading shape
+    ``(...)`` (broadcastable to it): one mic-0 scale per steering, held
+    over all bins (the LCMV constraint build gives each control row its
+    own, lcmv.cpp:50-56)."""
     cdtype = (torch.complex128 if delays.dtype == torch.float64
               else torch.complex64)
     phase = -2.0 * math.pi * delays[..., :, None] * freqs[None, :]
     w = torch.complex(torch.cos(phase), torch.sin(phase)).to(cdtype)
-    w[..., 0, :] = row0_scale
+    if torch.is_tensor(row0_scale) and row0_scale.dim():
+        w[..., 0, :] = row0_scale.to(w)[..., None]
+    else:
+        w[..., 0, :] = row0_scale
     return w
+
+
+def steering_matrix(freqs: torch.Tensor, doi_delays: torch.Tensor,
+                    interf_delays: torch.Tensor, *, row0_scale=1.0,
+                    active_mask=None) -> torch.Tensor:
+    """Constraint/steering matrix A[k][m, s] for LCMV/GSS: column 0 the
+    direction of interest, columns 1..K the interferences (lcmv.cpp:44-86).
+    ``doi_delays (M,)``, ``interf_delays (S-1, M)`` -> ``(K_bins, M, S)``.
+    ``active_mask (S,)`` zeroes inactive interference slots (the
+    fixed-capacity masked-constraint design)."""
+    all_delays = torch.cat([doi_delays[None, :], interf_delays], dim=0)
+    a = steering_weights(freqs, all_delays,
+                         row0_scale=row0_scale).permute(2, 1, 0)
+    if active_mask is not None:
+        a = a * torch.as_tensor(active_mask, device=a.device).to(a.dtype)
+    return a
 
 
 def steering_delays_np(geom: ArrayGeometry, angle_deg) -> np.ndarray:

@@ -3,11 +3,11 @@
 The sources in ``beamform_tpu_torch/csrc/*.cu`` have a plain C interface, so
 they build in seconds (no PyTorch headers): one ``nvcc -c`` per source, all
 started together, then one link into a shared library, so the build takes
-about as long as its slowest source (13.3 s for the three sources on an
-8-core H100 host, against 22 s for one ``nvcc`` of all three). The
-library lands in
-``beamform_tpu_torch/kernels/build/`` under a name keyed by a hash of the
-sources and flags; it is written under a temporary name and renamed
+about as long as its slowest source (13.3 s for the three sources of the
+MVDR slice on an 8-core H100 host, against 22 s for one ``nvcc`` of all
+three). The library lands in ``beamform_tpu_torch/kernels/build/`` under a
+name keyed by a hash of the flags, the sources and their shared headers
+(``csrc/*.cuh``); it is written under a temporary name and renamed
 atomically, so parallel processes never load a half-written file.
 
 Nothing here runs at import: the first CUDA tensor that reaches a kernel
@@ -57,9 +57,12 @@ def _sources():
     return sorted(glob.glob(os.path.join(CSRC, "*.cu")))
 
 
-def _key(sources) -> str:
+def _key(csrc: str = CSRC) -> str:
+    """Hash of the flags, the sources and the headers they include: a
+    header edit must not load a library built from the old header."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for path in sources:
+    for path in sorted(glob.glob(os.path.join(csrc, "*.cu"))
+                       + glob.glob(os.path.join(csrc, "*.cuh"))):
         with open(path, "rb") as f:
             h.update(os.path.basename(path).encode() + b"\0" + f.read())
     return h.hexdigest()[:16]
@@ -72,7 +75,7 @@ def build() -> dict:
     ``log`` is nvcc's ``-Xptxas -v`` report (empty when the library was
     already built)."""
     sources = _sources()
-    path = os.path.join(BUILD_DIR, f"libbeamform_kernels_{_key(sources)}.so")
+    path = os.path.join(BUILD_DIR, f"libbeamform_kernels_{_key()}.so")
     t0 = time.perf_counter()
     log = ""
     if not os.path.exists(path):
@@ -121,6 +124,9 @@ def _declare(lib):
     lib.bf_gj_inverse.restype = i
     lib.bf_mvdr_stream.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, p]
     lib.bf_mvdr_stream.restype = i
+    lib.bf_lcmv_stream.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, i,
+                                   p]
+    lib.bf_lcmv_stream.restype = i
 
 
 def check(lib, code: int, what: str):

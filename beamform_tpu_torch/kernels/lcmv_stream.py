@@ -1,0 +1,113 @@
+"""Streaming LCMV solve: the CUDA kernel's wrapper and its plain-torch
+version.
+
+Counterpart of ``beamform_tpu/kernels/lcmv_stream.py``: :func:`lcmv_stream`
+replaces ``_kernel`` (reached through ``lcmv_stream_pallas`` /
+``lcmv_stream_planes_pallas``), the algebra of its
+``constraint_space_apply``. Reference semantics (lcmv.cpp:108-138): per
+frame t and in-band bin, R is the sum of x x^H over the ``W`` frames
+BEFORE t times ``ones + 0.001 I`` elementwise (as MVDR), X = R^-1 C with
+C the frame's (M, S) constraint matrix, G = C^H X plus 1 on the diagonal
+of every all-zero column of C (an inactive slot of the masked timeline),
+v = G^-1 e0, and y = (X v)^H x_t where the energy gate passes, else the
+passthrough 0.01 * x_t[mic 0]. X is a Cholesky solve with one refinement
+pass, v a solve with one residual step, as in the JAX kernel. The kernel is
+in ``csrc/lcmv_stream.cu``.
+
+As for MVDR, the passthrough is part of the contract, solves are skipped
+per (frame, bin), and each window sum is computed directly, so a chunk's
+output does not depend on where the chunk starts.
+
+Routing: a CPU tensor takes the plain version (float32 or float64); a CUDA
+tensor launches the kernel or raises. ``lcmv_stream.launches`` counts
+launches.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from beamform_tpu_torch.kernels._build import (check, check_tensor,
+                                               launch_context)
+from beamform_tpu_torch.kernels.mvdr_stream import (MAX_MICS, MAX_SLOTS,
+                                                    MAX_SMEM,
+                                                    cholesky_refined_solve,
+                                                    gated_problems,
+                                                    stream_fits)
+
+
+def lcmv_stream_plain(x: torch.Tensor, hist: torch.Tensor, c: torch.Tensor,
+                      idx: torch.Tensor, gate: torch.Tensor,
+                      ib: torch.Tensor) -> torch.Tensor:
+    """The kernel's plain version.
+
+    x     (T, M, NB) complex spectra of the chunk (the analysis output)
+    hist  (W, M, NIB) the W in-band frames before x[0]
+    c     (U, S, M, NIB) constraint sets, one per unique control row
+          (column 0 the look direction; inactive slots all zero)
+    idx   (T,) int index into U; gate (T, NIB) bool energy gate
+    ib    (NIB,) int bins of x in the band
+    -> y  (T, NIB): the LCMV output where the gate passes, 0.01 * x[:, 0]
+    where it fails.
+    """
+    s = c.shape[1]
+    x_ib, batches = gated_problems(x, hist, gate, ib)
+    y = 0.01 * x_ib[:, 0, :]
+    e0 = torch.zeros((s, 1), dtype=x.dtype, device=x.device)
+    e0[0] = 1
+    for t, b, r in batches:
+        cm = c[idx[t], :, :, b].transpose(1, 2)            # (P, M, S)
+        xs = cholesky_refined_solve(r, cm)                 # R^-1 C
+        g = cm.conj().transpose(1, 2) @ xs                 # (P, S, S)
+        g = g + torch.diag_embed((cm == 0).all(dim=1).to(g.dtype))
+        # solve_ex: a singular inner matrix gives non-finite weights, as
+        # in the kernel and the reference, instead of raising
+        v = torch.linalg.solve_ex(g, e0.expand(len(t), s, 1)).result
+        v = v + torch.linalg.solve_ex(g, e0 - g @ v).result
+        w = (xs @ v)[..., 0]                               # (P, M)
+        y[t, b] = (w.conj() * x_ib[t, :, b]).sum(-1)       # w^H x
+    return y
+
+
+def lcmv_stream(x: torch.Tensor, hist: torch.Tensor, c: torch.Tensor,
+                idx: torch.Tensor, gate: torch.Tensor,
+                ib: torch.Tensor) -> torch.Tensor:
+    """Streaming LCMV solve; see :func:`lcmv_stream_plain` for the
+    contract. On CUDA: complex64 x, hist and c, int64 idx and ib, bool
+    gate, all contiguous, M <= 32 and S <= 16 within
+    ``mvdr_stream.stream_fits``. The kernel checks the index tensors'
+    bounds itself, so the call never synchronises: an index out of range
+    gives NaN where the plain version raises."""
+    if not x.is_cuda:
+        return lcmv_stream_plain(x, hist, c, idx, gate, ib)
+    t, m, nb = x.shape
+    w, _, nib = hist.shape
+    u, s = c.shape[:2]
+    if t == 0 or w == 0 or nib == 0 or u == 0:
+        raise ValueError(f"empty chunk, history, band or control rows: "
+                         f"T={t}, W={w}, NIB={nib}, U={u}")
+    if not (s >= 1 and stream_fits(m, w, s)):
+        raise ValueError(f"the CUDA LCMV stream kernel takes M <= "
+                         f"{MAX_MICS}, 1 <= S <= {MAX_SLOTS} constraint "
+                         f"slots and a tile within {MAX_SMEM} bytes of "
+                         f"shared memory, got M={m}, S={s}, W={w}")
+    dev = x.device
+    check_tensor(x, "x", torch.complex64, (t, m, nb), dev)
+    check_tensor(hist, "hist", torch.complex64, (w, m, nib), dev)
+    check_tensor(c, "c", torch.complex64, (u, s, m, nib), dev)
+    check_tensor(idx, "idx", torch.int64, (t,), dev)
+    check_tensor(gate, "gate", torch.bool, (t, nib), dev)
+    check_tensor(ib, "ib", torch.int64, (nib,), dev)
+    y = torch.empty((t, nib), dtype=torch.complex64, device=dev)
+    with torch.cuda.device(dev):
+        lib, stream = launch_context(dev)
+        code = lib.bf_lcmv_stream(
+            x.data_ptr(), ib.data_ptr(), hist.data_ptr(), c.data_ptr(),
+            idx.data_ptr(), gate.data_ptr(), y.data_ptr(), t, m, nb, nib, w,
+            u, s, stream)
+    check(lib, code, "lcmv_stream")
+    lcmv_stream.launches += 1
+    return y
+
+
+lcmv_stream.launches = 0

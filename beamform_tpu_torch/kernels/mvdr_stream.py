@@ -29,28 +29,41 @@ import torch
 from beamform_tpu_torch.kernels._build import (check, check_tensor,
                                                launch_context)
 
-#: capacity of the CUDA kernel: one problem in at most 32 lanes (a warp)
-MAX_MICS = 32
+#: capacity of the CUDA kernels: one problem in at most 32 lanes (a warp);
+#: the LCMV kernel takes at most 16 constraint slots
+MAX_MICS, MAX_SLOTS = 32, 16
 #: a block stages 32 frames plus their W-frame history, 8 bins wide, for
-#: M rounded up to a power of two, in at most the card's 227 KB of shared
-#: memory per block
-_TILE_FRAMES, _TILE_BINS, MAX_SMEM = 32, 8, 232448
+#: the lanes of a problem (a power of two), in at most the card's 227 KB
+#: of shared memory per block; 256 threads
+_TILE_FRAMES, _TILE_BINS, MAX_SMEM, _THREADS = 32, 8, 232448, 256
 #: problems per plain-version batch (bounds its memory on the card)
 _PLAIN_CHUNK = 1 << 16
 
 
-def _lanes(m: int) -> int:
-    return max(4, 1 << (m - 1).bit_length())
+def _lanes(n: int) -> int:
+    return max(4, 1 << (n - 1).bit_length())
 
 
-def smem_bytes(m: int, w_hist: int) -> int:
-    return (_TILE_FRAMES + w_hist) * _lanes(m) * _TILE_BINS * 8
+def smem_bytes(m: int, w_hist: int, s_cap: int = 0) -> int:
+    """Shared memory of one block of the MVDR kernel (``s_cap`` 0) or of
+    the LCMV kernel with ``s_cap`` constraint slots: the staged tile, and
+    for LCMV each problem's X scratch (SP x lanes, SP the slots rounded up
+    to a power of two, the lanes those of max(M, S))."""
+    if not s_cap:
+        return (_TILE_FRAMES + w_hist) * _lanes(m) * _TILE_BINS * 8
+    sp = 1 << (s_cap - 1).bit_length()
+    lp = _lanes(max(m, s_cap))
+    return ((_TILE_FRAMES + w_hist) * lp * _TILE_BINS
+            + _THREADS // lp * sp * lp) * 8
 
 
-def stream_fits(m: int, w_hist: int) -> bool:
-    """The CUDA kernel's capacity rule: M <= 32 and the staged tile fits
-    in shared memory (W <= 195 at 16 mics, W <= 81 at 32)."""
-    return 1 <= m <= MAX_MICS and smem_bytes(m, w_hist) <= MAX_SMEM
+def stream_fits(m: int, w_hist: int, s_cap: int = 0) -> bool:
+    """The streaming kernels' capacity rule: M <= 32, at most 16 slots
+    (LCMV), and the block's shared memory within the card's (MVDR: W <= 195
+    at 16 mics, W <= 81 at 32; LCMV at 16 slots: W <= 163 at 16 mics,
+    W <= 65 at 32)."""
+    return (1 <= m <= MAX_MICS and 0 <= s_cap <= MAX_SLOTS
+            and smem_bytes(m, w_hist, s_cap) <= MAX_SMEM)
 
 
 def white_r(m: int, rdtype, device=None) -> torch.Tensor:
@@ -59,13 +72,34 @@ def white_r(m: int, rdtype, device=None) -> torch.Tensor:
             + 0.001 * torch.eye(m, dtype=rdtype, device=device))
 
 
-def _cholesky_refined_solve(r: torch.Tensor, d: torch.Tensor):
-    """R^-1 d by Cholesky with one refinement pass; r (P, M, M), d (P, M)."""
+def cholesky_refined_solve(r: torch.Tensor, b: torch.Tensor):
+    """R^-1 B by Cholesky with one refinement pass; r (P, M, M), b (P, M,
+    K)."""
     low = torch.linalg.cholesky_ex(r).L
-    b = d[..., None]
     u = torch.cholesky_solve(b, low)
-    u = u + torch.cholesky_solve(b - r @ u, low)
-    return u[..., 0]
+    return u + torch.cholesky_solve(b - r @ u, low)
+
+
+def gated_problems(x: torch.Tensor, hist: torch.Tensor, gate: torch.Tensor,
+                   ib: torch.Tensor):
+    """The plain versions' common part: (x_ib, batches). ``x_ib`` (T, M,
+    NIB) are the in-band spectra; ``batches`` yields, for at most
+    ``_PLAIN_CHUNK`` gated-on (frame, bin) pairs at a time, their frame
+    and bin indices (P,) and their loaded window covariances (P, M, M)."""
+    w = hist.shape[0]
+    x_ib = x.index_select(2, ib)                          # (T, M, NIB)
+    ext = torch.cat([hist, x_ib], dim=0)                  # (W+T, M, NIB)
+    white = white_r(x.shape[1], x.real.dtype, x.device)
+    tt, bb = torch.nonzero(gate, as_tuple=True)
+    offs = torch.arange(w, device=x.device)
+
+    def batches():
+        for s in range(0, len(tt), _PLAIN_CHUNK):
+            t, b = tt[s:s + _PLAIN_CHUNK], bb[s:s + _PLAIN_CHUNK]
+            win = ext[t[:, None] + offs, :, b[:, None]]    # (P, W, M)
+            yield t, b, torch.einsum("pwi,pwj->pij", win, win.conj()) * white
+
+    return x_ib, batches()
 
 
 def mvdr_stream_plain(x: torch.Tensor, hist: torch.Tensor, d: torch.Tensor,
@@ -80,19 +114,11 @@ def mvdr_stream_plain(x: torch.Tensor, hist: torch.Tensor, d: torch.Tensor,
     -> y  (T, NIB): the MVDR output where the gate passes, 0.01 * x[:, 0]
     where it fails.
     """
-    w = hist.shape[0]
-    x_ib = x.index_select(2, ib)                          # (T, M, NIB)
-    ext = torch.cat([hist, x_ib], dim=0)                  # (W+T, M, NIB)
+    x_ib, batches = gated_problems(x, hist, gate, ib)
     y = 0.01 * x_ib[:, 0, :]
-    white = white_r(x.shape[1], x.real.dtype, x.device)
-    tt, bb = torch.nonzero(gate, as_tuple=True)
-    offs = torch.arange(w, device=x.device)
-    for s in range(0, len(tt), _PLAIN_CHUNK):
-        t, b = tt[s:s + _PLAIN_CHUNK], bb[s:s + _PLAIN_CHUNK]
-        win = ext[t[:, None] + offs, :, b[:, None]]        # (P, W, M)
-        r = torch.einsum("pwi,pwj->pij", win, win.conj()) * white
+    for t, b, r in batches:
         dv = d[w_idx[t], :, b]                             # (P, M)
-        u = _cholesky_refined_solve(r, dv)
+        u = cholesky_refined_solve(r, dv[..., None])[..., 0]
         den = (dv.conj() * u).sum(-1)                      # d^H u
         num = (u.conj() * x_ib[t, :, b]).sum(-1)           # u^H x
         y[t, b] = num / den.conj()

@@ -1,0 +1,146 @@
+"""LCMV beamformer with dynamic interference constraints.
+
+Reference: lcmv.cpp — per-bin constraint matrix C(f) = [d_doi, d_int1..K]
+(lcmv.cpp:44-86), the MVDR covariance machinery (lcmv.cpp:112-113),
+w = R^-1 C (C^H R^-1 C)^-1 with output column 0 (lcmv.cpp:116-119), the same
+band/energy gates and out_amp as MVDR.
+
+Counterpart of ``beamform_tpu/models/lcmv.py``. The reference mutates the
+interference set through the ``/theta_interference`` topic; here, as in the
+JAX package, the set is a fixed-capacity masked constraint timeline
+(``runtime/timeline.py``): each chunk reads its unique (theta,
+interference angles, active, row0) control rows and a per-frame index.
+Inactive slots are zero columns of C whose inner-matrix diagonal gets a 1,
+which leaves the active slots' solution exactly the smaller problem's.
+After the reference's first reallocation the mic-0 constraint row stays
+zero (``row0``; ``update_weights(ini=false)`` never writes it), so with M
+mics at most M-1 constraints stay usable.
+
+Solver strategies as MVDR's (``models/mvdr.select_solver_strategy``, with
+the slot count): ``stream`` runs WOLA analysis with the gate statistic,
+the streaming constraint-space solve (``kernels/lcmv_stream.py``: the CUDA
+kernel, or its plain version on the CPU) and WOLA synthesis; ``dense`` the
+block pipeline with the Gauss-Jordan inverse (``kernels/linalg.py``) for R
+and for the S x S inner matrix. Slots that no row of a chunk activates are
+dropped before either (``models/batching.trim_inactive_slots``). Streaming
+state is MVDR's ``(WolaCarry, hist)``, so checkpoints move between the two
+packages.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from beamform_tpu_torch.config import EngineConfig, LcmvParams
+from beamform_tpu_torch.geometry import (ArrayGeometry, steering_delays,
+                                         steering_weights)
+from beamform_tpu_torch.kernels.lcmv_stream import lcmv_stream
+from beamform_tpu_torch.models import common
+from beamform_tpu_torch.models.batching import BatchableConstrainedModel
+from beamform_tpu_torch.models.mvdr import (MvdrModel, batched_inv,
+                                            select_solver_strategy)
+
+
+def lcmv_solve(r: torch.Tensor, c: torch.Tensor,
+               inactive_diag=None) -> torch.Tensor:
+    """w = R^-1 C (C^H R^-1 C)^-1, output column 0 (lcmv.cpp:116-119).
+    r (..., M, M); c (..., M, S) -> (..., M).
+
+    R's unpolished Gauss-Jordan inverse is refined at the S-column
+    right-hand side (the Newton polish's value at M^2 S). ``inactive_diag``
+    (..., S): 1.0 for masked-out constraint slots, whose zero columns of C
+    leave zero rows and columns in the inner matrix; the identity added
+    there makes it block-diagonal, so the active block's inverse (hence
+    column 0 of w) is the smaller problem's. The S x S inner matrix is
+    inverted with the polish.
+    """
+    inv = batched_inv(r, polish=False)
+    ric0 = inv @ c
+    ric = ric0 + inv @ (c - r @ ric0)
+    inner = c.conj().transpose(-1, -2) @ ric                 # (..., S, S)
+    if inactive_diag is not None:
+        inner = inner + torch.diag_embed(inactive_diag.to(inner.dtype))
+    return (ric @ batched_inv(inner)[..., :1])[..., 0]
+
+
+def build_constraints_masked(geom: ArrayGeometry, freqs: torch.Tensor,
+                             theta: torch.Tensor, interf_angles: torch.Tensor,
+                             active: torch.Tensor, row0: torch.Tensor,
+                             rdtype, cdtype, ib: torch.Tensor) -> torch.Tensor:
+    """Masked constraint matrices of U control rows at once.
+
+    theta (U,); interf_angles (U, K); active (U, K) 0/1; row0 (U,).
+    Returns (U, NIB, M, K+1): column 0 the look direction, inactive columns
+    zeroed, the mic-0 row scaled by the row's ``row0`` (the post-realloc
+    quirk, lcmv.cpp:243-252 + update_weights), evaluated in ``rdtype``.
+    """
+    angles = torch.cat([theta[:, None], interf_angles], dim=1).to(rdtype)
+    tau = steering_delays(geom, angles, dtype=rdtype,
+                          device=angles.device)             # (U, S, M)
+    r0 = row0.to(rdtype)[:, None].expand(angles.shape)
+    w = steering_weights(freqs.to(rdtype), tau, row0_scale=r0)  # (U,S,M,NB)
+    cols = torch.cat([torch.ones_like(theta[:, None]), active],
+                     dim=1).to(rdtype)                      # (U, S)
+    c = w.to(cdtype) * cols[:, :, None, None].to(cdtype)
+    return c.index_select(3, ib).permute(0, 3, 2, 1)
+
+
+class LcmvModel(BatchableConstrainedModel, MvdrModel):
+    name = "lcmv"
+
+    def __init__(self, engine: EngineConfig, geom: ArrayGeometry,
+                 params: LcmvParams = LcmvParams(), interference_angles=(),
+                 device="cpu"):
+        super().__init__(engine, geom, params, device=device)
+        self.interf = tuple(interference_angles)
+
+    def _strategy(self, s_cap: int = 1) -> str:
+        return select_solver_strategy(self.params.solver, self.cdtype,
+                                      self.geom.num_mics,
+                                      self.params.past_windows, self.device,
+                                      s_cap=s_cap)
+
+    def _control_tensors(self, u_theta, u_angles, u_active, u_row0):
+        """The unique control rows -> (masked constraints in the stream
+        kernel's layout (U, S, M, NIB), inactive-slot indicator (U, S)),
+        built once per control key."""
+        c_ib = build_constraints_masked(
+            self.geom, self.freqs, u_theta, u_angles, u_active, u_row0,
+            self.rdtype, self.cdtype, self.ib)
+        inact = 1.0 - torch.cat([torch.ones_like(u_theta[:, None]),
+                                 u_active], dim=1)
+        return c_ib.permute(0, 3, 2, 1).contiguous(), inact
+
+    def _forward(self, x, c_k, inact, idx, state):
+        """x (M, T*hop); the unique control rows' constraints (U, S, M,
+        NIB) and inactive slots (U, S); the per-frame row index (T,) ->
+        ((T*hop,) output, new state)."""
+        strategy = self._strategy(c_k.shape[1])
+
+        def solve(spec, hist0, gate):
+            if strategy == "stream":
+                return lcmv_stream(spec, hist0, c_k, idx, gate, self.ib)
+            c_ib = c_k.permute(0, 3, 2, 1)                 # (U, NIB, M, S)
+            return self._solve_dense(
+                spec.index_select(2, self.ib), hist0, gate,
+                lambda r, sl: lcmv_solve(r, c_ib[idx[sl]],
+                                         inact[idx[sl]][:, None, :]))
+
+        return self._gated_forward(x, state, solve)
+
+    @torch.no_grad()
+    def process_chunk(self, x_chunk, theta, state, interference=None):
+        """Streaming step: (M, C*hop) in, ((C*hop,) out, new state).
+        ``interference``: optional InterferenceTimeline rows for this chunk
+        (the /theta_interference replacement, lcmv.cpp:258-309)."""
+        x = torch.as_tensor(x_chunk).to(device=self.device, dtype=self.rdtype)
+        t = x.shape[-1] // self.engine.hop
+        (c_k, inact), idx = self._interf_ctrl(theta, t, interference)
+        return self._forward(x, c_k, inact, idx, state)
+
+    def process(self, x, theta=0.0, interference=None) -> torch.Tensor:
+        """x: (M, S) -> (S',), S' = S rounded up to a hop multiple."""
+        x = common.prepare_input(x, self.engine, self.rdtype, self.device)
+        out, _ = self.process_chunk(x, theta, self.stream_init(),
+                                    interference)
+        return out

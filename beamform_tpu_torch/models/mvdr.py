@@ -40,7 +40,8 @@ from beamform_tpu_torch.geometry import ArrayGeometry
 from beamform_tpu_torch.kernels.linalg import MAX_M, gj_inverse
 # white_r is part of this module's surface; it lives with the streaming
 # solve, whose plain version needs it too
-from beamform_tpu_torch.kernels.mvdr_stream import (mvdr_stream, stream_fits,
+from beamform_tpu_torch.kernels.mvdr_stream import (MAX_MICS, MAX_SLOTS,
+                                                    mvdr_stream, stream_fits,
                                                     white_r)
 from beamform_tpu_torch.models import common
 from beamform_tpu_torch.models.batching import BatchableModel
@@ -49,23 +50,26 @@ SOLVERS = ("auto", "stream", "dense", "sparse", "mega")
 
 
 def select_solver_strategy(solver: str, cdtype, m: int, w_hist: int,
-                           device: torch.device) -> str:
-    """MVDR solver policy: "stream" or "dense".
+                           device: torch.device, s_cap: int = 0) -> str:
+    """MVDR/LCMV solver policy: "stream" or "dense".
 
+    ``s_cap`` is 0 for MVDR and LCMV's constraint slot count S (the look
+    direction plus the interference slots some row of the chunk uses).
     "auto" runs the streaming solve kernel on a CUDA float32 engine within
-    its capacity (``kernels/mvdr_stream.stream_fits``: M <= 32 and the
-    staged tile within shared memory), and "dense" everywhere else.
-    "stream" on CUDA runs the kernel or raises past its capacity; on the CPU
-    it runs the plain version in float32 or float64. "dense" runs the
-    Gauss-Jordan kernel for a CUDA tensor and the plain inverse on the CPU.
-    On CUDA both kernels take at most 32 mics, so more raise whatever the
-    solver; "dense" covers only a ``past_windows`` past the stream tile.
-    Legacy "sparse" with float64 maps to "dense" with a deprecation warning
-    (with float32 it is "stream"), as in the JAX package. "mega" is not
-    ported and raises. float64 on CUDA raises in the kernels.
+    its capacity (``kernels/mvdr_stream.stream_fits``: M <= 32, S <= 16
+    and the staged tile within shared memory), and "dense" everywhere
+    else. "stream" on CUDA runs the kernel or raises past its capacity; on
+    the CPU it runs the plain version in float32 or float64. "dense" runs
+    the Gauss-Jordan kernel for a CUDA tensor and the plain inverse on the
+    CPU. On CUDA the kernels take at most 32 mics, so more raise whatever
+    the solver; "dense" covers a ``past_windows`` past the stream tile and
+    LCMV's S past 16. Legacy "sparse" with float64 maps to "dense" with a
+    deprecation warning (with float32 it is "stream"), as in the JAX
+    package. "mega" is not ported and raises. float64 on CUDA raises in
+    the kernels.
     """
     if solver not in SOLVERS:
-        raise ValueError(f"unknown MVDR solver {solver!r}; one of "
+        raise ValueError(f"unknown solver {solver!r}; one of "
                          f"{', '.join(SOLVERS)}")
     if solver == "mega":
         raise NotImplementedError(
@@ -81,20 +85,22 @@ def select_solver_strategy(solver: str, cdtype, m: int, w_hist: int,
     cuda = torch.device(device).type == "cuda"
     if cuda and m > MAX_M:
         raise ValueError(
-            f"{m} mics exceed the capacity of the CUDA MVDR kernels (M <= "
-            f"{MAX_M} for both the stream and the Gauss-Jordan kernel) — run "
-            "on the CPU")
+            f"{m} mics exceed the capacity of the CUDA MVDR/LCMV kernels "
+            f"(M <= {MAX_M} for both the stream and the Gauss-Jordan "
+            "kernel) — run on the CPU")
     if solver in ("stream", "sparse"):
-        if cuda and not stream_fits(m, w_hist):
+        if cuda and not stream_fits(m, w_hist, s_cap):
+            slots = f", {s_cap} constraint slots" if s_cap else ""
             raise ValueError(
                 f"solver='stream' exceeds the CUDA kernel's capacity ({m} "
-                f"mics, past_windows {w_hist}; see kernels/mvdr_stream."
-                "stream_fits) — use solver='dense'")
+                f"mics, past_windows {w_hist}{slots}; M <= {MAX_MICS}, S <= "
+                f"{MAX_SLOTS}, see kernels/mvdr_stream.stream_fits) — use "
+                "solver='dense'")
         return "stream"
     if solver == "dense":
         return "dense"
     return ("stream" if cuda and cdtype == torch.complex64
-            and stream_fits(m, w_hist) else "dense")
+            and stream_fits(m, w_hist, s_cap) else "dense")
 
 
 def batched_inv(a: torch.Tensor, polish: bool = True) -> torch.Tensor:
@@ -166,19 +172,30 @@ class MvdrModel(BatchableModel, nn.Module):
     def _forward(self, x, thetas, w_idx, state):
         """x (M, T*hop), unique thetas (U,), per-frame index (T,) ->
         ((T*hop,) output, new state)."""
+        w_uniq = common.weights_for_thetas(self.geom, self.freqs, thetas,
+                                           self.rdtype, self.cdtype)
+        d_ib = w_uniq.index_select(2, self.ib)              # (U, M, NIB)
+
+        def solve(spec, hist0, gate):
+            if self._strategy() == "stream":
+                return mvdr_stream(spec, hist0, d_ib, w_idx, gate, self.ib)
+            return self._solve_dense(
+                spec.index_select(2, self.ib), hist0, gate,
+                lambda r, sl: mvdr_solve(r, d_ib[w_idx[sl]].movedim(1, -1)))
+
+        return self._gated_forward(x, state, solve)
+
+    def _gated_forward(self, x, state, solve):
+        """The band-gated pipeline around a solve: analysis with the gate
+        statistic, ``solve(spec (T, M, NB), hist0 (W, M, NIB), gate (T,
+        NIB)) -> (T, NIB)`` gated in-band output, the history update, bin 0
+        passed through, synthesis. Returns ((T*hop,) output, new state)."""
         p = self.params
         carry, hist0 = state
         spec, mag, tail = common.stft_ext_carry_mag(
             x, self.engine, self.window, self.cdtype, carry.tail)
-        w_uniq = common.weights_for_thetas(self.geom, self.freqs, thetas,
-                                           self.rdtype, self.cdtype)
-        d_ib = w_uniq.index_select(2, self.ib)              # (U, M, NIB)
         gate = mag.index_select(1, self.ib) > p.freq_mag_threshold
-        if self._strategy() == "stream":
-            y_ib = mvdr_stream(spec, hist0, d_ib, w_idx, gate, self.ib)
-        else:
-            y_ib = self._solve_dense(spec.index_select(2, self.ib), hist0,
-                                     d_ib, w_idx, gate)
+        y_ib = solve(spec, hist0, gate)
         # history: the last W in-band frames seen (mvdr.cpp:100-101)
         t, w = spec.shape[0], p.past_windows
         if t >= w:
@@ -194,9 +211,10 @@ class MvdrModel(BatchableModel, nn.Module):
                                            carry.out_prev)
         return out * p.out_amp, (common.WolaCarry(tail, prev), hist)
 
-    def _solve_dense(self, x_ib, hist0, d_ib, w_idx, gate):
+    def _solve_dense(self, x_ib, hist0, gate, weights):
         """The block pipeline: (T, M, NIB) in-band spectra -> (T, NIB)
-        gated output."""
+        gated output. ``weights(r (n, NIB, M, M), frames slice) -> (n, NIB,
+        M)`` turns a block's loaded covariances into beamformer weights."""
         w = self.params.past_windows
         t = x_ib.shape[0]
         cb = self._block_frames(t)
@@ -214,8 +232,7 @@ class MvdrModel(BatchableModel, nn.Module):
             e = ext[c0:c0 + n + w]                          # (W+n, M, NIB)
             o = torch.einsum("tmn,tkn->tnmk", e, e.conj())
             g = torch.einsum("ct,tnmk->cnmk", band[:n, :n + w], o)
-            d = d_ib[w_idx[c0:c0 + n]].movedim(1, -1)       # (n, NIB, M)
-            w_opt = mvdr_solve(g * wr, d)
+            w_opt = weights(g * wr, slice(c0, c0 + n))
             xb = x_ib[c0:c0 + n]
             y_bf = torch.einsum("tnm,tmn->tn", w_opt.conj(), xb)
             y_ib[c0:c0 + n] = torch.where(gate[c0:c0 + n], y_bf,

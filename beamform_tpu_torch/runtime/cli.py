@@ -1,13 +1,16 @@
-"""Command-line interface of the port: ``beamform-tpu-torch {das,mvdr}``.
+"""Command-line interface of the port: ``beamform-tpu-torch
+{das,mvdr,lcmv}``.
 
 Counterpart of ``beamform_tpu/runtime/cli.py`` for the ported slice: the
-offline and ``--stream`` paths of the ``das`` and ``mvdr`` nodes, WAV in
-and WAV out, with an xRT (audio-seconds per wall-second) report. Node
-parameters start from the reference's launch preset and take ``--param
-KEY=VALUE`` overrides, as in the JAX CLI. ``--device`` picks the torch
-device (default ``cuda``, which must be present). Other nodes, the live
-runtimes and output resampling are not ported yet and fail with a message
-that says so.
+offline and ``--stream`` paths of the ``das``, ``mvdr`` and ``lcmv``
+nodes, WAV in and WAV out, with an xRT (audio-seconds per wall-second)
+report. Node parameters start from the reference's launch preset and take
+``--param KEY=VALUE`` overrides, as in the JAX CLI. LCMV's interference
+set follows ``--interference-events`` (a replayed /theta_interference
+message list) or, under ``--stream``, ``--interf-control`` (a polled file
+of messages). ``--device`` picks the torch device (default ``cuda``, which
+must be present). Other nodes, the live runtimes, live steering and output
+resampling are not ported yet and fail with a message that says so.
 """
 
 from __future__ import annotations
@@ -26,14 +29,19 @@ from beamform_tpu_torch.config import (EngineConfig, load_array_config,
                                        parse_array_config)
 from beamform_tpu_torch.models import MODEL_REGISTRY, get_model
 from beamform_tpu_torch.runtime import wav as wav_io
+from beamform_tpu_torch.runtime.timeline import (MAX_INTERFERENCES,
+                                                 InterferenceMachine,
+                                                 InterferenceTimeline,
+                                                 InterfEvent,
+                                                 replay_interference_events)
 
 # the JAX CLI's nodes; every one but those in MODEL_REGISTRY is not ported
 NODES = ("das", "mvdr", "lcmv", "gss", "gsc", "phase", "mcra", "phasempf",
          "ref", "read", "write")
-# JAX CLI flags of paths not ported yet (live runtimes, live steering,
-# interference control)
-UNPORTED_FLAGS = ("--live", "--jack", "--interference-events",
-                  "--theta-control", "--interf-control")
+# JAX CLI flags of paths not ported yet (live runtimes, live steering)
+UNPORTED_FLAGS = ("--live", "--jack", "--theta-control")
+# the nodes that take an interference set (gss is not ported yet)
+INTERF_NODES = ("lcmv", "gss")
 
 
 def _parse_value(v: str):
@@ -96,6 +104,14 @@ def build_parser():
                    help="checkpoint the streaming state to this .npz at end")
     p.add_argument("--load-state", default=None,
                    help="resume streaming state from a .npz checkpoint")
+    p.add_argument("--interference-events", default=None,
+                   help="LCMV interference timeline: 'sec:id:angle,...' "
+                        "/theta_interference messages replayed over the "
+                        "config's interference angles")
+    p.add_argument("--interf-control", default=None, metavar="PATH",
+                   help="with --stream: a file of appended 'id:angle' "
+                        "/theta_interference messages, polled at each "
+                        "chunk")
     for flag in UNPORTED_FLAGS:
         p.add_argument(flag, nargs="?", const=True, default=None,
                        help=argparse.SUPPRESS)
@@ -130,6 +146,64 @@ def theta_from_spec(spec: str, num_frames: int, hop: int, fs: int,
     return th
 
 
+class InterfControlFile:
+    """Live /theta_interference side channel: a file where each appended
+    ``id:angle`` line is one InterfTheta message. Polled at chunk
+    boundaries; lines already consumed are skipped (the file is
+    append-only, like a topic log). Malformed lines are ignored with a
+    warning, consuming them."""
+
+    def __init__(self, path: str, machine: InterferenceMachine):
+        self.path = path
+        self.machine = machine
+        self._consumed = 0
+
+    def poll(self) -> bool:
+        """Apply newly appended messages; True when any triggered
+        update_weights."""
+        try:
+            with open(self.path) as f:
+                lines = [ln.strip() for ln in f.read().splitlines()
+                         if ln.strip()]
+        except OSError:
+            return False
+        new, self._consumed = lines[self._consumed:], len(lines)
+        any_reset = False
+        for ln in new:
+            try:
+                iid, ang = ln.split(":")
+                any_reset |= self.machine.apply(int(iid), float(ang))
+            except ValueError:
+                print(f"warning: ignoring malformed interference-control "
+                      f"line {ln!r} (want 'id:angle')", file=sys.stderr)
+        return any_reset
+
+
+def interference_from_spec(spec: str, num_frames: int, hop: int, fs: int,
+                           initial, threshold: float) -> InterferenceTimeline:
+    """'sec:id:angle,...' -> the replayed timeline at capacity
+    ``MAX_INTERFERENCES``, as the JAX CLI builds it."""
+    events = []
+    for item in spec.split(","):
+        t_s, iid, a = item.split(":")
+        events.append(InterfEvent(frame=int(float(t_s) * fs / hop),
+                                  id=int(iid), angle=float(a)))
+    return replay_interference_events(num_frames, list(initial), events,
+                                      threshold=threshold,
+                                      capacity=MAX_INTERFERENCES)
+
+
+def _chunk_rows(tl: InterferenceTimeline, f0: int, n: int):
+    """Rows f0 .. f0+n of a timeline; a padded tail holds the last row."""
+    def rows(a):
+        r = a[f0:f0 + n]
+        if len(r) < n:
+            r = np.concatenate([r, np.repeat(r[-1:], n - len(r), axis=0)])
+        return r
+    return InterferenceTimeline(rows(tl.angles), rows(tl.active),
+                                rows(tl.row0), rows(tl.reset))
+
+
 def _node_params(args) -> dict:
     """Launch preset (on by default) overlaid with --param overrides."""
     params = (load_launch_params(args.node)
@@ -152,7 +226,8 @@ def _not_ported(args):
     return None
 
 
-def _run_stream(model, x, theta, args, hop):
+def _run_stream(model, x, theta, args, hop, interference=None,
+                interf_ctrl=None):
     from beamform_tpu_torch.runtime.streaming import StreamingSession
     sess = StreamingSession(model)
     if args.load_state:
@@ -162,12 +237,19 @@ def _run_stream(model, x, theta, args, hop):
     outs = []
     for i in range(0, xp.shape[1], chunk):
         th = theta
+        f0 = i // hop
         if isinstance(theta, np.ndarray):
-            f0 = i // hop
             th = theta[f0:f0 + args.stream]
             if len(th) == 0:         # trailing padded chunk: theta holds
                 th = float(theta[-1])
-        outs.append(sess.process(xp[:, i:i + chunk], th).cpu().numpy())
+        tl = None
+        if interf_ctrl is not None:
+            reset = interf_ctrl.poll()
+            tl = interf_ctrl.machine.rows(args.stream, reset_first=reset)
+        elif interference is not None:
+            tl = _chunk_rows(interference, f0, args.stream)
+        outs.append(sess.process(xp[:, i:i + chunk], th,
+                                 interference=tl).cpu().numpy())
     if args.save_state:
         sess.save(args.save_state)
     return np.concatenate(outs)[:x.shape[1] + (-x.shape[1]) % hop]
@@ -211,21 +293,64 @@ def main(argv=None) -> int:
         x = x[:array_cfg.num_mics]
 
     theta = args.theta if args.theta is not None else array_cfg.initial_angle
+    num_frames = -(-x.shape[1] // engine.hop)
     if args.theta_timeline:
-        num_frames = -(-x.shape[1] // engine.hop)
         theta = theta_from_spec(args.theta_timeline, num_frames, engine.hop,
                                 fs, float(theta))
 
-    model = get_model(args.node, engine, array_cfg, _node_params(args),
-                      device=device)
+    params = _node_params(args)
+    model = get_model(args.node, engine, array_cfg, params, device=device)
+    thresh = float(params.get("interf_angle_threshold", 5.0))
+    interference = interf_ctrl = None
+    if args.interference_events:
+        if args.node not in INTERF_NODES:
+            print("error: --interference-events only applies to lcmv/gss",
+                  file=sys.stderr)
+            return 2
+        interference = interference_from_spec(
+            args.interference_events, num_frames, engine.hop, fs,
+            array_cfg.interference_angles, thresh)
+    if args.interf_control:
+        if args.node not in INTERF_NODES:
+            print("error: --interf-control only applies to lcmv/gss",
+                  file=sys.stderr)
+            return 2
+        if args.interference_events:
+            print("error: --interf-control and --interference-events are "
+                  "mutually exclusive (one live channel, one offline "
+                  "replay)", file=sys.stderr)
+            return 2
+        if not args.stream:
+            print("error: --interf-control needs --stream or --live "
+                  "(chunk boundaries are the polling points)",
+                  file=sys.stderr)
+            return 2
+        interf_ctrl = InterfControlFile(
+            args.interf_control,
+            InterferenceMachine(list(array_cfg.interference_angles),
+                                threshold=thresh,
+                                capacity=MAX_INTERFERENCES))
+
     t0 = time.perf_counter()
     if args.stream:
-        y = _run_stream(model, x, theta, args, engine.hop)
+        y = _run_stream(model, x, theta, args, engine.hop, interference,
+                        interf_ctrl)
+    elif interference is not None:
+        y = model.process(x, theta, interference=interference).cpu().numpy()
     else:
         y = model.process(x, theta).cpu().numpy()
     wall = time.perf_counter() - t0
     audio_sec = x.shape[1] / fs
     xrt = audio_sec / wall if wall > 0 else float("inf")
+
+    nonfinite = int(np.sum(~np.isfinite(y)))
+    if nonfinite:
+        # the reference writes whatever Eigen produced on singular
+        # covariances; as the JAX CLI, zero it at the file boundary
+        print(f"warning: {nonfinite} non-finite output samples zeroed "
+              "(singular covariance history? raise freq_mag_threshold or "
+              "start with a quieter lead-in)", file=sys.stderr)
+        y = np.nan_to_num(y, nan=0.0, posinf=0.0, neginf=0.0)
 
     out_path = args.output
     if out_path is None and rosjack and rosjack.write_file_path:

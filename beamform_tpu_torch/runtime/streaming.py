@@ -36,11 +36,13 @@ class StreamingSession:
         self.frames_done = 0
         self._last_theta = 0.0
 
-    def process(self, x_chunk, theta=None) -> torch.Tensor:
+    def process(self, x_chunk, theta=None, interference=None
+                ) -> torch.Tensor:
         """Feed (M, k*hop) samples; returns (k*hop,) output samples on the
         model's device. ``theta``: scalar or per-frame (k,) timeline for
         this chunk; the default holds the previous steering (ROS
-        latest-message-wins)."""
+        latest-message-wins). ``interference``: optional
+        ``InterferenceTimeline`` rows for this chunk (lcmv only)."""
         x = torch.as_tensor(x_chunk)
         if x.dim() == 1:
             x = x[None, :]
@@ -53,7 +55,11 @@ class StreamingSession:
                              f"{self.chunk_frames} * hop {self.hop}")
         if theta is None:
             theta = self._last_theta
-        out, self.state = self.model.process_chunk(x, theta, self.state)
+        if interference is not None:
+            out, self.state = self.model.process_chunk(
+                x, theta, self.state, interference=interference)
+        else:
+            out, self.state = self.model.process_chunk(x, theta, self.state)
         self._last_theta = float(np.atleast_1d(
             np.asarray(theta, dtype=np.float64))[-1])
         self.frames_done += x.shape[-1] // self.hop

@@ -6,15 +6,18 @@ Run from the root of a checkout, with no arguments:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from ``beamform_tpu_torch/csrc``, checks
-each kernel against its plain-torch version at the main paths' shapes,
-and drives two main paths at full width (16 mics of the aira16 array,
-48 kHz, 30 s, hop 1024) through ``run_offline``, ``StreamingSession`` and
-the CLI: delay-and-sum, and MVDR under the reference's launch preset with
-the ``auto`` (streaming solve) and ``dense`` (Gauss-Jordan) solvers, on
-noise and on a speech-like input. It checks each output against the
-float64 CPU path and measures each path's xRT. Every phase raises on
-failure, so the script exits non-zero without its final line; it also
-fails without a CUDA device. It imports no JAX.
+each of the five kernels (WOLA analysis and synthesis, the MVDR and LCMV
+streaming solves, the Gauss-Jordan inverse) against its plain-torch
+version at the main paths' shapes, and drives three main paths at full
+width (16 mics of the aira16 array, 48 kHz, 30 s, hop 1024) through
+``run_offline``, ``StreamingSession`` and the CLI: delay-and-sum, and MVDR
+and LCMV under the reference's launch presets with the ``auto`` (streaming
+solve) and ``dense`` (Gauss-Jordan) solvers, on noise and on a speech-like
+input; LCMV also with two static interferers and with an interference
+event timeline. It checks each output against the float64 CPU path and
+measures each path's xRT. Every phase raises on failure, so the script
+exits non-zero without its final line; it also fails without a CUDA
+device. It imports no JAX.
 
 The last two lines of standard output are one JSON object per kernel
 (``{"kernels": [...]}``) and the result line
@@ -47,9 +50,22 @@ KERNEL_REL_TOL = 1e-5    # kernel vs plain torch, max error / max |ref|
 # float32 version's own error against the plain version in complex128.
 MVDR_STREAM_REL_TOL = 5e-4
 GJ_REL_TOL = 2e-4
+# lcmv_stream vs its plain version, max error / max |ref|, at the main
+# shapes with interferers: the MVDR solve's conditioning, compounded by the
+# inner system (measured on an H100: 1.7e-3 at S = 3 and S = 16); with one
+# constraint the algebra is MVDR's, and so is the bar
+LCMV_STREAM_REL_TOL = 3e-3
 F64_FACTOR = 2.0
 DAS_ABS_TOL = 1e-3       # float32 on the card vs float64 CPU (BASELINE.md)
 STREAM_TOL = 1e-5        # chunked vs offline, both on the card
+# LCMV with one constraint vs MVDR, both float32 on the card, absolute
+# (measured on an H100: 3.0e-8 at a peak of 0.14)
+LCMV_MVDR_TOL = 1e-6
+# the LCMV scenes: two static interferers, and an event timeline over one
+# (an add with the row-0 quirk at 10 s, a proximity removal at 20 s under
+# the preset's threshold 1.0, replayed at capacity 15)
+INTERFERERS = (70.0, -60.0)
+EVENTS = ((70.0,), "10:2:-60,20:2:70.5")
 REPS = 20
 
 
@@ -101,10 +117,28 @@ def mvdr_preset(**kw) -> dict:
     return dict(load_launch_params("mvdr"), **kw)
 
 
-def aira16():
+def lcmv_preset(**kw) -> dict:
+    """The reference's launch preset for lcmv, plus overrides."""
+    from beamform_tpu_torch.config import load_launch_params
+    return dict(load_launch_params("lcmv"), **kw)
+
+
+def aira16(interference=()):
+    """The aira16 array, with ``interference`` as its static set."""
+    import dataclasses
     from beamform_tpu_torch.config import load_array_config
-    return load_array_config(
+    cfg = load_array_config(
         os.path.join(ROOT, "beamform_tpu_torch", "configs", "aira16.yaml"))
+    return dataclasses.replace(cfg, interference_angles=tuple(interference))
+
+
+def event_timeline(num_frames: int, spec: str = EVENTS[1]):
+    """The CLI's replay of ``spec`` over EVENTS' initial set, with the lcmv
+    preset's threshold."""
+    from beamform_tpu_torch.runtime.cli import interference_from_spec
+    return interference_from_spec(
+        spec, num_frames, HOP, FS, EVENTS[0],
+        lcmv_preset()["interf_angle_threshold"])
 
 
 def engine(dtype="float32"):
@@ -115,11 +149,13 @@ def engine(dtype="float32"):
 def counters():
     """Every kernel wrapper of the port, by the name the kernels line
     uses."""
-    from beamform_tpu_torch.kernels import linalg, mvdr_stream, wola
+    from beamform_tpu_torch.kernels import (lcmv_stream, linalg,
+                                            mvdr_stream, wola)
     return {"wola_analysis": wola.wola_analysis,
             "wola_synthesis": wola.wola_synthesis,
             "mvdr_stream": mvdr_stream.mvdr_stream,
-            "gj_inverse": linalg.gj_inverse}
+            "gj_inverse": linalg.gj_inverse,
+            "lcmv_stream": lcmv_stream.lcmv_stream}
 
 
 def reset_launches():
@@ -155,11 +191,12 @@ def _err(got, ref):
     return abs_err, abs_err / scale
 
 
-def check_mvdr_kernel(label, got, ref, f64, bar, ms, plain_ms) -> float:
-    """Hold a float32 MVDR kernel's output to its plain float32 version
-    (``bar`` of peak) and, against the plain version in complex128 on the
-    same operands, to F64_FACTOR times the plain float32 version's own
-    error. Logs the numbers; returns the max abs error against plain."""
+def check_solve_kernel(label, got, ref, f64, bar, ms, plain_ms) -> float:
+    """Hold a float32 solve kernel's output (MVDR, LCMV, Gauss-Jordan) to
+    its plain float32 version (``bar`` of peak) and, against the plain
+    version in complex128 on the same operands, to F64_FACTOR times the
+    plain float32 version's own error. Logs the numbers; returns the max
+    abs error against plain."""
     import torch
     abs_err, rel_err = _err([got], [ref])
     k64 = _err([got.cdouble()], [f64])[1]
@@ -288,9 +325,9 @@ def phase_das(x: np.ndarray):
 
 
 def phase_streaming(x: np.ndarray, y_offline: np.ndarray, tmp: str,
-                    node: str = "das", params=None):
+                    node: str = "das", params=None, tol=STREAM_TOL):
     """StreamingSession in 64-frame chunks == offline; a save/load in the
-    middle resumes identically."""
+    middle resumes identically (within ``tol``; 0 is bit for bit)."""
     from beamform_tpu_torch.models import get_model
     from beamform_tpu_torch.runtime.streaming import StreamingSession
     cfg = aira16()
@@ -309,8 +346,8 @@ def phase_streaming(x: np.ndarray, y_offline: np.ndarray, tmp: str,
     got = np.concatenate(outs)[:len(y_offline)]
     err = float(np.abs(got - y_offline).max())
     log(f"{node} streaming 64-frame chunks vs offline: max abs err "
-        f"{err:.3e} (bar {STREAM_TOL:g})")
-    if not err <= STREAM_TOL:
+        f"{err:.3e} (bar {tol:g})")
+    if not err <= tol:
         raise AssertionError(f"{node} streaming err {err}")
 
     first = session()
@@ -326,40 +363,54 @@ def phase_streaming(x: np.ndarray, y_offline: np.ndarray, tmp: str,
     err2 = float(np.abs(resumed - got).max())
     log(f"{node} streaming save/load at chunk {half}: max abs err vs "
         f"uninterrupted {err2:.3e}")
-    if not err2 <= STREAM_TOL or second.frames_done != len(starts) * 64:
+    if not err2 <= tol or second.frames_done != len(starts) * 64:
         raise AssertionError(f"resume err {err2}, frames "
                              f"{second.frames_done}")
 
 
-def phase_cli(x: np.ndarray, tmp: str, node: str = "das", params=None):
-    """``beamform-tpu-torch <node> --device cuda`` on a 2 s 16-ch WAV ==
-    run_offline on the same samples with ``params`` (the node's launch
-    preset, which the CLI applies by default)."""
+def phase_cli(x: np.ndarray, tmp: str, node: str = "das", params=None,
+              extra=(), seconds: float = 2.0, interference=(), events=None,
+              tol=1e-6):
+    """``beamform-tpu-torch <node> --device cuda [extra]`` on a ``seconds``
+    16-ch WAV == run_offline on the same samples with ``params`` (the
+    node's launch preset, which the CLI applies by default), the config's
+    static ``interference`` and the CLI's replay of ``events``."""
     from beamform_tpu_torch import run_offline
     from beamform_tpu_torch.runtime import cli, wav
     src = os.path.join(tmp, f"{node}_in.wav")
     dst = os.path.join(tmp, f"{node}_out.wav")
-    wav.write_wav(src, x[:, :2 * FS], FS, fmt="float32")
-    cfg_path = os.path.join(ROOT, "beamform_tpu_torch", "configs",
-                            "aira16.yaml")
-    rc = cli.main([node, "--in", src, "--out", dst, "--array-config",
-                   cfg_path, "--theta", str(THETA), "--device", DEVICE,
-                   "--out-format", "float32"])
+    wav.write_wav(src, x[:, :int(seconds * FS)], FS, fmt="float32")
+    cfg_path = os.path.join(tmp, f"{node}_array.yaml")
+    with open(os.path.join(ROOT, "beamform_tpu_torch", "configs",
+                           "aira16.yaml")) as f, open(cfg_path, "w") as g:
+        g.write(f.read() + "".join(f"\nangle_interf{k + 1}: {a}"
+                                   for k, a in enumerate(interference)))
+    argv = [node, "--in", src, "--out", dst, "--array-config", cfg_path,
+            "--theta", str(THETA), "--device", DEVICE, "--out-format",
+            "float32", *extra]
+    if events:
+        argv += ["--interference-events", events]
+    rc = cli.main(argv)
     if rc != 0:
         raise AssertionError(f"cli returned {rc}")
     got, fs = wav.read_wav(dst)
     xin, _ = wav.read_wav(src)
-    ref = run_offline(node, xin, engine=engine(), array_cfg=aira16(),
-                      theta=THETA, params=params, device=DEVICE)
+    timeline = (event_timeline(-(-xin.shape[1] // HOP), events) if events
+                else None)
+    ref = run_offline(node, xin, engine=engine(), array_cfg=aira16(
+        interference), theta=THETA, params=params, device=DEVICE,
+        interference=timeline)
     err = float(np.abs(got[0] - ref).max())
-    log(f"cli {node} --device {DEVICE} vs run_offline: max abs err "
-        f"{err:.3e}")
-    if fs != FS or got.shape != (1, ref.shape[0]) or not err <= 1e-6:
+    log(f"cli {' '.join([node, *extra])}"
+        f"{' --interference-events ' + events if events else ''} --device "
+        f"{DEVICE} ({seconds:g} s) vs run_offline: max abs err {err:.3e} "
+        f"(bar {tol:g})")
+    if fs != FS or got.shape != (1, ref.shape[0]) or not err <= tol:
         raise AssertionError(f"cli output mismatch: {got.shape} err {err}")
 
 
 def phase_xrt(x: np.ndarray, card: str, node: str = "das", params=None,
-              label: str = "noise"):
+              label: str = "noise", interference=()):
     """xRT of a node's path after warm-up, each run synchronised: with the
     input already on the card (model.process) and end to end from host
     numpy to host numpy (run_offline); then a torch.profiler breakdown of
@@ -367,7 +418,7 @@ def phase_xrt(x: np.ndarray, card: str, node: str = "das", params=None,
     import torch
     from beamform_tpu_torch import run_offline
     from beamform_tpu_torch.models import get_model
-    cfg = aira16()
+    cfg = aira16(interference)
     seconds = x.shape[1] / FS
     model = get_model(node, engine(), cfg, params, device=DEVICE)
     xd = torch.as_tensor(x, device=DEVICE)
@@ -452,7 +503,7 @@ def phase_mvdr_kernels(x: np.ndarray) -> dict:
         torch.cuda.synchronize()
         ms = cuda_ms(lambda: km.mvdr_stream(*args))
         plain_ms = cuda_ms(lambda: km.mvdr_stream_plain(*args), reps=3)
-        abs_err = check_mvdr_kernel(
+        abs_err = check_solve_kernel(
             f"mvdr_stream M={m} NIB={len(ib)} T={t} W={w} U={d.shape[0]} "
             f"({label}; gate passes {float(gate.float().mean()):.4f} of "
             "(frame, bin) pairs)", got, ref, f64, MVDR_STREAM_REL_TOL, ms,
@@ -478,7 +529,7 @@ def phase_mvdr_kernels(x: np.ndarray) -> dict:
         ms = cuda_ms(lambda: kl.gj_inverse(r, polish=polish))
         plain_ms = cuda_ms(lambda: kl.gj_inverse_plain(r, polish=polish),
                            reps=5)
-        abs_err = check_mvdr_kernel(
+        abs_err = check_solve_kernel(
             f"gj_inverse B={r.shape[0]} M={m} polish={polish}", got, ref,
             f64, GJ_REL_TOL, ms, plain_ms)
         del f64
@@ -573,6 +624,134 @@ def phase_mvdr(x: np.ndarray, xs: np.ndarray) -> tuple:
     return outs[("noise", "auto")], launches
 
 
+def lcmv_constraints(model, n_interf: int, capacity: int):
+    """(U=1, S, M, NIB) constraints for theta THETA and the first
+    ``n_interf`` of INTERFERERS active in ``capacity`` slots (S = capacity
+    + 1; the other slots inactive), as LcmvModel builds them untrimmed."""
+    import torch
+    from beamform_tpu_torch.models.lcmv import build_constraints_masked
+    dev = model.device
+    ang = torch.zeros((1, capacity), dtype=torch.float32, device=dev)
+    act = torch.zeros((1, capacity), dtype=torch.float32, device=dev)
+    ang[0, :n_interf] = torch.as_tensor(INTERFERERS[:n_interf])
+    act[0, :n_interf] = 1.0
+    c = build_constraints_masked(
+        model.geom, model.freqs, torch.full((1,), THETA, device=dev), ang,
+        act, torch.ones(1, device=dev), torch.float32, torch.complex64,
+        model.ib)
+    return c.permute(0, 3, 2, 1).contiguous()
+
+
+def phase_lcmv_kernels(x: np.ndarray) -> dict:
+    """lcmv_stream against its plain version on the card, on the main
+    path's operands (the analysis of the 30 s noise input under the lcmv
+    launch preset: 678 in-band bins, 1407 frames, W = 10) for S = 1 (as
+    bench.py runs it: aira16 ships no interferers), S = 3 (two static
+    interferers) and S = 16 with 13 inactive slots (the CLI's capacity,
+    untrimmed). Returns the S = 1 numbers."""
+    import torch
+    from beamform_tpu_torch.kernels import lcmv_stream as kl
+    from beamform_tpu_torch.kernels.wola import wola_analysis
+    from beamform_tpu_torch.models import common, get_model
+    dev = torch.device(DEVICE)
+    params = lcmv_preset()
+    model = get_model("lcmv", engine(), aira16(), params, device=dev)
+    xp = common.prepare_input(x, engine(), torch.float32, dev)
+    spec, mag, _ = wola_analysis(xp, torch.zeros((16, HOP), device=dev),
+                                 with_mag=True)
+    t, m, _ = spec.shape
+    ib, w = model.ib, params["past_windows"]
+    gate = mag.index_select(1, ib) > params["freq_mag_threshold"]
+    hist = torch.zeros((w, m, len(ib)), dtype=torch.complex64, device=dev)
+    idx = torch.zeros(t, dtype=torch.int64, device=dev)
+    results = {}
+    for n_interf, capacity in ((0, 0), (2, 2), (2, 15)):
+        c = lcmv_constraints(model, n_interf, capacity)
+        args = (spec, hist, c, idx, gate, ib)
+        got = kl.lcmv_stream(*args)
+        ref = kl.lcmv_stream_plain(*args)
+        f64 = kl.lcmv_stream_plain(spec.cdouble(), hist.cdouble(),
+                                   c.cdouble(), idx, gate, ib)
+        torch.cuda.synchronize()
+        ms = cuda_ms(lambda: kl.lcmv_stream(*args))
+        plain_ms = cuda_ms(lambda: kl.lcmv_stream_plain(*args), reps=3)
+        abs_err = check_solve_kernel(
+            f"lcmv_stream M={m} NIB={len(ib)} T={t} W={w} S={c.shape[1]} "
+            f"({n_interf} interferers active, {capacity - n_interf} slots "
+            "inactive)", got, ref, f64,
+            LCMV_STREAM_REL_TOL if n_interf else MVDR_STREAM_REL_TOL, ms,
+            plain_ms)
+        del f64
+        results.setdefault("lcmv_stream", dict(max_abs_err=abs_err, ms=ms,
+                                               plain_ms=plain_ms))
+    return results
+
+
+def phase_lcmv(x: np.ndarray, xs: np.ndarray, y_mvdr: np.ndarray) -> tuple:
+    """The LCMV main path under the launch preset: run_offline with the
+    ``auto`` (streaming solve) and ``dense`` (Gauss-Jordan) solvers, each
+    path's launches counted alone, on noise (S = 1), on noise with two
+    static interferers (S = 3), on the speech-like input (S = 1) and on
+    noise under EVENTS' timeline; each checked against the float64 CPU
+    path, and S = 1 against MVDR ``auto`` (``y_mvdr``). Returns (auto
+    output on noise, {solver: that path's own launch counts})."""
+    from beamform_tpu_torch import run_offline
+    t = -(-x.shape[1] // HOP)
+    timeline = event_timeline(t)
+
+    def run(sig, solver, scene, dtype="float32", device=DEVICE):
+        interf = {"static": INTERFERERS, "events": EVENTS[0]}.get(scene, ())
+        return run_offline(
+            "lcmv", sig, engine=engine(dtype), array_cfg=aira16(interf),
+            theta=THETA, params=lcmv_preset(solver=solver), device=device,
+            interference=timeline if scene == "events" else None)
+
+    # each path's own launches: one analysis, one synthesis, and one LCMV
+    # stream solve (auto) or two Gauss-Jordan inverses per dense block
+    expect = {"auto": dict(wola_analysis=1, wola_synthesis=1, lcmv_stream=1,
+                           mvdr_stream=0, gj_inverse=0),
+              "dense": dict(wola_analysis=1, wola_synthesis=1,
+                            lcmv_stream=0, mvdr_stream=0)}
+    scenes = {"noise": x, "static": x, "speech": xs, "events": x}
+    outs, launches = {}, {}
+    for scene, sig in scenes.items():
+        for solver in ("auto", "dense"):
+            reset_launches()
+            outs[(scene, solver)] = run(sig, solver, scene)
+            got = read_launches()
+            launches.setdefault(solver, got)
+            log(f"lcmv {solver} main path launches ({scene}): {got}")
+            if (any(got[k] != n for k, n in expect[solver].items())
+                    or (solver == "dense" and got["gj_inverse"] < 1)):
+                raise AssertionError(f"lcmv {solver} launches {got}, "
+                                     f"expected {expect[solver]}")
+    t0 = time.perf_counter()
+    refs = {scene: run(sig, "stream", scene, "float64", "cpu")
+            for scene, sig in scenes.items()}
+    log(f"lcmv float64 CPU references (plain stream solver, full 30 s, 4 "
+        f"scenes): {time.perf_counter() - t0:.1f} s")
+    n_out = t * HOP
+    for (scene, solver), y in outs.items():
+        finite = np.isfinite(refs[scene])
+        if (y.shape != (n_out,) or not np.array_equal(np.isfinite(y), finite)
+                or (scene != "speech" and not finite.all())):
+            raise AssertionError(f"lcmv {scene} {solver}: shape {y.shape} / "
+                                 "non-finite samples differ")
+        dev = float(np.abs(y[finite] - refs[scene][finite]).max())
+        log(f"lcmv {scene} {solver} {DEVICE} float32 vs cpu float64: max "
+            f"sample deviation {dev:.3e} (bar {DAS_ABS_TOL:g}, peak "
+            f"{np.abs(refs[scene][finite]).max():.3e}; non-finite samples "
+            f"{int((~finite).sum())} on both)")
+        if not dev <= DAS_ABS_TOL:
+            raise AssertionError(f"lcmv {scene} {solver} deviation {dev}")
+    diff = float(np.abs(outs[("noise", "auto")] - y_mvdr).max())
+    log(f"lcmv S=1 vs mvdr, auto on the card (noise): max sample difference "
+        f"{diff:.3e} (bar {LCMV_MVDR_TOL:g})")
+    if not diff <= LCMV_MVDR_TOL:
+        raise AssertionError(f"lcmv S=1 vs mvdr {diff}")
+    return outs[("noise", "auto")], launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -591,7 +770,8 @@ def main() -> int:
     t_main = -(-x.shape[1] // HOP)
     kern = phase_kernels(t_main)
     kern = {"wola_analysis": kern["analysis"],
-            "wola_synthesis": kern["synthesis"], **phase_mvdr_kernels(x)}
+            "wola_synthesis": kern["synthesis"], **phase_mvdr_kernels(x),
+            **phase_lcmv_kernels(x)}
     y, das_launches = phase_das(x)
     with tempfile.TemporaryDirectory(prefix=".chip_smoke_", dir=ROOT) as tmp:
         phase_streaming(x, y, tmp)
@@ -604,11 +784,22 @@ def main() -> int:
     phase_xrt(x, card, "mvdr", mvdr_preset(), "noise")
     phase_xrt(xs, card, "mvdr", mvdr_preset(), "speech")
     phase_xrt(x, card, "mvdr", mvdr_preset(solver="dense"), "noise, dense")
+    y_lcmv, lcmv_launches = phase_lcmv(x, xs, y_mvdr)
+    with tempfile.TemporaryDirectory(prefix=".chip_smoke_", dir=ROOT) as tmp:
+        phase_streaming(x, y_lcmv, tmp, "lcmv", lcmv_preset(), tol=0.0)
+        phase_cli(x, tmp, "lcmv", lcmv_preset(), ["--stream", "64"],
+                  seconds=4.0, interference=EVENTS[0],
+                  events="1.5:2:-60,3:2:70.5", tol=0.0)
+    phase_xrt(x, card, "lcmv", lcmv_preset(), "noise, S=1")
+    phase_xrt(xs, card, "lcmv", lcmv_preset(), "speech, S=1")
+    phase_xrt(x, card, "lcmv", lcmv_preset(), "noise, S=3", INTERFERERS)
+    phase_xrt(x, card, "lcmv", lcmv_preset(solver="dense"), "noise, dense")
 
     launches = {"wola_analysis": das_launches["wola_analysis"],
                 "wola_synthesis": das_launches["wola_synthesis"],
                 "mvdr_stream": mvdr_launches["auto"]["mvdr_stream"],
-                "gj_inverse": mvdr_launches["dense"]["gj_inverse"]}
+                "gj_inverse": mvdr_launches["dense"]["gj_inverse"],
+                "lcmv_stream": lcmv_launches["auto"]["lcmv_stream"]}
     csrc = "beamform_tpu_torch/csrc/"
     meta = {"wola_analysis": ("wola.cu",
                               "beamform_tpu/kernels/wola_pallas.py:120"),
@@ -616,7 +807,9 @@ def main() -> int:
                                "beamform_tpu/kernels/wola_pallas.py:280"),
             "mvdr_stream": ("mvdr_stream.cu",
                             "beamform_tpu/kernels/mvdr_stream.py:209"),
-            "gj_inverse": ("linalg.cu", "beamform_tpu/kernels/linalg.py:70")}
+            "gj_inverse": ("linalg.cu", "beamform_tpu/kernels/linalg.py:70"),
+            "lcmv_stream": ("lcmv_stream.cu",
+                            "beamform_tpu/kernels/lcmv_stream.py:151")}
     log(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": csrc + meta[k][0],
          "replaces": meta[k][1], "launches": launches[k], **kern[k]}

@@ -61,6 +61,14 @@ def test_mvdr_params_match():
                 == dataclasses.asdict(jcfg.make_params("mvdr", kw)))
 
 
+def test_lcmv_params_match():
+    for kw in ({}, tcfg.load_launch_params("lcmv"), {"solver": "dense"}):
+        assert (dataclasses.asdict(tcfg.make_params("lcmv", kw))
+                == dataclasses.asdict(jcfg.make_params("lcmv", kw)))
+    assert tcfg.make_params("lcmv", tcfg.load_launch_params(
+        "lcmv")).interf_angle_threshold == 1.0
+
+
 def test_engine_config_and_das_params_match():
     for kw in ({}, {"window_size": 128, "dtype": "float64",
                     "exact_freqs": True}):
@@ -69,4 +77,4 @@ def test_engine_config_and_das_params_match():
         assert (t.hop, t.fft_win) == (j.hop, j.fft_win)
     assert tcfg.make_params("das", {"unknown": 1}) == tcfg.DasParams()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tcfg.make_params("lcmv")
+        tcfg.make_params("gss")

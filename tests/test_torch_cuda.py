@@ -16,11 +16,14 @@ import torch
 from beamform_tpu_torch import run_offline
 from beamform_tpu_torch.config import (EngineConfig, load_array_config,
                                        load_launch_params)
+from beamform_tpu_torch.kernels import lcmv_stream as klc
 from beamform_tpu_torch.kernels import linalg as kl
 from beamform_tpu_torch.kernels import mvdr_stream as km
 from beamform_tpu_torch.kernels import wola as kw
 from beamform_tpu_torch.models import get_model
 from beamform_tpu_torch.runtime.streaming import StreamingSession
+from beamform_tpu_torch.runtime.timeline import (InterfEvent,
+                                                 replay_interference_events)
 
 pytestmark = pytest.mark.cuda
 
@@ -269,4 +272,178 @@ def test_mvdr_stream_chunks_equal_offline_on_cuda(cuda):
     sess = StreamingSession(model)
     chunks = [sess.process(x[:, i:i + 7 * 1024], 20.0)
               for i in range(0, x.shape[1], 7 * 1024)]
+    assert torch.equal(torch.cat(chunks), offline)
+
+
+# ------------------------------------------------------------------- LCMV
+
+
+def _constraints(rng, u, s, m, nib, device):
+    """Random constraint sets: row 0 with min(S, 3) active slots, row 1
+    with min(S, 2) and the row-0 quirk (mic 0's row zero); the other slots
+    inactive (zero columns)."""
+    c = _cplx(rng, (u, s, m, nib), "cpu")
+    c[0, 3:] = 0
+    c[1, 2:] = 0
+    c[1, :, 0] = 0
+    return c.to(device)
+
+
+@pytest.mark.parametrize("m", [3, 16, 32])
+@pytest.mark.parametrize("s", [1, 3, 16])
+def test_lcmv_stream_kernel_matches_plain(cuda, m, s):
+    """Inactive slots, the row-0 quirk, two control rows, a band that is
+    not contiguous, ragged tiles and a random gate."""
+    rng = np.random.default_rng(m * 10 + s)
+    t, nib, w, u = 45, 19, 10, 2
+    nb = 2 * nib + 5
+    x = _cplx(rng, (t, m, nb), cuda)
+    hist = _cplx(rng, (w, m, nib), cuda)
+    c = _constraints(rng, u, s, m, nib, cuda)
+    ib = torch.as_tensor(np.sort(rng.choice(np.arange(1, nb), nib,
+                                            replace=False)), device=cuda)
+    idx = torch.as_tensor(rng.integers(0, u, t), device=cuda)
+    gate = torch.as_tensor(rng.random((t, nib)) < 0.7, device=cuda)
+    before = klc.lcmv_stream.launches
+    got = klc.lcmv_stream(x, hist, c, idx, gate, ib)
+    torch.cuda.synchronize()
+    assert klc.lcmv_stream.launches == before + 1
+    ref = klc.lcmv_stream_plain(x, hist, c, idx, gate, ib)
+    f64 = klc.lcmv_stream_plain(x.cdouble(), hist.cdouble(), c.cdouble(),
+                                idx, gate, ib)
+    assert got.shape == (t, nib) and got.dtype == torch.complex64
+    assert torch.isfinite(torch.view_as_real(got)).all()
+    assert torch.equal(got[~gate], ref[~gate])      # 0.01 * x0, exactly
+    assert _rel(got, ref) < MVDR_REL
+    assert _rel(got.cdouble(), f64) <= max(2 * _rel(ref.cdouble(), f64),
+                                           1e-6)
+
+
+def test_lcmv_stream_s1_equals_mvdr_stream(cuda):
+    """With one constraint the LCMV solve is MVDR's w = R^-1 d / d^H R^-1 d,
+    up to float32 round-off."""
+    rng = np.random.default_rng(12)
+    t, m, nib, w = 40, 16, 21, 10
+    x = _cplx(rng, (t, m, nib), cuda)
+    hist = _cplx(rng, (w, m, nib), cuda)
+    d = _cplx(rng, (1, m, nib), cuda)
+    ib = torch.arange(nib, device=cuda)
+    idx = torch.zeros(t, dtype=torch.int64, device=cuda)
+    gate = torch.ones((t, nib), dtype=torch.bool, device=cuda)
+    got = klc.lcmv_stream(x, hist, d[:, None], idx, gate, ib)
+    ref = km.mvdr_stream(x, hist, d, idx, gate, ib)
+    assert _rel(got, ref) < MVDR_REL
+
+
+def test_lcmv_stream_index_out_of_range_gives_nan(cuda):
+    rng = np.random.default_rng(13)
+    t, m, nib, w, s = 40, 16, 9, 10, 3
+    x = _cplx(rng, (t, m, 2 * nib), cuda)
+    hist = _cplx(rng, (w, m, nib), cuda)
+    c = _constraints(rng, 2, s, m, nib, cuda)
+    ib = torch.arange(0, 2 * nib, 2, device=cuda)
+    idx = torch.as_tensor(rng.integers(0, 2, t), device=cuda)
+    gate = torch.ones((t, nib), dtype=torch.bool, device=cuda)
+    gate[::3] = False
+    ref = klc.lcmv_stream_plain(x, hist, c, idx, gate, ib)
+    for bad_ib, bad_u in ((-1, None), (2 * nib, None), (None, 2),
+                          (None, -1)):
+        ib2, idx2 = ib.clone(), idx.clone()
+        if bad_ib is not None:
+            ib2[4] = bad_ib
+        if bad_u is not None:
+            idx2[7] = bad_u
+        got = klc.lcmv_stream(x, hist, c, idx2, gate, ib2)
+        nan = torch.zeros((t, nib), dtype=torch.bool, device=cuda)
+        if bad_ib is not None:
+            nan[:, 4] = True
+        else:
+            nan[7] = gate[7]
+        assert torch.isnan(got[nan]).all()
+        assert _rel(got[~nan], ref[~nan]) < MVDR_REL
+
+
+def test_lcmv_stream_raises_on_what_it_does_not_take(cuda):
+    t, m, nib = 4, 4, 3
+    z = torch.zeros
+    args = dict(x=z((t, m, nib), dtype=torch.complex64, device=cuda),
+                hist=z((2, m, nib), dtype=torch.complex64, device=cuda),
+                c=z((1, 2, m, nib), dtype=torch.complex64, device=cuda),
+                idx=z(t, dtype=torch.int64, device=cuda),
+                gate=z((t, nib), dtype=torch.bool, device=cuda),
+                ib=torch.arange(nib, device=cuda))
+    with pytest.raises(ValueError, match="ROADMAP"):
+        klc.lcmv_stream(**dict(args, c=args["c"].cdouble()))
+    with pytest.raises(ValueError, match="dtype"):
+        klc.lcmv_stream(**dict(args, idx=args["idx"].int()))
+    with pytest.raises(ValueError, match="S <= 16"):
+        klc.lcmv_stream(**dict(args, c=z((1, 17, m, nib),
+                                         dtype=torch.complex64,
+                                         device=cuda)))
+    with pytest.raises(ValueError, match="M <= 32"):
+        klc.lcmv_stream(**dict(args, x=z((t, 40, nib), dtype=torch.complex64,
+                                         device=cuda)))
+
+
+def _lcmv_scene(frames, seed):
+    rng = np.random.default_rng(seed)
+    x = (0.1 * rng.standard_normal((16, frames * 1024))).astype(np.float32)
+    x[:, :12 * 1024] *= 1e-4                  # quiet lead-in > past_windows
+    return x
+
+
+@pytest.mark.parametrize("solver", ["auto", "dense"])
+@pytest.mark.parametrize("scene", ["static", "events"])
+def test_lcmv_on_cuda_matches_float64_cpu(cuda, solver, scene):
+    """LCMV float32 on the card against the float64 CPU path, with each
+    path's exact launches: one stream solve (auto), or two Gauss-Jordan
+    inverses per dense block (R and the inner matrix)."""
+    cfg = load_array_config(os.path.join(ROOT, "beamform_tpu_torch",
+                                         "configs", "aira16.yaml"))
+    x = _lcmv_scene(60, 5)
+    t = 60
+    interference = None
+    if scene == "static":
+        import dataclasses
+        cfg = dataclasses.replace(cfg, interference_angles=(70.0, -60.0))
+    else:
+        interference = replay_interference_events(
+            t, [70.0], [InterfEvent(25, 2, -60.0), InterfEvent(45, 2, 70.5)],
+            threshold=1.0, capacity=15)
+    params = dict(load_launch_params("lcmv"), solver=solver)
+    model = get_model("lcmv", EngineConfig(), cfg, params, device=cuda)
+    before = (klc.lcmv_stream.launches, km.mvdr_stream.launches,
+              kl.gj_inverse.launches)
+    got = model.process(x, 20.0, interference=interference).cpu().numpy()
+    ran = (klc.lcmv_stream.launches - before[0],
+           km.mvdr_stream.launches - before[1],
+           kl.gj_inverse.launches - before[2])
+    blocks = -(-t // model._block_frames(t))
+    assert ran == ((1, 0, 0) if solver == "auto" else (0, 0, 2 * blocks))
+    ref = run_offline("lcmv", x, engine=EngineConfig(dtype="float64"),
+                      array_cfg=cfg, theta=20.0, params=params,
+                      device="cpu", interference=interference)
+    assert np.isfinite(got).all()
+    assert np.abs(got - ref).max() <= 1e-3      # BASELINE budget
+
+
+def test_lcmv_stream_chunks_equal_offline_on_cuda(cuda):
+    """Chunked LCMV with an interference timeline equals offline bit for
+    bit, though each chunk trims its own unused slots."""
+    cfg = load_array_config(os.path.join(ROOT, "beamform_tpu_torch",
+                                         "configs", "aira16.yaml"))
+    x = _lcmv_scene(49, 6)
+    tl = replay_interference_events(
+        49, [70.0], [InterfEvent(20, 2, -60.0), InterfEvent(33, 2, 70.5)],
+        threshold=1.0, capacity=15)
+    model = get_model("lcmv", EngineConfig(), cfg, load_launch_params("lcmv"),
+                      device=cuda)
+    offline = model.process(x, 20.0, interference=tl)
+    sess = StreamingSession(model)
+    chunks = []
+    for f0 in range(0, 49, 7):
+        rows = type(tl)(*(a[f0:f0 + 7] for a in (tl.angles, tl.active,
+                                                 tl.row0, tl.reset)))
+        chunks.append(sess.process(x[:, f0 * 1024:(f0 + 7) * 1024], 20.0,
+                                   interference=rows))
     assert torch.equal(torch.cat(chunks), offline)
