@@ -13,8 +13,9 @@ reference semantics as the JAX package:
 * interference slots ``angle_interf1..`` are parsed until a value with
   ``abs(angle) > 180`` (sentinel 181.0) is found (``util.h:94-113``).
 
-Only the ported nodes (``das``, ``mvdr``, ``lcmv``) have parameter classes
-so far; the other nodes' classes arrive with their models (ROADMAP.md §1).
+Only the ported nodes (``das``, ``mvdr``, ``lcmv``, ``gss``) have
+parameter classes so far; the other nodes' classes arrive with their models
+(ROADMAP.md §1).
 """
 
 from __future__ import annotations
@@ -172,7 +173,7 @@ class MvdrParams:
     # pipeline elsewhere; "stream" forces the streaming solve (its plain
     # version on the CPU), "dense" the block pipeline (the Gauss-Jordan
     # kernel on CUDA); "sparse" is the deprecated float64 alias of "dense";
-    # "mega" is not ported yet and raises.
+    # "mega" the fused audio-to-audio kernel (its plain version on the CPU).
     solver: str = "auto"
 
 
@@ -189,7 +190,26 @@ class LcmvParams:
     solver: str = "auto"          # see MvdrParams.solver
 
 
-PARAM_CLASSES = {"das": DasParams, "mvdr": MvdrParams, "lcmv": LcmvParams}
+@dataclass(frozen=True)
+class GssParams:
+    """gss.cpp:187-240 defaults."""
+
+    freq_mag_threshold: float = 1.5
+    freq_max: float = 4000.0
+    freq_min: float = 400.0
+    out_amp: float = 4.5
+    mu: float = 0.01
+    lam: float = 0.0  # "lambda" in the reference
+    interf_angle_threshold: float = 5.0
+    # demixing-update strategy (models/gss.py GssModel._strategy): "auto"
+    # runs the fused CUDA kernel (kernels/gss_stream.py) on a CUDA float32
+    # engine and the plain march on the CPU; "mega" the fused kernel (its
+    # plain version on the CPU); "scan" the plain march, on the CPU only.
+    solver: str = "auto"
+
+
+PARAM_CLASSES = {"das": DasParams, "mvdr": MvdrParams, "lcmv": LcmvParams,
+                 "gss": GssParams}
 # implementation knobs are not reference parameters: no warn-and-default
 _IMPL_KNOBS = {"solver"}
 
@@ -210,7 +230,8 @@ def make_params(model: str, overrides: Optional[Dict[str, Any]] = None):
     """Instantiate a node's parameter dataclass with launch-style overrides.
 
     Unknown keys are ignored, as the ROS param server lets a node read only
-    the keys it knows; each known parameter is logged the way the
+    the keys it knows; ``lambda`` is accepted for :attr:`GssParams.lam`
+    (the launch preset's name). Each known parameter is logged the way the
     reference's ``*_handle_params`` does (INFO when supplied, WARN with the
     default when absent, mvdr.cpp:150-186).
     """
@@ -220,7 +241,12 @@ def make_params(model: str, overrides: Optional[Dict[str, Any]] = None):
             "(see ROADMAP.md §1)")
     cls = PARAM_CLASSES[model]
     fields = {f.name for f in dataclasses.fields(cls)}
-    kw = {k: v for k, v in (overrides or {}).items() if k in fields}
+    kw = {}
+    for key, val in (overrides or {}).items():
+        if key == "lambda" and "lam" in fields:
+            key = "lam"
+        if key in fields:
+            kw[key] = val
     obj = cls(**kw)
     for f in dataclasses.fields(cls):
         if f.name in _IMPL_KNOBS:

@@ -29,80 +29,20 @@
 //
 // Twiddles and the window come from tables computed in float64 on the host
 // and cast to float32. No fast-math intrinsics: the budget is 1e-5 of peak.
+// The FFT, the split of a channel pair and the overlap-add are in
+// band_wola.cuh, shared with the fused kernels (mega_stream.cu,
+// gss_stream.cu).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "band_wola.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
-
-__device__ __forceinline__ int bitrev(int i, int log2n) {
-  return (int)(__brev((unsigned)i) >> (32 - log2n));
-}
-
-__device__ __forceinline__ float2 cadd(float2 a, float2 b) {
-  return make_float2(a.x + b.x, a.y + b.y);
-}
-__device__ __forceinline__ float2 csub(float2 a, float2 b) {
-  return make_float2(a.x - b.x, a.y - b.y);
-}
-__device__ __forceinline__ float2 cmul(float2 a, float2 b) {
-  return make_float2(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);
-}
-__device__ __forceinline__ float2 twiddle(const float2* __restrict__ tw,
-                                          int idx, bool inverse) {
-  float2 w = tw[idx];
-  if (inverse) w.y = -w.y;
-  return w;
-}
-
-// In-place radix-2 decimation-in-time FFT of n = 2^log2n points held in
-// shared memory in bit-reversed order; leaves natural order. tw[j] =
-// exp(-2 pi i j / n) for j < n/2; ``inverse`` conjugates the twiddles
-// (unnormalised inverse). Two radix-2 stages at a time run in registers on
-// four points (the same butterflies in the same order), which halves the
-// shared-memory round trips and barriers; an odd last stage runs alone.
-__device__ void fft_inplace(float2* s, const float2* __restrict__ tw, int n,
-                            int log2n, bool inverse) {
-  int lh = 0;
-  for (; lh + 1 < log2n; lh += 2) {
-    const int half = 1 << lh;
-    const int s1 = n >> (lh + 1);            // twiddle stride of stage lh
-    const int s2 = n >> (lh + 2);            // and of stage lh + 1
-    for (int q = threadIdx.x; q < (n >> 2); q += blockDim.x) {
-      const int j = q & (half - 1);
-      const int i0 = ((q >> lh) << (lh + 2)) + j;
-      const float2 w1 = twiddle(tw, j * s1, inverse);
-      const float2 bw = cmul(s[i0 + half], w1);
-      const float2 dw = cmul(s[i0 + 3 * half], w1);
-      const float2 a = s[i0];
-      const float2 c = s[i0 + 2 * half];
-      const float2 a1 = cadd(a, bw), b1 = csub(a, bw);
-      const float2 c1 = cadd(c, dw), d1 = csub(c, dw);
-      const float2 cw = cmul(c1, twiddle(tw, j * s2, inverse));
-      const float2 dw2 = cmul(d1, twiddle(tw, (j + half) * s2, inverse));
-      s[i0] = cadd(a1, cw);
-      s[i0 + 2 * half] = csub(a1, cw);
-      s[i0 + half] = cadd(b1, dw2);
-      s[i0 + 3 * half] = csub(b1, dw2);
-    }
-    __syncthreads();
-  }
-  if (lh < log2n) {
-    const int half = 1 << lh;
-    const int s1 = n >> (lh + 1);
-    for (int b = threadIdx.x; b < (n >> 1); b += blockDim.x) {
-      const int j = b & (half - 1);
-      const int i0 = ((b >> lh) << (lh + 1)) + j;
-      const float2 u = s[i0];
-      const float2 vw = cmul(s[i0 + half], twiddle(tw, j * s1, inverse));
-      s[i0] = cadd(u, vw);
-      s[i0 + half] = csub(u, vw);
-    }
-    __syncthreads();
-  }
-}
+using bf_band::kThreads;
+using bf_band::bitrev;
+using bf_band::ilog2;
 
 // grid (T, ceil(C / 2)): one block transforms frame t of the channel pair
 // (2p, 2p+1) as one complex signal z = x_2p + i x_2p+1 and splits the
@@ -120,28 +60,14 @@ wola_fwd_kernel(const float* __restrict__ x, const float* __restrict__ tail,
   const int t = blockIdx.x;
   const int c0 = 2 * blockIdx.y;
   const bool pair = c0 + 1 < C;
-  const float* x0 = x + (size_t)c0 * T * hop;
-  const float* x1 = x0 + (size_t)T * hop;
-  const float* t0 = tail + (size_t)c0 * hop;
-  const float* t1 = t0 + hop;
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    const int e = t * hop + i;               // index into [tail | x]
-    const float w = win[i];
-    const float v0 = (e < hop) ? t0[e] : x0[e - hop];
-    const float v1 = !pair ? 0.0f : (e < hop) ? t1[e] : x1[e - hop];
-    s[bitrev(i, log2n)] = make_float2(v0 * w, v1 * w);
-  }
-  __syncthreads();
-  fft_inplace(s, tw, n, log2n, false);
+  bf_band::analyze_pair(s, x, tail, win, tw, C, T, hop, log2n, t, c0);
   const int nb = hop + 2;
   float2* out = spec + ((size_t)t * C + c0) * nb;
   for (int k = threadIdx.x; k < nb; k += blockDim.x) {
-    const float2 z = s[k];
-    const float2 m = s[(n - k) & (n - 1)];
-    out[k] = make_float2(0.5f * (z.x + m.x), 0.5f * (z.y - m.y));
-    if (pair) {
-      out[nb + k] = make_float2(0.5f * (z.y + m.y), -0.5f * (z.x - m.x));
-    }
+    float2 a, b;
+    bf_band::split_bin(s, n, k, a, b);
+    out[k] = a;
+    if (pair) out[nb + k] = b;
   }
 }
 
@@ -191,29 +117,9 @@ wola_inv_kernel(const float2* __restrict__ y,
     s[bitrev(k, log2n)] = v;
   }
   __syncthreads();
-  fft_inplace(s, tw, n, log2n, true);
-  const float inv_n = 1.0f / (float)n;       // exact: n is a power of two
-  float* oc = out + (size_t)c * T * h;
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    const float p = s[i].x * inv_n * win[i];
-    if (i < h) {
-      atomicAdd(oc + (size_t)t * h + i, p);
-    } else if (t + 1 < T) {
-      atomicAdd(oc + (size_t)(t + 1) * h + (i - h), p);
-    } else {
-      new_prev[(size_t)c * h + (i - h)] = p;
-    }
-  }
-  if (t == 0) {
-    for (int i = threadIdx.x; i < h; i += blockDim.x)
-      atomicAdd(oc + i, out_prev[(size_t)c * h + i]);
-  }
-}
-
-int ilog2(int n) {
-  int l = 0;
-  while ((1 << l) < n) ++l;
-  return l;
+  bf_band::synthesize_frame(s, tw, win, out_prev + (size_t)c * h,
+                            out + (size_t)c * T * h, new_prev + (size_t)c * h,
+                            T, h, log2n, t);
 }
 
 }  // namespace

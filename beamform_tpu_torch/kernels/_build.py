@@ -127,6 +127,11 @@ def _declare(lib):
     lib.bf_lcmv_stream.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, i,
                                    p]
     lib.bf_lcmv_stream.restype = i
+    f = ctypes.c_float
+    lib.bf_mega_stream.argtypes = [p] * 15 + [i] * 8 + [f, i, i, p]
+    lib.bf_mega_stream.restype = i
+    lib.bf_gss_stream.argtypes = [p] * 16 + [i] * 7 + [f, f, f, p]
+    lib.bf_gss_stream.restype = i
 
 
 def check(lib, code: int, what: str):
@@ -138,7 +143,9 @@ def check(lib, code: int, what: str):
 
 def check_tensor(t: torch.Tensor, name: str, dtype, shape, device):
     """Raise unless ``t`` is what a kernel takes: on ``device``, of
-    ``dtype`` and ``shape``, contiguous."""
+    ``dtype`` and ``shape``, contiguous, and holding its values in memory
+    (a lazily conjugated or negated view, ``is_conj()`` or ``is_neg()``,
+    keeps the unconjugated values behind its data pointer)."""
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
     if t.dtype != dtype:
@@ -150,6 +157,9 @@ def check_tensor(t: torch.Tensor, name: str, dtype, shape, device):
                          f"{tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+    if t.is_conj() or t.is_neg():
+        raise ValueError(f"{name} is a lazy conjugate or negative view; "
+                         "pass t.resolve_conj().resolve_neg()")
 
 
 def launch_context(device: torch.device):

@@ -38,8 +38,9 @@ from beamform_tpu_torch.kernels.mvdr_stream import (MAX_MICS, MAX_SLOTS,
 
 def lcmv_stream_plain(x: torch.Tensor, hist: torch.Tensor, c: torch.Tensor,
                       idx: torch.Tensor, gate: torch.Tensor,
-                      ib: torch.Tensor) -> torch.Tensor:
-    """The kernel's plain version.
+                      ib: torch.Tensor, refine: bool = True) -> torch.Tensor:
+    """The kernel's plain version (``refine`` False drops the refinement of
+    the solves with R, as the fused kernel's default; kernels/mega_stream).
 
     x     (T, M, NB) complex spectra of the chunk (the analysis output)
     hist  (W, M, NIB) the W in-band frames before x[0]
@@ -57,7 +58,7 @@ def lcmv_stream_plain(x: torch.Tensor, hist: torch.Tensor, c: torch.Tensor,
     e0[0] = 1
     for t, b, r in batches:
         cm = c[idx[t], :, :, b].transpose(1, 2)            # (P, M, S)
-        xs = cholesky_refined_solve(r, cm)                 # R^-1 C
+        xs = cholesky_refined_solve(r, cm, refine)         # R^-1 C
         g = cm.conj().transpose(1, 2) @ xs                 # (P, S, S)
         g = g + torch.diag_embed((cm == 0).all(dim=1).to(g.dtype))
         # solve_ex: a singular inner matrix gives non-finite weights, as

@@ -72,12 +72,13 @@ def white_r(m: int, rdtype, device=None) -> torch.Tensor:
             + 0.001 * torch.eye(m, dtype=rdtype, device=device))
 
 
-def cholesky_refined_solve(r: torch.Tensor, b: torch.Tensor):
-    """R^-1 B by Cholesky with one refinement pass; r (P, M, M), b (P, M,
-    K)."""
+def cholesky_refined_solve(r: torch.Tensor, b: torch.Tensor,
+                           refine: bool = True):
+    """R^-1 B by Cholesky with one refinement pass (none when not
+    ``refine``); r (P, M, M), b (P, M, K)."""
     low = torch.linalg.cholesky_ex(r).L
     u = torch.cholesky_solve(b, low)
-    return u + torch.cholesky_solve(b - r @ u, low)
+    return u + torch.cholesky_solve(b - r @ u, low) if refine else u
 
 
 def gated_problems(x: torch.Tensor, hist: torch.Tensor, gate: torch.Tensor,

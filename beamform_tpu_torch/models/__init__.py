@@ -1,6 +1,6 @@
-"""Model registry. ``das``, ``mvdr`` and ``lcmv`` are ported so far; the
-other nodes of ``beamform_tpu.models`` follow in the order of ROADMAP.md
-§1."""
+"""Model registry. ``das``, ``mvdr``, ``lcmv`` and ``gss`` are ported so
+far; the other nodes of ``beamform_tpu.models`` follow in the order of
+ROADMAP.md §1."""
 
 from __future__ import annotations
 
@@ -9,25 +9,26 @@ from typing import Any, Dict, Optional
 from beamform_tpu_torch.config import ArrayConfig, EngineConfig, make_params
 from beamform_tpu_torch.geometry import ArrayGeometry
 from beamform_tpu_torch.models.das import DasModel
+from beamform_tpu_torch.models.gss import GssModel
 from beamform_tpu_torch.models.lcmv import LcmvModel
 from beamform_tpu_torch.models.mvdr import MvdrModel
 
 MODEL_REGISTRY: Dict[str, Any] = {"das": DasModel, "mvdr": MvdrModel,
-                                  "lcmv": LcmvModel}
+                                  "lcmv": LcmvModel, "gss": GssModel}
 
 
 def get_model(name: str, engine: EngineConfig, array_cfg: ArrayConfig,
               param_overrides: Optional[Dict[str, Any]] = None,
               device="cpu"):
     """Build a model from configs the way a launch file builds a node, with
-    its constants on ``device``. LCMV takes the config's interference
-    angles as its static set, as in the JAX package."""
+    its constants on ``device``. LCMV and GSS take the config's
+    interference angles as their static set, as in the JAX package."""
     if name not in MODEL_REGISTRY:
         raise NotImplementedError(
             f"model {name!r} is not ported to beamform_tpu_torch yet; "
             f"ported: {', '.join(MODEL_REGISTRY)} (see ROADMAP.md §1)")
     kw = {}
-    if name == "lcmv":
+    if name in ("lcmv", "gss"):
         kw["interference_angles"] = array_cfg.interference_angles
     return MODEL_REGISTRY[name](engine, ArrayGeometry.from_config(array_cfg),
                                 make_params(name, param_overrides),

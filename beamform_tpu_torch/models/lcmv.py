@@ -19,10 +19,12 @@ mics at most M-1 constraints stay usable.
 Solver strategies as MVDR's (``models/mvdr.select_solver_strategy``, with
 the slot count): ``stream`` runs WOLA analysis with the gate statistic,
 the streaming constraint-space solve (``kernels/lcmv_stream.py``: the CUDA
-kernel, or its plain version on the CPU) and WOLA synthesis; ``dense`` the
-block pipeline with the Gauss-Jordan inverse (``kernels/linalg.py``) for R
-and for the S x S inner matrix. Slots that no row of a chunk activates are
-dropped before either (``models/batching.trim_inactive_slots``). Streaming
+kernel, or its plain version on the CPU) and WOLA synthesis; ``mega`` the
+fused audio-to-audio kernel (``kernels/mega_stream.py``; one slot takes
+its MVDR form); ``dense`` the block pipeline with the Gauss-Jordan inverse
+(``kernels/linalg.py``) for R and for the S x S inner matrix. Slots that
+no row of a chunk activates are dropped before any of them
+(``models/batching.trim_inactive_slots``). Streaming
 state is MVDR's ``(WolaCarry, hist)``, so checkpoints move between the two
 packages.
 """
@@ -35,10 +37,10 @@ from beamform_tpu_torch.config import EngineConfig, LcmvParams
 from beamform_tpu_torch.geometry import (ArrayGeometry, steering_delays,
                                          steering_weights)
 from beamform_tpu_torch.kernels.lcmv_stream import lcmv_stream
+from beamform_tpu_torch.kernels.mega_stream import lcmv_mega
 from beamform_tpu_torch.models import common
 from beamform_tpu_torch.models.batching import BatchableConstrainedModel
-from beamform_tpu_torch.models.mvdr import (MvdrModel, batched_inv,
-                                            select_solver_strategy)
+from beamform_tpu_torch.models.mvdr import MvdrModel, batched_inv
 
 
 def lcmv_solve(r: torch.Tensor, c: torch.Tensor,
@@ -94,12 +96,6 @@ class LcmvModel(BatchableConstrainedModel, MvdrModel):
         super().__init__(engine, geom, params, device=device)
         self.interf = tuple(interference_angles)
 
-    def _strategy(self, s_cap: int = 1) -> str:
-        return select_solver_strategy(self.params.solver, self.cdtype,
-                                      self.geom.num_mics,
-                                      self.params.past_windows, self.device,
-                                      s_cap=s_cap)
-
     def _control_tensors(self, u_theta, u_angles, u_active, u_row0):
         """The unique control rows -> (masked constraints in the stream
         kernel's layout (U, S, M, NIB), inactive-slot indicator (U, S)),
@@ -116,6 +112,8 @@ class LcmvModel(BatchableConstrainedModel, MvdrModel):
         NIB) and inactive slots (U, S); the per-frame row index (T,) ->
         ((T*hop,) output, new state)."""
         strategy = self._strategy(c_k.shape[1])
+        if strategy == "mega":
+            return self._forward_mega(lcmv_mega, x, c_k, idx, state)
 
         def solve(spec, hist0, gate):
             if strategy == "stream":
@@ -135,7 +133,7 @@ class LcmvModel(BatchableConstrainedModel, MvdrModel):
         (the /theta_interference replacement, lcmv.cpp:258-309)."""
         x = torch.as_tensor(x_chunk).to(device=self.device, dtype=self.rdtype)
         t = x.shape[-1] // self.engine.hop
-        (c_k, inact), idx = self._interf_ctrl(theta, t, interference)
+        (c_k, inact), idx, _ = self._interf_ctrl(theta, t, interference)
         return self._forward(x, c_k, inact, idx, state)
 
     def process(self, x, theta=0.0, interference=None) -> torch.Tensor:

@@ -9,18 +9,21 @@ w = R^-1 d / (d^H R^-1 d) (mvdr.cpp:88-94), band gate ``freq_min..freq_max``
 (mvdr.cpp:112-114). The FFT history shifts every frame for in-band bins
 regardless of the energy gate (mvdr.cpp:100-101).
 
-Counterpart of ``beamform_tpu/models/mvdr.py`` with two solver strategies
-(:func:`select_solver_strategy`):
+Counterpart of ``beamform_tpu/models/mvdr.py`` with three solver
+strategies (:func:`select_solver_strategy`):
 
 * ``stream``: WOLA analysis with the gate statistic, the streaming solve
   (``kernels/mvdr_stream.py``: the CUDA kernel, or its plain version on the
-  CPU), WOLA synthesis. The CUDA float32 production path.
+  CPU), WOLA synthesis. The CUDA float32 production path (``auto``).
+* ``mega``: the whole audio-to-audio step in one fused kernel
+  (``kernels/mega_stream.py``: analysis, gate, unrefined solve,
+  half-spectrum synthesis; the CUDA kernel, or its plain version on the
+  CPU), for bands below the Nyquist bin.
 * ``dense``: the JAX package's block pipeline: outer products and the
   banded window sum as ``torch.einsum`` (the JAX package leaves them to
   XLA), a batched Gauss-Jordan inverse (``kernels/linalg.py``: the CUDA
   kernel, or the plain version on the CPU) refined at the right-hand side.
 
-The JAX package's ``mega`` strategy (one fused program) is not ported yet.
 Streaming state is ``(WolaCarry, hist)``: hist is the (W, M, NIB) complex
 history of in-band spectra, as in the JAX package, so checkpoints move
 between the two. Singular cold-start covariances give non-finite weights,
@@ -38,6 +41,8 @@ from torch import nn
 from beamform_tpu_torch.config import EngineConfig, MvdrParams
 from beamform_tpu_torch.geometry import ArrayGeometry
 from beamform_tpu_torch.kernels.linalg import MAX_M, gj_inverse
+from beamform_tpu_torch.kernels.mega_stream import (band_fits, lcmv_mega,
+                                                    mega_fits, mvdr_mega)
 # white_r is part of this module's surface; it lives with the streaming
 # solve, whose plain version needs it too
 from beamform_tpu_torch.kernels.mvdr_stream import (MAX_MICS, MAX_SLOTS,
@@ -50,32 +55,33 @@ SOLVERS = ("auto", "stream", "dense", "sparse", "mega")
 
 
 def select_solver_strategy(solver: str, cdtype, m: int, w_hist: int,
-                           device: torch.device, s_cap: int = 0) -> str:
-    """MVDR/LCMV solver policy: "stream" or "dense".
+                           device: torch.device, s_cap: int = 0, ib=None,
+                           nfft: int = 0) -> str:
+    """MVDR/LCMV solver policy: "stream", "mega" or "dense".
 
     ``s_cap`` is 0 for MVDR and LCMV's constraint slot count S (the look
-    direction plus the interference slots some row of the chunk uses).
-    "auto" runs the streaming solve kernel on a CUDA float32 engine within
-    its capacity (``kernels/mvdr_stream.stream_fits``: M <= 32, S <= 16
-    and the staged tile within shared memory), and "dense" everywhere
-    else. "stream" on CUDA runs the kernel or raises past its capacity; on
-    the CPU it runs the plain version in float32 or float64. "dense" runs
-    the Gauss-Jordan kernel for a CUDA tensor and the plain inverse on the
-    CPU. On CUDA the kernels take at most 32 mics, so more raise whatever
-    the solver; "dense" covers a ``past_windows`` past the stream tile and
-    LCMV's S past 16. Legacy "sparse" with float64 maps to "dense" with a
-    deprecation warning (with float32 it is "stream"), as in the JAX
-    package. "mega" is not ported and raises. float64 on CUDA raises in
-    the kernels.
+    direction plus the interference slots some row of the chunk uses);
+    ``ib`` (host array) and ``nfft`` are the band and FFT length, which
+    "mega" needs. "auto" runs the streaming solve kernel on a CUDA float32
+    engine within its capacity (``kernels/mvdr_stream.stream_fits``:
+    M <= 32, S <= 16 and the staged tile within shared memory), and
+    "dense" everywhere else; it does not pick "mega" until the two kernels
+    have been timed against each other. "stream" on CUDA runs the kernel or
+    raises past its capacity; on the CPU it runs the plain version in
+    float32 or float64. "mega" refuses a band that reaches the Nyquist bin
+    (``kernels/mega_stream.band_fits``) on every device; on CUDA it runs
+    the fused kernel in float32 within ``mega_fits`` and raises otherwise;
+    on the CPU it runs the plain version in float32 or float64. "dense"
+    runs the Gauss-Jordan kernel for a CUDA tensor and the plain inverse
+    on the CPU. On CUDA the kernels take at most 32 mics, so more raise
+    whatever the solver; "dense" covers a ``past_windows`` past the stream
+    tile and LCMV's S past 16. Legacy "sparse" with float64 maps to
+    "dense" with a deprecation warning (with float32 it is "stream"), as in
+    the JAX package. float64 on CUDA raises in the kernels.
     """
     if solver not in SOLVERS:
         raise ValueError(f"unknown solver {solver!r}; one of "
                          f"{', '.join(SOLVERS)}")
-    if solver == "mega":
-        raise NotImplementedError(
-            "solver='mega' (kernels/mega_stream.py) is not ported to "
-            "beamform_tpu_torch yet (see ROADMAP.md §2, row 4); use "
-            "'auto', 'stream' or 'dense'")
     if solver == "sparse" and cdtype != torch.complex64:
         warnings.warn(
             "solver='sparse' with float64 is deprecated: the gated-sparse "
@@ -88,6 +94,24 @@ def select_solver_strategy(solver: str, cdtype, m: int, w_hist: int,
             f"{m} mics exceed the capacity of the CUDA MVDR/LCMV kernels "
             f"(M <= {MAX_M} for both the stream and the Gauss-Jordan "
             "kernel) — run on the CPU")
+    if solver == "mega":
+        if ib is None or not band_fits(ib, nfft):
+            raise ValueError(
+                "solver='mega' takes bands in [bin 1, nfft/2): its "
+                "half-spectrum synthesis would double the Nyquist bin and "
+                "the shadow bin (kernels/mega_stream.band_fits) — use "
+                "solver='stream' or 'dense'")
+        if cuda and cdtype != torch.complex64:
+            raise ValueError("the mega solver is a float32 strategy on "
+                             "CUDA; use solver='dense' with float64, or the "
+                             "CPU")
+        if cuda and not mega_fits(m, ib, nfft, s_cap, w_hist):
+            raise ValueError(
+                f"solver='mega' exceeds the CUDA fused kernel's capacity "
+                f"({m} mics, past_windows {w_hist}, {s_cap} constraint "
+                f"slots, nfft {nfft}; see kernels/mega_stream.mega_fits) — "
+                "use solver='stream' or 'dense'")
+        return "mega"
     if solver in ("stream", "sparse"):
         if cuda and not stream_fits(m, w_hist, s_cap):
             slots = f", {s_cap} constraint slots" if s_cap else ""
@@ -145,6 +169,7 @@ class MvdrModel(BatchableModel, nn.Module):
                                          params.freq_max))[0]
         self.register_buffer("ib", torch.as_tensor(ib, device=device),
                              persistent=False)
+        self.ib_host = ib        # the solver policy reads it without a sync
 
     @property
     def device(self) -> torch.device:
@@ -164,10 +189,12 @@ class MvdrModel(BatchableModel, nn.Module):
         budget = 128e6 / (max(len(self.ib), 1) * m * m * 8)
         return max(8, min(128, int(budget) - self.params.past_windows, t))
 
-    def _strategy(self) -> str:
+    def _strategy(self, s_cap: int = 0) -> str:
         return select_solver_strategy(self.params.solver, self.cdtype,
                                       self.geom.num_mics,
-                                      self.params.past_windows, self.device)
+                                      self.params.past_windows, self.device,
+                                      s_cap=s_cap, ib=self.ib_host,
+                                      nfft=self.engine.fft_win)
 
     def _forward(self, x, thetas, w_idx, state):
         """x (M, T*hop), unique thetas (U,), per-frame index (T,) ->
@@ -175,15 +202,33 @@ class MvdrModel(BatchableModel, nn.Module):
         w_uniq = common.weights_for_thetas(self.geom, self.freqs, thetas,
                                            self.rdtype, self.cdtype)
         d_ib = w_uniq.index_select(2, self.ib)              # (U, M, NIB)
+        strategy = self._strategy()
+        if strategy == "mega":
+            return self._forward_mega(mvdr_mega, x, d_ib, w_idx, state)
 
         def solve(spec, hist0, gate):
-            if self._strategy() == "stream":
+            if strategy == "stream":
                 return mvdr_stream(spec, hist0, d_ib, w_idx, gate, self.ib)
             return self._solve_dense(
                 spec.index_select(2, self.ib), hist0, gate,
                 lambda r, sl: mvdr_solve(r, d_ib[w_idx[sl]].movedim(1, -1)))
 
         return self._gated_forward(x, state, solve)
+
+    def _forward_mega(self, fused, x, ctrl, idx, state):
+        """The fused path (``fused`` is ``mvdr_mega`` or ``lcmv_mega``): raw
+        audio in, beamformed audio out in one kernel launch, as
+        ``beamform_tpu/models/mvdr.py:_forward_mega``. A chunk shorter than
+        a hop marches nothing and keeps the carried tail."""
+        p = self.params
+        carry, hist0 = state
+        audio, hist, prev = fused(
+            x.contiguous(), carry.tail, carry.out_prev, hist0, ctrl, idx,
+            self.ib, self.engine.fft_win, p.past_windows,
+            p.freq_mag_threshold)
+        tail = (carry.tail if x.shape[1] < self.engine.hop
+                else x[:, -self.engine.hop:].contiguous())
+        return audio * p.out_amp, (common.WolaCarry(tail, prev), hist)
 
     def _gated_forward(self, x, state, solve):
         """The band-gated pipeline around a solve: analysis with the gate

@@ -1,16 +1,18 @@
 """Command-line interface of the port: ``beamform-tpu-torch
-{das,mvdr,lcmv}``.
+{das,mvdr,lcmv,gss}``.
 
 Counterpart of ``beamform_tpu/runtime/cli.py`` for the ported slice: the
-offline and ``--stream`` paths of the ``das``, ``mvdr`` and ``lcmv``
-nodes, WAV in and WAV out, with an xRT (audio-seconds per wall-second)
-report. Node parameters start from the reference's launch preset and take
-``--param KEY=VALUE`` overrides, as in the JAX CLI. LCMV's interference
-set follows ``--interference-events`` (a replayed /theta_interference
-message list) or, under ``--stream``, ``--interf-control`` (a polled file
-of messages). ``--device`` picks the torch device (default ``cuda``, which
-must be present). Other nodes, the live runtimes, live steering and output
-resampling are not ported yet and fail with a message that says so.
+offline and ``--stream`` paths of the ``das``, ``mvdr``, ``lcmv`` and
+``gss`` nodes, WAV in and WAV out, with an xRT (audio-seconds per
+wall-second) report. Node parameters start from the reference's launch
+preset and take ``--param KEY=VALUE`` overrides, as in the JAX CLI. The
+interference set of LCMV and GSS follows ``--interference-events`` (a
+replayed /theta_interference message list) or, under ``--stream``,
+``--interf-control`` (a polled file of messages); GSS sizes its demixing
+state for the timeline's slot capacity. ``--device`` picks the torch
+device (default ``cuda``, which must be present). Other nodes, the live
+runtimes, live steering and output resampling are not ported yet and fail
+with a message that says so.
 """
 
 from __future__ import annotations
@@ -40,7 +42,7 @@ NODES = ("das", "mvdr", "lcmv", "gss", "gsc", "phase", "mcra", "phasempf",
          "ref", "read", "write")
 # JAX CLI flags of paths not ported yet (live runtimes, live steering)
 UNPORTED_FLAGS = ("--live", "--jack", "--theta-control")
-# the nodes that take an interference set (gss is not ported yet)
+# the nodes that take an interference set
 INTERF_NODES = ("lcmv", "gss")
 
 
@@ -330,6 +332,14 @@ def main(argv=None) -> int:
             InterferenceMachine(list(array_cfg.interference_angles),
                                 threshold=thresh,
                                 capacity=MAX_INTERFERENCES))
+
+    if hasattr(model, "capacity"):
+        # size the demixing state (gss) for the timeline's slot capacity
+        # before stream_init runs, as the JAX CLI does
+        if interf_ctrl is not None:
+            model.capacity = MAX_INTERFERENCES
+        elif interference is not None:
+            model.capacity = interference.capacity
 
     t0 = time.perf_counter()
     if args.stream:

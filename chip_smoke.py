@@ -6,18 +6,23 @@ Run from the root of a checkout, with no arguments:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from ``beamform_tpu_torch/csrc``, checks
-each of the five kernels (WOLA analysis and synthesis, the MVDR and LCMV
-streaming solves, the Gauss-Jordan inverse) against its plain-torch
-version at the main paths' shapes, and drives three main paths at full
-width (16 mics of the aira16 array, 48 kHz, 30 s, hop 1024) through
-``run_offline``, ``StreamingSession`` and the CLI: delay-and-sum, and MVDR
-and LCMV under the reference's launch presets with the ``auto`` (streaming
-solve) and ``dense`` (Gauss-Jordan) solvers, on noise and on a speech-like
-input; LCMV also with two static interferers and with an interference
-event timeline. It checks each output against the float64 CPU path and
-measures each path's xRT. Every phase raises on failure, so the script
-exits non-zero without its final line; it also fails without a CUDA
-device. It imports no JAX.
+each of the seven kernels (WOLA analysis and synthesis, the MVDR and LCMV
+streaming solves, the Gauss-Jordan inverse, the fused MVDR/LCMV kernel and
+the fused GSS kernel) against its plain-torch version at the main paths'
+shapes, with its time beside its bound (the least time the card could take
+for the same work) and, where one PyTorch call computes the same function,
+that call's time. It drives the main paths at full width (16 mics of the
+aira16 array, 48 kHz, 30 s, hop 1024) through ``run_offline``,
+``StreamingSession`` and the CLI: delay-and-sum; MVDR and LCMV under the
+reference's launch presets with the ``auto`` (streaming solve), ``dense``
+(Gauss-Jordan) and ``mega`` (fused) solvers, on noise and on a speech-like
+input, LCMV also with two static interferers and with an interference
+event timeline; and the GSS node on the same scenes. It checks each output
+against the float64 CPU path, counts each path's own kernel launches, and
+measures each path's xRT and device time per call (CUDA events). Each
+phase logs ``phase <name>: start`` and ``phase <name>: ok`` and raises on
+failure, so the script exits non-zero without its final line; it also
+fails without a CUDA device. It imports no JAX.
 
 The last two lines of standard output are one JSON object per kernel
 (``{"kernels": [...]}``) and the result line
@@ -66,11 +71,76 @@ LCMV_MVDR_TOL = 1e-6
 # the preset's threshold 1.0, replayed at capacity 15)
 INTERFERERS = (70.0, -60.0)
 EVENTS = ((70.0,), "10:2:-60,20:2:70.5")
+# the fused MVDR/LCMV kernel vs its plain version (max error / max |ref|
+# of the audio): unrefined float32 solves, as the TPU kernel's default;
+# with interferers the inner system compounds R's conditioning, as for
+# lcmv_stream. Each is also held to F64_FACTOR times the plain float32
+# version's own error against the plain version in complex128.
+MEGA_REL_TOL = 5e-4
+MEGA_LCMV_REL_TOL = 3e-3
+# the fused GSS kernel vs its plain version: the same march in another
+# summation order, no solve (no conditioning to amplify round-off)
+GSS_REL_TOL = 1e-5
 REPS = 20
+# the least time of a call (the H100 SXM's published peaks, at 700 W):
+# HBM bytes, and float32 operations outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOP_PER_S = 67e12
+KERNEL_KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+               "library_ms")
 
 
 def log(*a):
     print(*a, flush=True)
+
+
+def phase(name, fn, *args, **kwargs):
+    """Run one phase, logging its start, its end and its seconds, so that
+    a failure names its phase."""
+    log(f"phase {name}: start")
+    t0 = time.perf_counter()
+    out = fn(*args, **kwargs)
+    log(f"phase {name}: ok ({time.perf_counter() - t0:.1f} s)")
+    return out
+
+
+def bound(nbytes: float, flops: float) -> dict:
+    """The least time of a call that moves ``nbytes`` (each input read
+    once, each output written once) and does ``flops`` float32
+    operations, and which of the two bounds it."""
+    t_b = nbytes / HBM_BYTES_PER_S * 1e3
+    t_f = flops / FP32_FLOP_PER_S * 1e3
+    log(f"  bound: {nbytes / 1e6:.1f} MB -> {t_b:.4f} ms, {flops / 1e9:.2f} "
+        f"Gflop -> {t_f:.4f} ms")
+    return dict(bound_ms=max(t_b, t_f),
+                bound_by="bytes" if t_b >= t_f else "operations")
+
+
+def fft_flops(n: int) -> float:
+    """Operations of one complex n-point FFT, the usual 5 n log2 n."""
+    return 5.0 * n * np.log2(n)
+
+
+def solve_flops(pairs: int, m: int, t: int, w: int, nib: int,
+                slots: int = 1, refine: bool = True, inner: int = 0) -> float:
+    """Operations of the MVDR and LCMV solves over ``t`` frames after
+    ``w`` history frames at ``nib`` bins, as few as the function needs.
+    The window covariance slides, gate or not: each frame's outer product
+    goes into the window sum and the epoch accumulator (10 operations per
+    entry of the Hermitian triangle, M (M + 1) / 2 entries), and leaves
+    the window W frames later (8). Each of the ``pairs`` gated (frame, bin)
+    problems then takes the complex Cholesky factor (8/3 M^3), per
+    constraint slot a forward and a backward solve (4 M^2 each; refinement
+    adds a residual, 8 M^2, and a second pair), for LCMV the S x S inner
+    system (the Hermitian G = C^H X, 4 S (S + 1) M; its Cholesky factor,
+    4/3 S^3, and two solves, 8 S^2; w = X v, 8 S M), and y = w^H x."""
+    tri = m * (m + 1) / 2
+    cov = ((t + w) * 10 + t * 8) * nib * tri
+    per = 8 / 3 * m ** 3 + slots * (3 if refine else 1) * 8 * m * m + 8 * m
+    if inner:
+        per += (4 * inner * (inner + 1) * m + 4 / 3 * inner ** 3
+                + 8 * inner ** 2 + 8 * inner * m)
+    return cov + pairs * per
 
 
 def card_line() -> str:
@@ -123,6 +193,12 @@ def lcmv_preset(**kw) -> dict:
     return dict(load_launch_params("lcmv"), **kw)
 
 
+def gss_preset(**kw) -> dict:
+    """The reference's launch preset for gss, plus overrides."""
+    from beamform_tpu_torch.config import load_launch_params
+    return dict(load_launch_params("gss"), **kw)
+
+
 def aira16(interference=()):
     """The aira16 array, with ``interference`` as its static set."""
     import dataclasses
@@ -149,13 +225,15 @@ def engine(dtype="float32"):
 def counters():
     """Every kernel wrapper of the port, by the name the kernels line
     uses."""
-    from beamform_tpu_torch.kernels import (lcmv_stream, linalg,
-                                            mvdr_stream, wola)
+    from beamform_tpu_torch.kernels import (gss_stream, lcmv_stream, linalg,
+                                            mega_stream, mvdr_stream, wola)
     return {"wola_analysis": wola.wola_analysis,
             "wola_synthesis": wola.wola_synthesis,
             "mvdr_stream": mvdr_stream.mvdr_stream,
             "gj_inverse": linalg.gj_inverse,
-            "lcmv_stream": lcmv_stream.lcmv_stream}
+            "lcmv_stream": lcmv_stream.lcmv_stream,
+            "mega_stream": mega_stream.mega_stream,
+            "gss_stream": gss_stream.gss_mega}
 
 
 def reset_launches():
@@ -192,23 +270,25 @@ def _err(got, ref):
 
 
 def check_solve_kernel(label, got, ref, f64, bar, ms, plain_ms) -> float:
-    """Hold a float32 solve kernel's output (MVDR, LCMV, Gauss-Jordan) to
-    its plain float32 version (``bar`` of peak) and, against the plain
-    version in complex128 on the same operands, to F64_FACTOR times the
+    """Hold a float32 solve kernel's output (MVDR, LCMV, Gauss-Jordan, or
+    the audio of a fused kernel) to its plain float32 version (``bar`` of
+    peak) and, against the plain version in double precision (``f64``,
+    complex128 or float64) on the same operands, to F64_FACTOR times the
     plain float32 version's own error. Logs the numbers; returns the max
     abs error against plain."""
     import torch
     abs_err, rel_err = _err([got], [ref])
-    k64 = _err([got.cdouble()], [f64])[1]
-    p64 = _err([ref.cdouble()], [f64])[1]
+    k64 = _err([got.to(f64.dtype)], [f64])[1]
+    p64 = _err([ref.to(f64.dtype)], [f64])[1]
     log(f"kernel {label}: max_abs_err {abs_err:.3e} rel {rel_err:.3e} (bar "
-        f"{bar:g}); vs complex128 kernel {k64:.3e}, plain {p64:.3e} (bar "
-        f"{F64_FACTOR:g}x plain); {ms:.4f} ms vs plain torch "
+        f"{bar:g}); vs {str(f64.dtype)[6:]} kernel {k64:.3e}, plain "
+        f"{p64:.3e} (bar {F64_FACTOR:g}x plain); {ms:.4f} ms vs plain torch "
         f"{plain_ms:.4f} ms")
-    if not (rel_err <= bar and k64 <= F64_FACTOR * p64
-            and torch.isfinite(torch.view_as_real(got)).all()):
-        raise AssertionError(f"{label}: rel err {rel_err}, vs complex128 "
-                             f"{k64} (plain {p64})")
+    finite = torch.isfinite(torch.view_as_real(got) if got.is_complex()
+                            else got).all()
+    if not (rel_err <= bar and k64 <= F64_FACTOR * p64 and finite):
+        raise AssertionError(f"{label}: rel err {rel_err}, vs "
+                             f"{f64.dtype} {k64} (plain {p64})")
     return abs_err
 
 
@@ -281,8 +361,46 @@ def phase_kernels(t_main: int) -> dict:
                                  f"{KERNEL_REL_TOL}")
         if (t, c) in ((t_main, 16), (t_main, 1)) and not with_mag:
             results[kind] = dict(max_abs_err=abs_err, ms=ms,
-                                 plain_ms=plain_ms)
+                                 plain_ms=plain_ms,
+                                 **wola_yardsticks(kind, c, t, x if kind ==
+                                                   "analysis" else y,
+                                                   tail if kind == "analysis"
+                                                   else prev))
     return results
+
+
+def wola_yardsticks(kind: str, c: int, t: int, a, b) -> dict:
+    """The bound and the PyTorch library call of a WOLA kernel at (C, T):
+    ``torch.stft`` (center=False, the sqrt-Hann window) of [tail | x] for
+    the analysis, ``torch.istft`` of the one-sided spectra for the
+    synthesis."""
+    import torch
+    from beamform_tpu_torch.dsp.wola import sqrt_hann
+    n = 2 * HOP
+    win = torch.as_tensor(sqrt_hann(n), dtype=torch.float32, device=a.device)
+    if kind == "analysis":
+        nbytes = 4 * c * t * HOP + 4 * c * HOP + 8 * t * c * (HOP + 2)
+        flops = -(-c // 2) * t * fft_flops(n) + c * t * n
+        ext = torch.cat([b, a], dim=-1)
+        lib_ms = cuda_ms(lambda: torch.stft(ext, n_fft=n, hop_length=HOP,
+                                            window=win, center=False,
+                                            return_complex=True))
+        log(f"  library: torch.stft {lib_ms:.4f} ms (one-sided bins "
+            "0..nfft/2: no shadow bin, no gate statistic)")
+    else:
+        nbytes = 8 * c * t * (HOP + 2) + 8 * c * HOP + 4 * c * t * HOP
+        flops = c * t * fft_flops(n) + c * t * n
+        ys = a[..., :HOP + 1].transpose(1, 2).contiguous()
+        env = float(((win[:HOP] ** 2 + win[HOP:] ** 2) - 1).abs().max())
+        # center=False fails torch's NOLA check (the first sample's window
+        # envelope is 0); center=True trims the edges and divides the rest
+        # by the envelope, which is 1 at 50% overlap
+        lib_ms = cuda_ms(lambda: torch.istft(ys, n_fft=n, hop_length=HOP,
+                                             window=win, center=True))
+        log(f"  library: torch.istft {lib_ms:.4f} ms (center=True; window "
+            f"envelope sum w^2 at 50% overlap = 1 within {env:.1e}; no "
+            "shadow-bin fold, no carry)")
+    return dict(**bound(nbytes, flops), library_ms=lib_ms)
 
 
 def phase_das(x: np.ndarray):
@@ -413,8 +531,9 @@ def phase_xrt(x: np.ndarray, card: str, node: str = "das", params=None,
               label: str = "noise", interference=()):
     """xRT of a node's path after warm-up, each run synchronised: with the
     input already on the card (model.process) and end to end from host
-    numpy to host numpy (run_offline); then a torch.profiler breakdown of
-    one device-resident call."""
+    numpy to host numpy (run_offline); the device time of one call by CUDA
+    events; then a torch.profiler breakdown of one device-resident call.
+    Returns the device time per call in ms."""
     import torch
     from beamform_tpu_torch import run_offline
     from beamform_tpu_torch.models import get_model
@@ -447,20 +566,39 @@ def phase_xrt(x: np.ndarray, card: str, node: str = "das", params=None,
             f"10, min {min(walls) * 1e3:.3f}, max {max(walls) * 1e3:.3f}) "
             f"on {card}")
 
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        on_device()
-    rows = sorted(prof.key_averages(),
+    # the device time of one call: CUDA events around the device-resident
+    # call, median of 10; the profiler below only breaks it down
+    event_ms = cuda_ms(lambda: model.process(xd, THETA), reps=10)
+    log(f"{node} device time per call ({label}, CUDA events, median of "
+        f"10): {event_ms:.3f} ms on {card}")
+
+    # one warm-up call inside the profiler before the recorded one: without
+    # it the trace lost most of a call's kernels in some profiles
+    from torch.profiler import ProfilerActivity, profile, schedule
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1),
+                 acc_events=True) as prof:
+        for _ in range(2):
+            on_device()
+            prof.step()
+    # host-side rows (operators, runtime calls, the step marker) carry the
+    # device time of the kernels they launched: only kernel rows are summed
+    rows = sorted((e for e in prof.key_averages()
+                   if not e.key.startswith("ProfilerStep")),
                   key=lambda e: getattr(e, "device_time_total", 0.0),
                   reverse=True)
     total = sum(getattr(e, "device_time_total", 0.0) for e in rows
                 if not e.key.startswith(("aten::", "cuda")))
-    log(f"profile of one device-resident {node} call ({label}; device "
-        f"kernel time {total / 1e3:.3f} ms):")
+    log(f"profile of one device-resident {node} call ({label}; kernels sum "
+        f"{total / 1e3:.3f} ms, {100 * total / 1e3 / event_ms:.1f}% of the "
+        f"event total {event_ms:.3f} ms"
+        + ("" if total / 1e3 >= 0.9 * event_ms else
+           "; the profiler misses device time or the stream idles")
+        + "):")
     for e in rows[:12]:
         log(f"  {getattr(e, 'device_time_total', 0.0) / 1e3:9.3f} ms "
             f"x{e.count:<4d} {e.key[:90]}")
+    return event_ms
 
 
 def phase_mvdr_kernels(x: np.ndarray) -> dict:
@@ -509,8 +647,13 @@ def phase_mvdr_kernels(x: np.ndarray) -> dict:
             "(frame, bin) pairs)", got, ref, f64, MVDR_STREAM_REL_TOL, ms,
             plain_ms)
         del f64
-        results.setdefault("mvdr_stream", dict(max_abs_err=abs_err, ms=ms,
-                                               plain_ms=plain_ms))
+        if "mvdr_stream" not in results:
+            nib = len(ib)
+            pairs = int(gate.sum())
+            results["mvdr_stream"] = dict(
+                max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
+                **bound(8 * (t + w + d.shape[0]) * m * nib + 9 * t * nib,
+                        solve_flops(pairs, m, t, w, nib)), library_ms=None)
 
     # one dense block, as MvdrModel._solve_dense builds it
     cb = model._block_frames(t)
@@ -534,8 +677,13 @@ def phase_mvdr_kernels(x: np.ndarray) -> dict:
             f64, GJ_REL_TOL, ms, plain_ms)
         del f64
         if not polish:
-            results["gj_inverse"] = dict(max_abs_err=abs_err, ms=ms,
-                                         plain_ms=plain_ms)
+            b = r.shape[0]
+            lib_ms = cuda_ms(lambda: torch.linalg.inv(r))
+            log(f"  library: torch.linalg.inv {lib_ms:.4f} ms")
+            results["gj_inverse"] = dict(
+                max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
+                **bound(2 * 8 * b * m * m, 8 * b * m ** 3),
+                library_ms=lib_ms)
     return results
 
 
@@ -543,8 +691,9 @@ def phase_mvdr(x: np.ndarray, xs: np.ndarray) -> tuple:
     """The MVDR main path under the launch preset: run_offline with the
     ``auto`` (streaming solve) and ``dense`` (Gauss-Jordan) solvers, on the
     noise input and the speech-like input, with counted launches, checked
-    against the float64 CPU path and against each other. Returns (auto
-    output on noise, {solver: that path's own launch counts})."""
+    against the float64 CPU path and against each other. Returns ({(input,
+    solver): output}, {input: float64 CPU output}, {solver: that path's
+    own launch counts})."""
     import torch
     from beamform_tpu_torch import run_offline
     from beamform_tpu_torch.models import common, get_model
@@ -621,7 +770,7 @@ def phase_mvdr(x: np.ndarray, xs: np.ndarray) -> tuple:
                        > model.params.freq_mag_threshold).float().mean())
         log(f"mvdr {inp}: the energy gate passes {share:.4f} of "
             f"{mag.shape[0]} x {len(model.ib)} (frame, bin) pairs")
-    return outs[("noise", "auto")], launches
+    return outs, refs, launches
 
 
 def lcmv_constraints(model, n_interf: int, capacity: int):
@@ -682,8 +831,13 @@ def phase_lcmv_kernels(x: np.ndarray) -> dict:
             LCMV_STREAM_REL_TOL if n_interf else MVDR_STREAM_REL_TOL, ms,
             plain_ms)
         del f64
-        results.setdefault("lcmv_stream", dict(max_abs_err=abs_err, ms=ms,
-                                               plain_ms=plain_ms))
+        if "lcmv_stream" not in results:
+            nib, s_cap = len(ib), c.shape[1]
+            results["lcmv_stream"] = dict(
+                max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
+                **bound(8 * (t + w + s_cap) * m * nib + 9 * t * nib,
+                        solve_flops(int(gate.sum()), m, t, w, nib, s_cap,
+                                    inner=s_cap)), library_ms=None)
     return results
 
 
@@ -693,8 +847,9 @@ def phase_lcmv(x: np.ndarray, xs: np.ndarray, y_mvdr: np.ndarray) -> tuple:
     path's launches counted alone, on noise (S = 1), on noise with two
     static interferers (S = 3), on the speech-like input (S = 1) and on
     noise under EVENTS' timeline; each checked against the float64 CPU
-    path, and S = 1 against MVDR ``auto`` (``y_mvdr``). Returns (auto
-    output on noise, {solver: that path's own launch counts})."""
+    path, and S = 1 against MVDR ``auto`` (``y_mvdr``). Returns ({(scene,
+    solver): output}, {scene: float64 CPU output}, {solver: that path's
+    own launch counts})."""
     from beamform_tpu_torch import run_offline
     t = -(-x.shape[1] // HOP)
     timeline = event_timeline(t)
@@ -749,7 +904,272 @@ def phase_lcmv(x: np.ndarray, xs: np.ndarray, y_mvdr: np.ndarray) -> tuple:
         f"{diff:.3e} (bar {LCMV_MVDR_TOL:g})")
     if not diff <= LCMV_MVDR_TOL:
         raise AssertionError(f"lcmv S=1 vs mvdr {diff}")
-    return outs[("noise", "auto")], launches
+    return outs, refs, launches
+
+
+def fused_inputs(x: np.ndarray):
+    """The 30 s input on the card with zero carries, and the gate of its
+    analysis under the launch preset's threshold (for the bound's count
+    of solved pairs)."""
+    import torch
+    from beamform_tpu_torch.kernels.wola import wola_analysis
+    from beamform_tpu_torch.models import common
+    dev = torch.device(DEVICE)
+    xp = common.prepare_input(x, engine(), torch.float32, dev)
+    tail = torch.zeros((xp.shape[0], HOP), device=dev)
+    prev = torch.zeros(HOP, device=dev)
+    _, mag, _ = wola_analysis(xp, tail, with_mag=True)
+    return xp, tail, prev, mag
+
+
+def fused_bytes(m: int, t: int, ctrl_elems: int, state_elems: int) -> int:
+    """Bytes a fused call must move: the audio in (and its tail), the
+    audio out (and the carry), the control planes, the complex state in
+    and out, the per-frame indices."""
+    return (4 * m * t * HOP + 4 * m * HOP + 4 * t * HOP + 8 * HOP
+            + 8 * ctrl_elems + 16 * state_elems + 9 * t)
+
+
+def fused_fft_flops(m: int, t: int) -> float:
+    """The analysis (one complex FFT per channel pair and frame, the
+    window) and the synthesis (one FFT per frame, the window)."""
+    n = 2 * HOP
+    return (-(-m // 2) + 1) * t * fft_flops(n) + (m + 1) * t * n
+
+
+def phase_mega_kernels(x: np.ndarray) -> dict:
+    """The fused MVDR/LCMV kernel against its plain version on the card,
+    on the main path's operands: the 30 s noise input under the launch
+    presets (678 in-band bins, 1407 frames, W = 10, zero carries); MVDR,
+    and LCMV at S = 1 (its MVDR form) and S = 3 (two static interferers).
+    Returns the MVDR numbers."""
+    import torch
+    from beamform_tpu_torch.kernels import mega_stream as kmega
+    from beamform_tpu_torch.models import common, get_model
+    dev = torch.device(DEVICE)
+    xp, tail, prev, mag = fused_inputs(x)
+    params = mvdr_preset()
+    model = get_model("mvdr", engine(), aira16(), params, device=dev)
+    ib, w, thr = model.ib, params["past_windows"], params["freq_mag_threshold"]
+    m, t, nib = xp.shape[0], xp.shape[1] // HOP, len(ib)
+    pairs = int((mag.index_select(1, ib) > thr).sum())
+    hist = torch.zeros((w, m, nib), dtype=torch.complex64, device=dev)
+    idx = torch.zeros(t, dtype=torch.int64, device=dev)
+    d = common.weights_for_thetas(model.geom, model.freqs,
+                                  torch.full((1,), THETA, device=dev),
+                                  torch.float32, torch.complex64)
+    lmodel = get_model("lcmv", engine(), aira16(), lcmv_preset(), device=dev)
+    cases = [("MVDR", d.index_select(2, ib)[:, None].contiguous(), False,
+              MEGA_REL_TOL),
+             ("LCMV S=1", lcmv_constraints(lmodel, 0, 0), True, MEGA_REL_TOL),
+             ("LCMV S=3", lcmv_constraints(lmodel, 2, 2), True,
+              MEGA_LCMV_REL_TOL)]
+    results = {}
+    for label, ctrl, lcmv, bar in cases:
+        def kernel():
+            return kmega.mega_stream(xp, tail, prev, hist, ctrl, idx, ib,
+                                     thr, lcmv=lcmv)
+
+        def plain():
+            return kmega.mega_plain(xp, tail, prev, hist, ctrl, idx, ib, thr)
+
+        got, ref = kernel(), plain()
+        f64 = kmega.mega_plain(xp.double(), tail.double(), prev.double(),
+                               hist.cdouble(), ctrl.cdouble(), idx, ib, thr)
+        torch.cuda.synchronize()
+        hist_err = _err([got[1]], [ref[1]])[1]
+        log(f"  {label}: history vs plain {hist_err:.3e} of peak, carry "
+            f"{_err([got[2]], [ref[2]])[0]:.3e}")
+        if not hist_err <= KERNEL_REL_TOL:
+            raise AssertionError(f"mega {label} history {hist_err}")
+        ms = cuda_ms(kernel)
+        plain_ms = cuda_ms(plain, reps=3)
+        s_cap = ctrl.shape[1]
+        abs_err = check_solve_kernel(
+            f"mega_stream {label} M={m} NIB={nib} T={t} W={w} (gate passes "
+            f"{pairs / (t * nib):.4f} of (frame, bin) pairs)", got[0], ref[0],
+            f64[0], bar, ms, plain_ms)
+        del f64
+        if "mega_stream" not in results:
+            flops = (fused_fft_flops(m, t)
+                     + solve_flops(pairs, m, t, w, nib, s_cap, refine=False,
+                                   inner=s_cap if lcmv else 0))
+            results["mega_stream"] = dict(
+                max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
+                **bound(fused_bytes(m, t, ctrl.numel(), w * m * nib), flops),
+                library_ms=None)
+    return results
+
+
+def phase_gss_kernels(x: np.ndarray) -> dict:
+    """The fused GSS kernel against its plain version on the card, on the
+    main path's operands: the 30 s noise input under the gss launch preset
+    (678 in-band bins, 1407 frames, zero state, W <- A^H at frame 0), with
+    one source slot (aira16 ships no interferers), two static interferers
+    (S = 3) and the CLI's capacity with two of 15 interference slots
+    active (S = 16). Returns the S = 1 numbers."""
+    import torch
+    from beamform_tpu_torch.kernels import gss_stream as kgss
+    from beamform_tpu_torch.models import get_model
+    from beamform_tpu_torch.runtime.timeline import static_interference
+    dev = torch.device(DEVICE)
+    xp, tail, prev, mag = fused_inputs(x)
+    results = {}
+    for interf, capacity in (((), 0), (INTERFERERS, 2), (INTERFERERS, 15)):
+        model = get_model("gss", engine(), aira16(interf), gss_preset(),
+                          device=dev)
+        model.capacity = capacity
+        p = model.params
+        ib = model.ib
+        m, t, nib = xp.shape[0], xp.shape[1] // HOP, len(ib)
+        (ah, _, _, bits), idx, _ = model._interf_ctrl(
+            THETA, t, static_interference(t, interf, capacity=capacity))
+        s_cap = ah.shape[1]
+        w0 = torch.zeros((nib, s_cap, m), dtype=torch.complex64, device=dev)
+        reset = torch.zeros(t, dtype=torch.bool, device=dev)
+        reset[0] = True
+        args = (xp, tail, prev, w0, ah, idx, reset, ib)
+        consts = (p.freq_mag_threshold, p.mu, p.lam)
+
+        def kernel():
+            return kgss.gss_mega(*args, 2 * HOP, *consts, act_bits=bits)
+
+        def plain():
+            return kgss.gss_mega_plain(*args, *consts, act_bits=bits)
+
+        got, ref = kernel(), plain()
+        f64 = kgss.gss_mega_plain(*(a.double() for a in args[:3]),
+                                  *(a.cdouble() for a in args[3:5]),
+                                  *args[5:], *consts, act_bits=bits)
+        torch.cuda.synchronize()
+        w_err = _err([got[1]], [ref[1]])[1]
+        log(f"  S={s_cap}: W vs plain {w_err:.3e} of peak, carry "
+            f"{_err([got[2]], [ref[2]])[0]:.3e}; inactive rows of W zero: "
+            f"{not bool(got[1][:, 1 + len(interf):].abs().sum())}")
+        if not (w_err <= GSS_REL_TOL
+                and not got[1][:, 1 + len(interf):].abs().sum()):
+            raise AssertionError(f"gss S={s_cap}: W err {w_err}")
+        ms = cuda_ms(kernel)
+        plain_ms = cuda_ms(plain, reps=3)
+        pairs = int((mag.index_select(1, ib) > p.freq_mag_threshold).sum())
+        abs_err = check_solve_kernel(
+            f"gss_stream M={m} NIB={nib} T={t} S={s_cap} ({len(interf)} "
+            f"interferers active; gate passes {pairs / (t * nib):.4f} of "
+            "(frame, bin) pairs)", got[0], ref[0], f64[0], GSS_REL_TOL, ms,
+            plain_ms)
+        del f64
+        if "gss_stream" not in results:
+            s_act = 1 + len(interf)
+            flops = (fused_fft_flops(m, t)
+                     + pairs * (8 * m * (3 * s_act + 2 * s_act ** 2) + 4 * m))
+            results["gss_stream"] = dict(
+                max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
+                **bound(fused_bytes(m, t, ah.numel(), w0.numel()), flops),
+                library_ms=None)
+    return results
+
+
+FUSED_EXPECT = {k: 0 for k in ("wola_analysis", "wola_synthesis",
+                               "mvdr_stream", "gj_inverse", "lcmv_stream",
+                               "mega_stream", "gss_stream")}
+
+
+def check_scene(label, y, ref, n_out, may_be_nonfinite, tol=DAS_ABS_TOL):
+    """Shape, non-finite samples exactly where the float64 CPU path has
+    them (none unless ``may_be_nonfinite``), and the max deviation of the
+    rest within ``tol``."""
+    finite = np.isfinite(ref)
+    if (y.shape != (n_out,) or not np.array_equal(np.isfinite(y), finite)
+            or (not may_be_nonfinite and not finite.all())):
+        raise AssertionError(f"{label}: shape {y.shape} / non-finite "
+                             "samples differ")
+    dev = float(np.abs(y[finite] - ref[finite]).max())
+    log(f"{label}: max sample deviation {dev:.3e} (bar {tol:g}, peak "
+        f"{np.abs(ref[finite]).max():.3e}; non-finite samples "
+        f"{int((~finite).sum())} on both)")
+    if not dev <= tol:
+        raise AssertionError(f"{label} deviation {dev}")
+    return dev
+
+
+def phase_mega(x: np.ndarray, xs: np.ndarray, mvdr_outs, mvdr_refs,
+               lcmv_outs, lcmv_refs) -> dict:
+    """MVDR and LCMV ``solver=mega`` through run_offline under the launch
+    presets: MVDR on noise and speech, LCMV on noise (S = 1), speech, two
+    static interferers (S = 3) and the event timeline; each path's launches
+    counted alone (the fused kernel once, no other kernel), each output
+    checked against the float64 CPU path of phase_mvdr / phase_lcmv (the
+    plain stream solve in float64, which equals mega's semantics) with
+    matching non-finite masks, and against the same scene's ``auto``
+    output on the card. Returns (MVDR's output on noise, that path's
+    launch counts)."""
+    from beamform_tpu_torch import run_offline
+    t = -(-x.shape[1] // HOP)
+    timeline = event_timeline(t)
+    runs = [("mvdr", "noise", x), ("mvdr", "speech", xs),
+            ("lcmv", "noise", x), ("lcmv", "speech", xs),
+            ("lcmv", "static", x), ("lcmv", "events", x)]
+    y_mvdr = first = None
+    for node, scene, sig in runs:
+        interf = {"static": INTERFERERS, "events": EVENTS[0]}.get(scene, ())
+        preset = mvdr_preset if node == "mvdr" else lcmv_preset
+        reset_launches()
+        y = run_offline(node, sig, engine=engine(),
+                        array_cfg=aira16(interf), theta=THETA,
+                        params=preset(solver="mega"), device=DEVICE,
+                        interference=timeline if scene == "events" else None)
+        got = read_launches()
+        log(f"{node} mega main path launches ({scene}): {got}")
+        if got != dict(FUSED_EXPECT, mega_stream=1):
+            raise AssertionError(f"{node} mega launches {got}")
+        if y_mvdr is None:
+            y_mvdr, first = y, got
+        outs, refs = ((mvdr_outs, mvdr_refs) if node == "mvdr"
+                      else (lcmv_outs, lcmv_refs))
+        check_scene(f"{node} {scene} mega {DEVICE} float32 vs cpu float64",
+                    y, refs[scene], t * HOP, scene == "speech")
+        check_scene(f"{node} {scene} mega vs auto on the card", y,
+                    outs[(scene, "auto")], t * HOP, scene == "speech")
+    return y_mvdr, first
+
+
+def phase_gss(x: np.ndarray, xs: np.ndarray) -> tuple:
+    """The GSS node (``auto``: the fused kernel on the card) through
+    run_offline under its launch preset, on noise (S = 1), speech, two
+    static interferers (S = 3) and EVENTS' timeline (capacity 15, S = 16);
+    each path's launches counted alone, each output checked against the
+    float64 CPU path (the plain march) with matching non-finite masks.
+    Returns (output on noise, the noise path's launch counts)."""
+    from beamform_tpu_torch import run_offline
+    t = -(-x.shape[1] // HOP)
+    timeline = event_timeline(t)
+    scenes = {"noise": x, "speech": xs, "static": x, "events": x}
+
+    def run(sig, scene, dtype="float32", device=DEVICE, solver="auto"):
+        interf = {"static": INTERFERERS, "events": EVENTS[0]}.get(scene, ())
+        return run_offline(
+            "gss", sig, engine=engine(dtype), array_cfg=aira16(interf),
+            theta=THETA, params=gss_preset(solver=solver), device=device,
+            interference=timeline if scene == "events" else None)
+
+    outs, launches = {}, None
+    for scene, sig in scenes.items():
+        reset_launches()
+        outs[scene] = run(sig, scene)
+        got = read_launches()
+        log(f"gss auto main path launches ({scene}): {got}")
+        if got != dict(FUSED_EXPECT, gss_stream=1):
+            raise AssertionError(f"gss launches {got}")
+        launches = launches or got
+    t0 = time.perf_counter()
+    refs = {scene: run(sig, scene, "float64", "cpu", "scan")
+            for scene, sig in scenes.items()}
+    log(f"gss float64 CPU references (plain march, full 30 s, 4 scenes): "
+        f"{time.perf_counter() - t0:.1f} s")
+    for scene in scenes:
+        check_scene(f"gss {scene} {DEVICE} float32 vs cpu float64",
+                    outs[scene], refs[scene], t * HOP, scene == "speech")
+    return outs["noise"], launches
 
 
 def main() -> int:
@@ -757,6 +1177,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("error: chip_smoke.py needs a CUDA device", file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
     card = card_line()
     log(card)                # name, power limit: as nvidia-smi prints them
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
@@ -764,42 +1185,81 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    phase_build()
+    phase("build", phase_build)
     x = make_input(16, SECONDS)
     xs = make_speech_input(16, SECONDS)
     t_main = -(-x.shape[1] // HOP)
-    kern = phase_kernels(t_main)
-    kern = {"wola_analysis": kern["analysis"],
-            "wola_synthesis": kern["synthesis"], **phase_mvdr_kernels(x),
-            **phase_lcmv_kernels(x)}
-    y, das_launches = phase_das(x)
+    wola = phase("kernels", phase_kernels, t_main)
+    kern = {"wola_analysis": wola["analysis"],
+            "wola_synthesis": wola["synthesis"],
+            **phase("mvdr_kernels", phase_mvdr_kernels, x),
+            **phase("lcmv_kernels", phase_lcmv_kernels, x),
+            **phase("mega_kernels", phase_mega_kernels, x),
+            **phase("gss_kernels", phase_gss_kernels, x)}
+    y, das_launches = phase("das", phase_das, x)
     with tempfile.TemporaryDirectory(prefix=".chip_smoke_", dir=ROOT) as tmp:
-        phase_streaming(x, y, tmp)
-        phase_cli(x, tmp)
-    phase_xrt(x, card)
-    y_mvdr, mvdr_launches = phase_mvdr(x, xs)
+        phase("das_streaming", phase_streaming, x, y, tmp)
+        phase("das_cli", phase_cli, x, tmp)
+    phase("das_xrt", phase_xrt, x, card)
+    mvdr_outs, mvdr_refs, mvdr_launches = phase("mvdr", phase_mvdr, x, xs)
+    y_mvdr = mvdr_outs[("noise", "auto")]
     with tempfile.TemporaryDirectory(prefix=".chip_smoke_", dir=ROOT) as tmp:
-        phase_streaming(x, y_mvdr, tmp, "mvdr", mvdr_preset())
-        phase_cli(x, tmp, "mvdr", mvdr_preset())
-    phase_xrt(x, card, "mvdr", mvdr_preset(), "noise")
-    phase_xrt(xs, card, "mvdr", mvdr_preset(), "speech")
-    phase_xrt(x, card, "mvdr", mvdr_preset(solver="dense"), "noise, dense")
-    y_lcmv, lcmv_launches = phase_lcmv(x, xs, y_mvdr)
+        phase("mvdr_streaming", phase_streaming, x, y_mvdr, tmp, "mvdr",
+              mvdr_preset())
+        phase("mvdr_cli", phase_cli, x, tmp, "mvdr", mvdr_preset())
+    phase("mvdr_xrt", phase_xrt, x, card, "mvdr", mvdr_preset(), "noise")
+    phase("mvdr_xrt", phase_xrt, xs, card, "mvdr", mvdr_preset(), "speech")
+    phase("mvdr_xrt", phase_xrt, x, card, "mvdr", mvdr_preset(solver="dense"),
+          "noise, dense")
+    lcmv_outs, lcmv_refs, lcmv_launches = phase("lcmv", phase_lcmv, x, xs,
+                                                y_mvdr)
     with tempfile.TemporaryDirectory(prefix=".chip_smoke_", dir=ROOT) as tmp:
-        phase_streaming(x, y_lcmv, tmp, "lcmv", lcmv_preset(), tol=0.0)
-        phase_cli(x, tmp, "lcmv", lcmv_preset(), ["--stream", "64"],
-                  seconds=4.0, interference=EVENTS[0],
-                  events="1.5:2:-60,3:2:70.5", tol=0.0)
-    phase_xrt(x, card, "lcmv", lcmv_preset(), "noise, S=1")
-    phase_xrt(xs, card, "lcmv", lcmv_preset(), "speech, S=1")
-    phase_xrt(x, card, "lcmv", lcmv_preset(), "noise, S=3", INTERFERERS)
-    phase_xrt(x, card, "lcmv", lcmv_preset(solver="dense"), "noise, dense")
+        phase("lcmv_streaming", phase_streaming, x,
+              lcmv_outs[("noise", "auto")], tmp, "lcmv", lcmv_preset(),
+              tol=0.0)
+        phase("lcmv_cli", phase_cli, x, tmp, "lcmv", lcmv_preset(),
+              ["--stream", "64"], seconds=4.0, interference=EVENTS[0],
+              events="1.5:2:-60,3:2:70.5", tol=0.0)
+    phase("lcmv_xrt", phase_xrt, x, card, "lcmv", lcmv_preset(), "noise, S=1")
+    phase("lcmv_xrt", phase_xrt, xs, card, "lcmv", lcmv_preset(),
+          "speech, S=1")
+    phase("lcmv_xrt", phase_xrt, x, card, "lcmv", lcmv_preset(), "noise, S=3",
+          INTERFERERS)
+    phase("lcmv_xrt", phase_xrt, x, card, "lcmv", lcmv_preset(solver="dense"),
+          "noise, dense")
+    y_mega, mega_launches = phase("mega", phase_mega, x, xs, mvdr_outs,
+                                  mvdr_refs, lcmv_outs, lcmv_refs)
+    with tempfile.TemporaryDirectory(prefix=".chip_smoke_", dir=ROOT) as tmp:
+        phase("mega_streaming", phase_streaming, x, y_mega, tmp, "mvdr",
+              mvdr_preset(solver="mega"), tol=0.0)
+        phase("mega_cli", phase_cli, x, tmp, "mvdr",
+              mvdr_preset(solver="mega"), ["--param", "solver=mega"])
+        phase("mega_cli", phase_cli, x, tmp, "lcmv",
+              lcmv_preset(solver="mega"),
+              ["--stream", "64", "--param", "solver=mega"], seconds=4.0,
+              interference=EVENTS[0], events="1.5:2:-60,3:2:70.5", tol=0.0)
+    phase("mega_xrt", phase_xrt, x, card, "mvdr", mvdr_preset(solver="mega"),
+          "noise, mega")
+    phase("mega_xrt", phase_xrt, x, card, "lcmv", lcmv_preset(solver="mega"),
+          "noise, S=1, mega")
+    y_gss, gss_launches = phase("gss", phase_gss, x, xs)
+    with tempfile.TemporaryDirectory(prefix=".chip_smoke_", dir=ROOT) as tmp:
+        phase("gss_streaming", phase_streaming, x, y_gss, tmp, "gss",
+              gss_preset(), tol=0.0)
+        phase("gss_cli", phase_cli, x, tmp, "gss", gss_preset(),
+              ["--stream", "64"], seconds=4.0, interference=EVENTS[0],
+              events="1.5:2:-60,3:2:70.5", tol=0.0)
+    phase("gss_xrt", phase_xrt, x, card, "gss", gss_preset(), "noise")
+    phase("gss_xrt", phase_xrt, x, card, "gss", gss_preset(), "noise, S=3",
+          INTERFERERS)
 
     launches = {"wola_analysis": das_launches["wola_analysis"],
                 "wola_synthesis": das_launches["wola_synthesis"],
                 "mvdr_stream": mvdr_launches["auto"]["mvdr_stream"],
                 "gj_inverse": mvdr_launches["dense"]["gj_inverse"],
-                "lcmv_stream": lcmv_launches["auto"]["lcmv_stream"]}
+                "lcmv_stream": lcmv_launches["auto"]["lcmv_stream"],
+                "mega_stream": mega_launches["mega_stream"],
+                "gss_stream": gss_launches["gss_stream"]}
     csrc = "beamform_tpu_torch/csrc/"
     meta = {"wola_analysis": ("wola.cu",
                               "beamform_tpu/kernels/wola_pallas.py:120"),
@@ -809,10 +1269,16 @@ def main() -> int:
                             "beamform_tpu/kernels/mvdr_stream.py:209"),
             "gj_inverse": ("linalg.cu", "beamform_tpu/kernels/linalg.py:70"),
             "lcmv_stream": ("lcmv_stream.cu",
-                            "beamform_tpu/kernels/lcmv_stream.py:151")}
+                            "beamform_tpu/kernels/lcmv_stream.py:151"),
+            "mega_stream": ("mega_stream.cu",
+                            "beamform_tpu/kernels/mega_stream.py:230"),
+            "gss_stream": ("gss_stream.cu",
+                           "beamform_tpu/kernels/gss_stream.py:64")}
+    log(f"chip_smoke wall time {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": csrc + meta[k][0],
-         "replaces": meta[k][1], "launches": launches[k], **kern[k]}
+         "replaces": meta[k][1], "launches": launches[k],
+         **{key: kern[k][key] for key in KERNEL_KEYS}}
         for k in meta]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -16,8 +16,10 @@ import torch
 from beamform_tpu_torch import run_offline
 from beamform_tpu_torch.config import (EngineConfig, load_array_config,
                                        load_launch_params)
+from beamform_tpu_torch.kernels import gss_stream as kgss
 from beamform_tpu_torch.kernels import lcmv_stream as klc
 from beamform_tpu_torch.kernels import linalg as kl
+from beamform_tpu_torch.kernels import mega_stream as kmega
 from beamform_tpu_torch.kernels import mvdr_stream as km
 from beamform_tpu_torch.kernels import wola as kw
 from beamform_tpu_torch.models import get_model
@@ -446,4 +448,271 @@ def test_lcmv_stream_chunks_equal_offline_on_cuda(cuda):
                                                  tl.row0, tl.reset)))
         chunks.append(sess.process(x[:, f0 * 1024:(f0 + 7) * 1024], 20.0,
                                    interference=rows))
+    assert torch.equal(torch.cat(chunks), offline)
+
+
+# ------------------------------------------------ fused kernels (mega, GSS)
+
+
+def _fused_inputs(rng, m, t, hop, nib, device):
+    """Audio with quiet hops (gated-off frames), the two carries, a band
+    that is neither contiguous nor starting at bin 1, and the gate
+    threshold at the median of the band's statistic (a mixed gate)."""
+    x = 0.1 * rng.standard_normal((m, t * hop))
+    x[:, 3 * hop:6 * hop] *= 1e-4
+    tail = 0.1 * rng.standard_normal((m, hop))
+    prev = rng.standard_normal(hop)
+    ib = np.sort(rng.choice(np.arange(1, hop), nib, replace=False))
+    x, tail, prev = (torch.as_tensor(a, dtype=torch.float32, device=device)
+                     for a in (x, tail, prev))
+    ib = torch.as_tensor(ib, device=device)
+    mag = kw.wola_analysis_plain(x, tail, with_mag=True)[1]
+    # the threshold in the widest gap between the statistic's values near
+    # the median, so that no pair sits on it and no rounding flips a gate
+    v = mag.index_select(1, ib).flatten().sort().values.cpu().numpy()
+    k = len(v) * 2 // 5 + np.argmax(np.diff(v[len(v) * 2 // 5:
+                                                len(v) * 3 // 5]))
+    return x, tail, prev, ib, float((v[k] + v[k + 1]) / 2)
+
+
+@pytest.mark.parametrize("m", [3, 16, 32])
+@pytest.mark.parametrize("s", [0, 1, 3, 16])
+def test_mega_kernel_matches_plain(cuda, m, s):
+    """MVDR (s = 0) and LCMV with s slots (inactive slots and the row-0
+    quirk from ``_constraints``) over 2.3 segments of frames, a theta
+    timeline of two control rows and a mixed gate: audio, history and
+    carry against the plain float32 version, and the audio against the
+    plain version in float64."""
+    rng = np.random.default_rng(100 + m * 10 + s)
+    hop, t, nib, w, u = 128, 220, 37, 6, 2
+    x, tail, prev, ib, thr = _fused_inputs(rng, m, t, hop, nib, cuda)
+    hist = _cplx(rng, (w, m, nib), cuda)
+    idx = torch.as_tensor(rng.integers(0, u, t), device=cuda)
+    if s == 0:
+        ctrl = _cplx(rng, (u, m, nib), cuda)
+        fused = kmega.mvdr_mega
+    else:
+        ctrl = _constraints(rng, u, s, m, nib, cuda)
+        fused = kmega.lcmv_mega
+    before = kmega.mega_stream.launches
+    got = fused(x, tail, prev, hist, ctrl, idx, ib, 2 * hop, w, thr)
+    torch.cuda.synchronize()
+    assert kmega.mega_stream.launches == before + 1
+    ref = fused(*(a.cpu() for a in (x, tail, prev, hist, ctrl, idx, ib)),
+                2 * hop, w, thr)
+    f64 = fused(*(a.cpu().double() for a in (x, tail, prev)),
+                *(a.cpu().cdouble() for a in (hist, ctrl)), idx.cpu(),
+                ib.cpu(), 2 * hop, w, thr)
+    audio, new_hist, new_prev = (a.cpu() for a in got)
+    assert audio.shape == (t * hop,) and audio.dtype == torch.float32
+    assert torch.isfinite(audio).all()
+    # the solves are unrefined (as the TPU kernel's default), so where the
+    # constraint set is ill-conditioned (S = M = 3) the plain float32
+    # version is itself 1.7e-2 of peak from float64: the kernel is held to
+    # twice that error against float64, and to three times it (or
+    # MVDR_REL) against the plain version
+    plain_err = _rel(ref[0].double(), f64[0])
+    assert _rel(audio, ref[0]) < max(MVDR_REL, 3 * plain_err)
+    assert _rel(audio.double(), f64[0]) <= max(2 * plain_err, 1e-6)
+    assert _rel(new_hist, ref[1]) < REL
+    assert _rel(new_prev, ref[2]) < MVDR_REL
+
+
+def test_mega_kernel_short_chunks_and_history(cuda):
+    """Chunks shorter than W frames (the history is partly the carried
+    one), a one-frame chunk, and chunked calls equal to one call bit for
+    bit."""
+    rng = np.random.default_rng(7)
+    hop, t, nib, w, m = 256, 40, 50, 10, 16
+    x, tail, prev, ib, thr = _fused_inputs(rng, m, t, hop, nib, cuda)
+    hist = _cplx(rng, (w, m, nib), cuda)
+    d = _cplx(rng, (1, m, nib), cuda)
+    idx = torch.zeros(t, dtype=torch.int64, device=cuda)
+    whole = kmega.mvdr_mega(x, tail, prev, hist, d, idx, ib, 2 * hop, w, thr)
+    outs, state = [], (tail, prev, hist)
+    for f0, f1 in ((0, 1), (1, 4), (4, 17), (17, 40)):
+        xc = x[:, f0 * hop:f1 * hop].contiguous()
+        a, h, p = kmega.mvdr_mega(xc, state[0], state[1], state[2], d,
+                                  idx[f0:f1], ib, 2 * hop, w, thr)
+        ref = kmega.mvdr_mega(*(v.cpu() for v in (xc, state[0], state[1],
+                                                  state[2], d)),
+                              idx[f0:f1].cpu(), ib.cpu(), 2 * hop, w, thr)
+        assert _rel(h.cpu(), ref[1]) < REL
+        outs.append(a)
+        state = (xc[:, -hop:].contiguous(), p, h)
+    assert torch.equal(torch.cat(outs), whole[0])
+    assert torch.equal(state[2], whole[1]) and torch.equal(state[1], whole[2])
+
+
+@pytest.mark.parametrize("m", [3, 16, 32])
+@pytest.mark.parametrize("s", [1, 3, 16])
+def test_gss_kernel_matches_plain(cuda, m, s):
+    """Two control rows (one with the row-0 quirk), inactive slots with
+    zero rows of A^H and of W, resets at the start and mid-stream, a mixed
+    gate, 2.3 segments of frames: audio, W and the carry against the plain
+    float32 version, and the audio against the plain float64 version."""
+    rng = np.random.default_rng(200 + m * 10 + s)
+    hop, t, nib, u = 128, 220, 37, 2
+    mu, lam = 0.01, 0.5
+    x, tail, prev, ib, thr = _fused_inputs(rng, m, t, hop, nib, cuda)
+    ah = _constraints(rng, u, s, m, nib, cuda)
+    ah = ah / ah.abs().clamp_min(1e-30) * (ah != 0)     # unit-modulus A^H
+    w0 = _cplx(rng, (nib, s, m), cuda) * 0.1
+    w0[:, 3:] = 0
+    idx = torch.as_tensor(np.repeat([0, 1, 0], [80, 70, 70]), device=cuda)
+    reset = torch.zeros(t, dtype=torch.bool, device=cuda)
+    reset[[0, 80, 150]] = True
+    before = kgss.gss_mega.launches
+    got = kgss.gss_mega(x, tail, prev, w0, ah, idx, reset, ib, 2 * hop, thr,
+                        mu, lam)
+    torch.cuda.synchronize()
+    assert kgss.gss_mega.launches == before + 1
+    cpu = [a.cpu() for a in (x, tail, prev, w0, ah, idx, reset, ib)]
+    ref = kgss.gss_mega(*cpu, 2 * hop, thr, mu, lam)
+    f64 = kgss.gss_mega(*(a.double() for a in cpu[:3]),
+                        *(a.cdouble() for a in cpu[3:5]), *cpu[5:],
+                        2 * hop, thr, mu, lam)
+    audio, w_new, new_prev = (a.cpu() for a in got)
+    assert audio.shape == (t * hop,) and w_new.shape == (nib, s, m)
+    assert torch.isfinite(audio).all()
+    assert _rel(audio, ref[0]) < MVDR_REL
+    assert _rel(audio.double(), f64[0]) <= max(
+        2 * _rel(ref[0].double(), f64[0]), 1e-6)
+    assert _rel(w_new, ref[1]) < MVDR_REL
+    assert _rel(new_prev, ref[2]) < MVDR_REL
+    assert not w_new[:, 3:].any()                   # inactive slots stay 0
+
+
+def test_gss_kernel_chunks_equal_one_call(cuda):
+    rng = np.random.default_rng(9)
+    hop, t, nib, m, s = 1024, 30, 60, 16, 3
+    x, tail, prev, ib, thr = _fused_inputs(rng, m, t, hop, nib, cuda)
+    ah = _constraints(rng, 2, s, m, nib, cuda)
+    w0 = torch.zeros((nib, s, m), dtype=torch.complex64, device=cuda)
+    idx = torch.zeros(t, dtype=torch.int64, device=cuda)
+    reset = torch.zeros(t, dtype=torch.bool, device=cuda)
+    reset[0] = True
+    args = (2 * hop, thr, 0.01, 0.0)
+    whole = kgss.gss_mega(x, tail, prev, w0, ah, idx, reset, ib, *args)
+    outs, state = [], (tail, prev, w0)
+    for f0, f1 in ((0, 1), (1, 11), (11, 30)):
+        xc = x[:, f0 * hop:f1 * hop].contiguous()
+        a, w_new, p = kgss.gss_mega(xc, state[0], state[1], state[2], ah,
+                                    idx[f0:f1], reset[f0:f1], ib, *args)
+        outs.append(a)
+        state = (xc[:, -hop:].contiguous(), p, w_new)
+    assert torch.equal(torch.cat(outs), whole[0])
+    assert torch.equal(state[2], whole[1]) and torch.equal(state[1], whole[2])
+
+
+def test_fused_kernels_index_out_of_range_gives_nan(cuda):
+    """A control index out of range makes its frame's solved output NaN,
+    and the frame's audio (two hops) non-finite; a bin index outside
+    [1, nfft / 2) makes every frame NaN. Nothing is dereferenced."""
+    rng = np.random.default_rng(11)
+    hop, t, nib, w, m = 128, 24, 20, 4, 4
+    x, tail, prev, ib, _ = _fused_inputs(rng, m, t, hop, nib, cuda)
+    hist = _cplx(rng, (w, m, nib), cuda)
+    d = _cplx(rng, (2, m, nib), cuda)
+    ah = _constraints(rng, 2, 2, m, nib, cuda)
+    w0 = torch.zeros((nib, 2, m), dtype=torch.complex64, device=cuda)
+    reset = torch.zeros(t, dtype=torch.bool, device=cuda)
+    reset[0] = True
+    idx = torch.zeros(t, dtype=torch.int64, device=cuda)
+    bad = idx.clone()
+    bad[10] = 2
+    for out in (kmega.mvdr_mega(x, tail, prev, hist, d, bad, ib, 2 * hop, w,
+                                0.0)[0],
+                kgss.gss_mega(x, tail, prev, w0, ah, bad, reset, ib, 2 * hop,
+                              0.0, 0.01, 0.0)[0]):
+        finite = torch.isfinite(out).cpu().numpy()
+        assert not finite[10 * hop:11 * hop].any()
+        assert finite[:9 * hop].all()
+    for bad_bin in (0, hop):
+        ib2 = ib.clone()
+        ib2[3] = bad_bin
+        assert torch.isnan(kmega.mvdr_mega(x, tail, prev, hist, d, idx, ib2,
+                                           2 * hop, w, 0.0)[0]).all()
+        assert torch.isnan(kgss.gss_mega(x, tail, prev, w0, ah, idx, reset,
+                                         ib2, 2 * hop, 0.0, 0.01,
+                                         0.0)[0]).all()
+
+
+def test_fused_kernels_raise_on_what_they_do_not_take(cuda):
+    hop, t, m, nib, w = 128, 4, 4, 3, 2
+    z = torch.zeros
+    c64 = dict(dtype=torch.complex64, device=cuda)
+    x = z((m, t * hop), device=cuda)
+    tail, prev = z((m, hop), device=cuda), z(hop, device=cuda)
+    hist, d = z((w, m, nib), **c64), z((1, m, nib), **c64)
+    idx, ib = z(t, dtype=torch.int64, device=cuda), torch.arange(
+        1, nib + 1, device=cuda)
+    with pytest.raises(ValueError, match="ROADMAP"):
+        kmega.mvdr_mega(x.double(), tail.double(), prev.double(),
+                        hist.cdouble(), d.cdouble(), idx, ib, 2 * hop, w, 0.)
+    with pytest.raises(ValueError, match="M <= 32"):
+        kmega.mvdr_mega(z((40, t * hop), device=cuda), z((40, hop),
+                                                          device=cuda),
+                        prev, z((w, 40, nib), **c64), z((1, 40, nib), **c64),
+                        idx, ib, 2 * hop, w, 0.)
+    with pytest.raises(ValueError, match="S <= 16"):
+        kmega.lcmv_mega(x, tail, prev, hist, z((1, 17, m, nib), **c64), idx,
+                        ib, 2 * hop, w, 0.)
+    w0, ah = z((nib, 17, m), **c64), z((1, 17, m, nib), **c64)
+    with pytest.raises(ValueError, match="S <= 16"):
+        kgss.gss_mega(x, tail, prev, w0, ah, idx, idx.bool(), ib, 2 * hop,
+                      0., 0.01, 0.)
+
+
+@pytest.mark.parametrize("node,solver,scene", [
+    ("mvdr", "mega", "noise"), ("lcmv", "mega", "static"),
+    ("lcmv", "mega", "events"), ("gss", "auto", "static"),
+    ("gss", "auto", "events")])
+def test_fused_paths_on_cuda_match_float64_cpu(cuda, node, solver, scene):
+    """The fused paths of MVDR, LCMV and GSS at 16 mics, hop 1024, against
+    the float64 CPU path, with each path's exact launches: the fused
+    kernel once and no other kernel."""
+    import dataclasses
+    cfg = load_array_config(os.path.join(ROOT, "beamform_tpu_torch",
+                                         "configs", "aira16.yaml"))
+    t = 60
+    x = _lcmv_scene(t, 8)
+    interference = None
+    if scene == "static":
+        cfg = dataclasses.replace(cfg, interference_angles=(70.0, -60.0))
+    elif scene == "events":
+        interference = replay_interference_events(
+            t, [70.0], [InterfEvent(25, 2, -60.0), InterfEvent(45, 2, 70.5)],
+            threshold=1.0, capacity=15)
+    params = dict(load_launch_params(node), solver=solver)
+    model = get_model(node, EngineConfig(), cfg, params, device=cuda)
+    counters = (kw.wola_analysis, kw.wola_synthesis, km.mvdr_stream,
+                klc.lcmv_stream, kl.gj_inverse, kmega.mega_stream,
+                kgss.gss_mega)
+    before = [f.launches for f in counters]
+    kw_ = {} if interference is None else dict(interference=interference)
+    got = model.process(x, 20.0, **kw_).cpu().numpy()
+    ran = [f.launches - b for f, b in zip(counters, before)]
+    assert ran == [0, 0, 0, 0, 0, int(node != "gss"), int(node == "gss")]
+    ref = run_offline(node, x, engine=EngineConfig(dtype="float64"),
+                      array_cfg=cfg, theta=20.0,
+                      params=dict(params, solver="scan" if node == "gss"
+                                  else "stream"),
+                      device="cpu", interference=interference)
+    assert np.isfinite(got).all()
+    assert np.abs(got - ref).max() <= 1e-3      # BASELINE budget
+
+
+@pytest.mark.parametrize("node,solver", [("mvdr", "mega"), ("lcmv", "mega"),
+                                         ("gss", "auto")])
+def test_fused_paths_chunks_equal_offline_on_cuda(cuda, node, solver):
+    cfg = load_array_config(os.path.join(ROOT, "beamform_tpu_torch",
+                                         "configs", "aira16.yaml"))
+    x = _lcmv_scene(49, 6)
+    params = dict(load_launch_params(node), solver=solver)
+    model = get_model(node, EngineConfig(), cfg, params, device=cuda)
+    offline = model.process(x, 20.0)
+    sess = StreamingSession(model)
+    chunks = [sess.process(x[:, f0 * 1024:(f0 + 7) * 1024], 20.0)
+              for f0 in range(0, 49, 7)]
     assert torch.equal(torch.cat(chunks), offline)

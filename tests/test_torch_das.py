@@ -170,7 +170,7 @@ def test_run_offline_matches_jax_float64():
     assert isinstance(got, np.ndarray) and got.shape == ref.shape
     np.testing.assert_allclose(got, ref, rtol=0, atol=1e-12)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        run_offline("gss", x, engine=teng, array_cfg=cfg_t, device="cpu")
+        run_offline("gsc", x, engine=teng, array_cfg=cfg_t, device="cpu")
 
 
 # -------------------------------------------------------------- streaming
@@ -272,7 +272,7 @@ def test_cli_wav_roundtrip_equals_run_offline(tmp_path, capsys):
     np.testing.assert_array_equal(got[0], ref)
 
 
-@pytest.mark.parametrize("argv", [["gss"], ["das", "--live"]])
+@pytest.mark.parametrize("argv", [["gsc"], ["das", "--live"]])
 def test_cli_rejects_what_is_not_ported(argv, tmp_path, capsys):
     src = _write_scene(tmp_path, seconds=0.05)
     assert cli.main(argv + ["--in", src, "--device", "cpu"]) == 2
@@ -305,7 +305,10 @@ def test_import_loads_no_jax():
             " beamform_tpu_torch.kernels.linalg,"
             " beamform_tpu_torch.kernels.lcmv_stream,"
             " beamform_tpu_torch.models.lcmv,"
-            " beamform_tpu_torch.runtime.timeline; "
+            " beamform_tpu_torch.kernels.mega_stream,"
+            " beamform_tpu_torch.kernels.gss_stream,"
+            " beamform_tpu_torch.models.gss,"
+            " beamform_tpu_torch.runtime.timeline, chip_smoke; "
             "assert 'jax' not in sys.modules, 'jax imported'; "
             "assert 'beamform_tpu' not in sys.modules")
     env = dict(os.environ, PYTHONPATH=ROOT)

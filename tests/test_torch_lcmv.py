@@ -445,8 +445,8 @@ def test_cli_lcmv_interf_control_matches_jax_cli(tmp_path):
     (["lcmv", "--interf-control", "x.txt", "--interference-events",
       "0.1:1:20", "--stream", "4"], "mutually exclusive"),
     (["lcmv", "--interf-control", "x.txt"], "needs --stream"),
-    (["gss", "--interference-events", "0.1:1:20"], "not ported"),
-    (["gss", "--interf-control", "x.txt", "--stream", "4"], "not ported"),
+    (["gsc", "--interference-events", "0.1:1:20"], "not ported"),
+    (["gsc", "--interf-control", "x.txt", "--stream", "4"], "not ported"),
     (["lcmv", "--theta-control", "t.txt"], "not ported")])
 def test_cli_interference_flag_errors(argv, message, tmp_path, capsys):
     src, cfg = _cli_inputs(tmp_path)
@@ -495,7 +495,14 @@ def test_solver_policy_with_slots():
         select_solver_strategy("stream", c64, 16, 10, cuda, s_cap=17)
     with pytest.raises(ValueError, match="capacity"):
         select_solver_strategy("dense", c64, 40, 10, cuda, s_cap=3)
+    # mega: the fused path, whatever the slot count within 16 (on the CPU
+    # its plain version); a band that reaches Nyquist is refused
+    for s in (1, 3, 16):
+        assert select_solver_strategy("mega", c64, 16, 10, cuda, s_cap=s,
+                                      ib=np.arange(5, 683),
+                                      nfft=2048) == "mega"
     model = LcmvModel(_engine("float32"), tgeom.ArrayGeometry.from_xy(AIRA3),
-                      LcmvParams(**PARAMS, solver="mega"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+                      LcmvParams(**dict(PARAMS, freq_max=24000.0),
+                                 solver="mega"))
+    with pytest.raises(ValueError, match="Nyquist"):
         model.process(np.zeros((3, 4 * HOP), np.float32), THETA)

@@ -379,8 +379,19 @@ def test_solver_policy():
 
 
 def test_mega_raises_not_implemented():
+    """``solver="mega"`` is ported (tests/test_torch_mega.py); what it
+    cannot take raises: a band reaching the Nyquist bin on every device,
+    float64 and more than 32 mics on CUDA."""
     _, teng = _engines("float32")
     model = get_model("mvdr", teng, load_array_config(_cfg("aira3.yaml")),
-                      dict(PARAMS, solver="mega"), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+                      dict(PARAMS, freq_max=24000.0, solver="mega"),
+                      device="cpu")
+    with pytest.raises(ValueError, match="Nyquist"):
         model.process(np.zeros((3, 4 * HOP), np.float32), THETA)
+    cuda, ib = torch.device("cuda"), np.arange(5, 683)
+    with pytest.raises(ValueError, match="float32"):
+        select_solver_strategy("mega", torch.complex128, 16, 10, cuda,
+                               ib=ib, nfft=2048)
+    with pytest.raises(ValueError, match="capacity"):
+        select_solver_strategy("mega", torch.complex64, 40, 10, cuda,
+                               ib=ib, nfft=2048)
