@@ -2,13 +2,16 @@
 
 The JAX package stays the reference; this package re-implements it slice
 by slice in PyTorch, with every Pallas kernel of a ported slice replaced by
-a kernel written by hand for NVIDIA Hopper (``csrc/``). Ported so far: the
-delay-and-sum path (offline, streaming, CLI) through the fused WOLA
-analysis and synthesis kernels, and MVDR (``stream`` and ``dense``
-solvers) through the streaming Cholesky solve and the batched Gauss-Jordan
-inverse kernels. ROADMAP.md lists what follows.
+a kernel written by hand for NVIDIA Hopper (``csrc/``). Ported so far, each
+offline, streaming and through the CLI: delay-and-sum, through the WOLA
+analysis and synthesis kernels; MVDR and LCMV, through the streaming
+solves, the batched Gauss-Jordan inverse and the fused audio-to-audio
+kernel; GSS, through its fused kernel; phase and phasempf, through the
+phase-mask and MPF kernels; mcra, through the MCRA march kernel.
+ROADMAP.md lists what follows.
 
-Importing this package never loads JAX.
+Models run on the CUDA card unless the caller asks for the CPU
+(``device="cpu"``). Importing this package never loads JAX.
 """
 
 __version__ = "0.1.0"

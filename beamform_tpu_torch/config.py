@@ -13,9 +13,9 @@ reference semantics as the JAX package:
 * interference slots ``angle_interf1..`` are parsed until a value with
   ``abs(angle) > 180`` (sentinel 181.0) is found (``util.h:94-113``).
 
-Only the ported nodes (``das``, ``mvdr``, ``lcmv``, ``gss``) have
-parameter classes so far; the other nodes' classes arrive with their models
-(ROADMAP.md §1).
+Only the ported nodes (``das``, ``mvdr``, ``lcmv``, ``gss``, ``phase``,
+``mcra``, ``phasempf``) have parameter classes so far; the other nodes'
+classes arrive with their models (ROADMAP.md §1).
 """
 
 from __future__ import annotations
@@ -208,10 +208,71 @@ class GssParams:
     solver: str = "auto"
 
 
+@dataclass(frozen=True)
+class PhaseParams:
+    """phase.cpp:165-191 defaults.
+
+    The reference's launch file also passes ``min_mag`` and
+    ``smooth_size``, which the node never reads (phase.cpp:177-189); like
+    the ROS param server, :func:`make_params` drops them.
+    """
+
+    min_phase: float = 10.0  # degrees
+    mag_mult: float = 0.1
+    mag_threshold: float = 0.05
+    # bfloat16 mask arithmetic on the spectra (the JAX package's
+    # quantized-inference experiment); runs the batched plain formulation
+    spectra_bf16: bool = False
+    # mask strategy (models/phase.py PhaseModel._strategy): "auto" runs the
+    # CUDA phase-mask kernel on a CUDA float32 engine and the batched plain
+    # formulation elsewhere; "fused" forces the kernel's path (its plain
+    # version on the CPU); "xla" forces the batched formulation
+    solver: str = "auto"
+
+
+@dataclass(frozen=True)
+class McraParams:
+    """mcra.cpp:179-231 defaults."""
+
+    alphaS: float = 0.95
+    alphaD: float = 0.95
+    alphaD2: float = 0.97
+    delta: float = 0.001
+    L: int = 75
+    out_amp: float = 2.0
+    out_only_noise: bool = True  # mcra.cpp:227 default when param absent
+
+
+@dataclass(frozen=True)
+class PhasempfParams:
+    """phasempf.cpp:355-475 defaults."""
+
+    min_phase: float = 10.0   # degrees
+    min_mag: float = 10.0     # default when absent (phasempf.cpp:370)
+    smooth_size: int = 20
+    MCRA_alphaS: float = 0.95
+    MCRA_alphaD: float = 0.95
+    MCRA_alphaD2: float = 0.97
+    MCRA_delta: float = 0.001
+    MCRA_L: int = 75
+    MPF_alphaS: float = 0.3
+    MPF_eta: float = 0.3
+    MPF_rev_gamma: float = 0.3
+    MPF_rev_delta: float = 1.0
+    out_amp: float = 2.0      # default when absent (phasempf.cpp:451)
+    noise_floor: float = 0.001
+    out_only_noise: bool = False
+    out_only_mcra: bool = False
+    # see PhaseParams.solver: "auto" and "fused" run the dual beams and the
+    # MCRA/MPF march in the CUDA MPF kernels on a CUDA float32 engine
+    solver: str = "auto"
+
+
 PARAM_CLASSES = {"das": DasParams, "mvdr": MvdrParams, "lcmv": LcmvParams,
-                 "gss": GssParams}
+                 "gss": GssParams, "phase": PhaseParams, "mcra": McraParams,
+                 "phasempf": PhasempfParams}
 # implementation knobs are not reference parameters: no warn-and-default
-_IMPL_KNOBS = {"solver"}
+_IMPL_KNOBS = {"solver", "spectra_bf16"}
 
 
 def load_launch_params(node: str, path: Optional[str] = None
@@ -270,8 +331,9 @@ class EngineConfig:
     dtype: str = "float32"         # compute dtype ("float32" | "float64")
     # faithful frequency-vector off-by-one (geometry.frequency_vector)
     exact_freqs: bool = False
-    # MCRA / PhaseMPF DC quirk; carried for config parity with the JAX
-    # package, read by no ported model yet
+    # MCRA / PhaseMPF leave the DC output bin unwritten (the out-of-bounds
+    # write at mcra.cpp:127 and phasempf.cpp:274): True keeps it 0, False
+    # passes X0[0] through
     bug_dc_zero: bool = True
     # audit mode: the reference's literal N-point complex FFT layout instead
     # of the extended-rFFT shadow-bin layout (CPU only in this package)

@@ -132,6 +132,13 @@ def _declare(lib):
     lib.bf_mega_stream.restype = i
     lib.bf_gss_stream.argtypes = [p] * 16 + [i] * 7 + [f, f, f, p]
     lib.bf_gss_stream.restype = i
+    fp = ctypes.POINTER(ctypes.c_float)        # a host array of constants
+    lib.bf_phase_mask.argtypes = [p] * 4 + [i] * 4 + [fp, p]
+    lib.bf_phase_mask.restype = i
+    lib.bf_mpf_march.argtypes = [p] * 7 + [i] * 4 + [fp, i, p]
+    lib.bf_mpf_march.restype = i
+    lib.bf_mcra_march.argtypes = [p] * 6 + [i] * 2 + [fp, i, p]
+    lib.bf_mcra_march.restype = i
 
 
 def check(lib, code: int, what: str):

@@ -1,0 +1,408 @@
+"""Phase-mask, MPF and MCRA kernels: the CUDA kernels' wrappers, their
+plain-torch versions, and the MCRA/MPF recurrences they share with the
+models.
+
+Counterpart of ``beamform_tpu/kernels/phase_mask.py``:
+
+* :func:`phase_mask` replaces ``_phase_kernel`` (via ``phase_mask_pallas``):
+  per (frame, bin) conj(w) x per mic, the atan2 of each aligned product,
+  the mean wrapped pair distance over the M(M-1)/2 mic pairs, the mean |X|,
+  the gate ``mag_mean / nfft > mag_threshold and diff < min_phase``, the
+  mean magnitude kept or times ``mag_mult`` at mic 0's phase, rebuilt
+  without trigonometry as x0 / |x0|; bin 0 carries X0[0]
+  (phase.cpp:70-134).
+* :func:`mpf_march` replaces ``_mpf_kernel`` (via
+  ``phasempf_march_pallas``): the same front end, the dual SOI and
+  interference beams (phasempf.cpp:210-248), the buggy frequency smoothing
+  (bin 1 x 0.75, bin 0 = |X0[0]|, phasempf.cpp:144-153) and the per-frame
+  MCRA + MPF march (phasempf.cpp:140-191, 255-295). On CUDA one call is two
+  launches (``csrc/phase_mask.cu``): the front end over every (frame, bin),
+  then the march, one thread per bin over the dependent frames.
+* :func:`mcra_march` replaces the MCRA node's ``lax.scan``
+  (``beamform_tpu/models/mcra.py``), which has no Pallas kernel: the MCRA
+  recurrence per bin over the frames and the spectral subtraction at the
+  input phase (mcra.cpp:95-127).
+
+The recurrences are written once, here, on the models' states
+(:class:`McraState`, :class:`MpfState`: per-bin vectors, ``current_l`` a
+0-d int32 and ``first_l`` a 0-d bool, in the JAX package's field order).
+The CUDA kernels hold the state as float32 rows, one per field, with
+``current_l`` and ``first_l`` repeated in every bin as the TPU kernel keeps
+them; the wrappers convert.
+
+Numerics: the plain versions repeat the kernels' algebra (torch's atan2,
+the output phase as x0 / |x0|). The kernels use CUDA's ``atan2f`` and sum
+the pair distances in another order, so a binary mask flips where a bin's
+mean pair distance lies within ~1e-6 rad of ``min_phase``; in the MPF march
+such a flip also enters the state and decays over the following frames.
+Kernel and plain version are held to each other, and to the JAX package,
+under the JAX package's contract for this (tests/test_phase_mask.py
+``assert_close_mod_flips``).
+
+Routing: a CPU tensor takes the plain version; a CUDA tensor launches the
+kernel or raises. Each wrapper counts its launches in ``.launches``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import NamedTuple
+
+import torch
+
+from beamform_tpu_torch.kernels._build import (check, check_tensor,
+                                               launch_context)
+
+MAX_MICS = 32
+# flags of the MPF and MCRA march kernels
+_ONLY_NOISE, _ONLY_MCRA, _DC_ZERO = 1, 2, 4
+
+
+class McraState(NamedTuple):
+    s_prev: torch.Tensor     # (N,)
+    s_tmp: torch.Tensor      # (N,)
+    s_min: torch.Tensor      # (N,)
+    lam: torch.Tensor        # (N,) noise estimate
+    current_l: torch.Tensor  # 0-d int32
+    first_l: torch.Tensor    # 0-d bool
+
+
+class MpfState(NamedTuple):
+    s_prev: torch.Tensor
+    s_tmp: torch.Tensor
+    s_min: torch.Tensor
+    lam_noise: torch.Tensor
+    z: torch.Tensor
+    lam_rev0: torch.Tensor
+    lam_rev1: torch.Tensor
+    current_l: torch.Tensor  # 0-d int32
+    first_l: torch.Tensor    # 0-d bool
+
+
+def init_state(cls, nb: int, rdtype, device=None):
+    """A fresh :class:`McraState` or :class:`MpfState`: zero vectors of
+    ``nb`` bins, ``current_l`` 0, ``first_l`` True."""
+    vecs = [torch.zeros((nb,), dtype=rdtype, device=device)
+            for _ in range(len(cls._fields) - 2)]
+    return cls(*vecs, torch.tensor(0, dtype=torch.int32, device=device),
+               torch.tensor(True, device=device))
+
+
+# ---------------------------------------------------------------------------
+# the recurrences (plain torch; the models' batched paths use them too)
+# ---------------------------------------------------------------------------
+
+
+def _mcra_step(s_prev, s_tmp, s_min, lam, current_l, first_l, s_f, sq,
+               a_s, a_d, a_d2, delta, big_l):
+    """One MCRA step over all bins (mcra.cpp:95-124): temporal smoothing,
+    minima tracking with rollover past ``big_l`` windows, the gated
+    two-rate noise update. Returns the six new state fields."""
+    s = a_s * s_prev + (1.0 - a_s) * s_f
+    rollover = current_l > big_l
+    s_min = torch.where(rollover, torch.minimum(s_tmp, s),
+                        torch.minimum(s_min, s))
+    s_tmp = torch.where(rollover, s, torch.minimum(s_tmp, s))
+    current_l = torch.where(rollover, torch.ones_like(current_l),
+                            current_l + 1)
+    first_l = first_l & ~rollover
+    cond = first_l | (s < s_min * delta) | (lam > sq)
+    inv_l = 1.0 / current_l.to(sq.dtype)
+    use_first = first_l & (inv_l > a_d)
+    lam_first = inv_l * lam + (1.0 - inv_l) * sq
+    lam_norm = a_d2 * lam + (1.0 - a_d) * sq
+    lam = torch.where(cond, torch.where(use_first, lam_first, lam_norm), lam)
+    return s, s_tmp, s_min, lam, current_l, first_l
+
+
+def mcra_update(state: McraState, s_f, sq, p):
+    """One MCRA recurrence step over all bins (mcra.cpp:95-124) with the
+    node's :class:`McraParams` ``p``. Returns (new_state, lambda after the
+    update)."""
+    new = McraState(*_mcra_step(*state, s_f, sq, p.alphaS, p.alphaD,
+                                p.alphaD2, p.delta, p.L))
+    return new, new.lam
+
+
+def mpf_update(st: MpfState, s_f, soi_sq, int_sq, p):
+    """One PhaseMPF step over all bins with :class:`PhasempfParams` ``p``:
+    the embedded MCRA on the SOI power (phasempf.cpp:140-191), the leakage
+    and the two reverberation estimates (phasempf.cpp:255-270, with the
+    reference's ``1 - gamma/delta``). Returns (new_state, lambda = sqrt(
+    noise + leak + rev0 + rev1))."""
+    mc = _mcra_step(st.s_prev, st.s_tmp, st.s_min, st.lam_noise,
+                    st.current_l, st.first_l, s_f, soi_sq, p.MCRA_alphaS,
+                    p.MCRA_alphaD, p.MCRA_alphaD2, p.MCRA_delta, p.MCRA_L)
+    z = p.MPF_alphaS * st.z + (1 - p.MPF_alphaS) * int_sq
+    leak = p.MPF_eta * z
+    rev_c = 1.0 - p.MPF_rev_gamma / p.MPF_rev_delta   # faithful quirk
+    rev0 = p.MPF_rev_gamma * st.lam_rev0 + rev_c * soi_sq
+    rev1 = p.MPF_rev_gamma * st.lam_rev1 + rev_c * int_sq
+    lam = torch.sqrt(mc[3] + leak + rev0 + rev1)
+    return MpfState(*mc[:4], z, rev0, rev1, *mc[4:]), lam
+
+
+def mpf_out_mag(mag_soi, lam, lam_noise, p):
+    """The PhaseMPF output magnitude (phasempf.cpp:273-295): the noise
+    estimate alone, or the SOI magnitude less it (``out_only_mcra``: less
+    the MCRA noise alone), with the noise floor where that is negative."""
+    if p.out_only_noise:
+        return lam * p.out_amp
+    sub = torch.sqrt(lam_noise) if p.out_only_mcra else lam
+    mag = (mag_soi - sub) * p.out_amp
+    return torch.where(mag < 0, p.noise_floor, mag)
+
+
+# ---------------------------------------------------------------------------
+# plain versions (the CPU path, and the kernels' oracle on the card)
+# ---------------------------------------------------------------------------
+
+
+def _abs(z: torch.Tensor) -> torch.Tensor:
+    """|z| as the kernels compute it, sqrt(re^2 + im^2)."""
+    return torch.sqrt(z.real * z.real + z.imag * z.imag)
+
+
+def _unit(z: torch.Tensor) -> torch.Tensor:
+    """z / |z|, and 1 where z is 0: cos and sin of atan2(z) without
+    trigonometry."""
+    a = _abs(z)
+    inv = torch.where(a > 0, 1.0 / a, torch.zeros_like(a))
+    return torch.complex(torch.where(a > 0, z.real * inv,
+                                     torch.ones_like(a)), z.imag * inv)
+
+
+def _front_end(spec, w_uniq, w_idx):
+    """(T, M, NB) spectra, (U, M, NB) steering, (T,) row per frame -> the
+    mean wrapped pair distance of the aligned phases (T, NB), the mean
+    |X| over mics (T, NB) and mic 0's spectrum (T, NB)."""
+    m = spec.shape[1]
+    if m < 2:
+        raise ValueError(f"the phase mask needs at least 2 mics, got {m}")
+    w = w_uniq if w_uniq.shape[0] == 1 else w_uniq[w_idx]
+    ar = w.real * spec.real + w.imag * spec.imag        # conj(w) * x
+    ai = w.real * spec.imag - w.imag * spec.real
+    ph = torch.atan2(ai, ar)
+    acc = torch.zeros_like(ph[:, 0])
+    for i in range(m - 1):                               # phase.cpp:57-61
+        d = (ph[:, i:i + 1] - ph[:, i + 1:]).abs()
+        acc = acc + torch.where(d > math.pi, 2.0 * math.pi - d, d).sum(1)
+    diff_mean = acc * (1.0 / (m * (m - 1) // 2))
+    mag_mean = _abs(spec).sum(1) * (1.0 / m)
+    return diff_mean, mag_mean, spec[:, 0]
+
+
+def phase_mask_plain(spec, w_uniq, w_idx, min_phase_rad: float,
+                     mag_threshold: float, mag_mult: float, nfft: int):
+    """The phase-mask kernel's plain version: spec (T, M, NB) complex,
+    w_uniq (U, M, NB) steering, w_idx (T,) -> y (T, NB) complex."""
+    diff, mag, x0 = _front_end(spec, w_uniq, w_idx)
+    keep = (mag * (1.0 / nfft) > mag_threshold) & (diff < min_phase_rad)
+    y = torch.where(keep, mag, mag * mag_mult) * _unit(x0)
+    y[:, 0] = x0[:, 0]                                   # phase.cpp:87
+    return y
+
+
+def _mpf_planes(spec, w_uniq, w_idx, min_phase_rad: float, min_mag: float):
+    """The MPF front end: (SOI magnitude, interference power (0 at bin 0),
+    mic 0's unit phase (X0[0] itself at bin 0)), each (T, NB)."""
+    diff, mag, x0 = _front_end(spec, w_uniq, w_idx)
+    is_soi = diff < min_phase_rad
+    soi_mag = torch.where(is_soi, mag, mag * min_mag)
+    int_mag = torch.where(is_soi, mag * min_mag, mag)
+    int_sq = int_mag * int_mag
+    int_sq[:, 0] = 0.0
+    u = _unit(x0)
+    u[:, 0] = x0[:, 0]
+    return soi_mag, int_sq, u
+
+
+def mpf_march_plain(spec, w_uniq, w_idx, state: MpfState, p,
+                    bug_dc_zero: bool):
+    """The MPF kernels' plain version: spec (T, M, NB), w_uniq (U, M, NB),
+    w_idx (T,), the state, :class:`PhasempfParams` ``p`` -> (y (T, NB),
+    new state)."""
+    soi_mag, int_sq, u = _mpf_planes(spec, w_uniq, w_idx,
+                                     p.min_phase * math.pi / 180.0, p.min_mag)
+    soi_sq = soi_mag * soi_mag
+    soi_sq[:, 0] = 0.0
+    s_f = soi_sq.clone()
+    s_f[:, 1] *= 0.75                      # phasempf.cpp:150's scaling
+    s_f[:, 0] = _abs(u[:, 0])
+    lams, noises = [], []
+    for t in range(spec.shape[0]):
+        state, lam = mpf_update(state, s_f[t], soi_sq[t], int_sq[t], p)
+        lams.append(lam)
+        noises.append(state.lam_noise)
+    y = mpf_out_mag(soi_mag, torch.stack(lams), torch.stack(noises), p) * u
+    y[:, 0] = 0.0 if bug_dc_zero else u[:, 0]
+    return y, state
+
+
+def mcra_march_plain(s_f, sq, x, state: McraState, p, bug_dc_zero: bool):
+    """The MCRA march kernel's plain version: s_f (T, NB) smoothed power,
+    sq (T, NB) power, x (T, NB) mic 0's spectrum, the state,
+    :class:`McraParams` ``p`` -> (y (T, NB), new state)."""
+    lams = []
+    for t in range(x.shape[0]):
+        state, lam = mcra_update(state, s_f[t], sq[t], p)
+        lams.append(lam)
+    noise = torch.sqrt(torch.stack(lams))
+    if p.out_only_noise:
+        mag = noise * p.out_amp
+    else:
+        mag = torch.clamp_min(_abs(x) - noise, 0.0) * p.out_amp
+    y = mag * _unit(x)
+    y[:, 0] = 0.0 if bug_dc_zero else x[:, 0]
+    return y, state
+
+
+# ---------------------------------------------------------------------------
+# CUDA wrappers
+# ---------------------------------------------------------------------------
+
+
+def _floats(*vals):
+    return (ctypes.c_float * len(vals))(*vals)
+
+
+def _state_rows(state) -> torch.Tensor:
+    """A typed state -> the kernels' (fields, NB) float32 rows,
+    ``current_l`` and ``first_l`` repeated in every bin."""
+    nb = state[0].shape[-1]
+    return torch.stack([v.to(torch.float32) for v in state[:-2]]
+                       + [s.to(torch.float32).expand(nb)
+                          for s in state[-2:]]).contiguous()
+
+
+def _rows_state(cls, rows: torch.Tensor, rdtype):
+    """The kernels' rows -> a typed state (``current_l`` and ``first_l``
+    from bin 0)."""
+    return cls(*(r.to(rdtype) for r in rows[:-2]),
+               rows[-2, 0].to(torch.int32), rows[-1, 0] > 0.5)
+
+
+def _check_front(spec, w_uniq, w_idx, what: str):
+    """Check the front end's operands; returns (T, M, NB, U)."""
+    if spec.dim() != 3 or w_uniq.dim() != 3:
+        raise ValueError(f"spec and w_uniq must be (T, M, NB) and (U, M, NB),"
+                         f" got {tuple(spec.shape)} and "
+                         f"{tuple(w_uniq.shape)}")
+    t, m, nb = spec.shape
+    u = w_uniq.shape[0]
+    if not 2 <= m <= MAX_MICS:
+        raise ValueError(f"the CUDA {what} kernel takes 2 to {MAX_MICS} "
+                         f"mics, got {m}")
+    if u < 1 or nb < 2:
+        raise ValueError(f"the CUDA {what} kernel needs a steering row and "
+                         f"2 bins or more, got U={u}, NB={nb}")
+    dev = spec.device
+    check_tensor(spec, "spec", torch.complex64, (t, m, nb), dev)
+    check_tensor(w_uniq, "w_uniq", torch.complex64, (u, m, nb), dev)
+    check_tensor(w_idx, "w_idx", torch.int64, (t,), dev)
+    return t, m, nb, u
+
+
+def phase_mask(spec, w_uniq, w_idx, min_phase_rad: float,
+               mag_threshold: float, mag_mult: float, nfft: int):
+    """The phase mask; see :func:`phase_mask_plain`. On CUDA: complex64
+    spec and w_uniq, int64 w_idx, contiguous, 2 to 32 mics (a w_idx entry
+    outside [0, U) gives NaN output for its frame)."""
+    if not spec.is_cuda:
+        return phase_mask_plain(spec, w_uniq, w_idx, min_phase_rad,
+                                mag_threshold, mag_mult, nfft)
+    t, m, nb, u = _check_front(spec, w_uniq, w_idx, "phase-mask")
+    y = torch.empty((t, nb), dtype=torch.complex64, device=spec.device)
+    if t == 0:
+        return y
+    with torch.cuda.device(spec.device):
+        lib, stream = launch_context(spec.device)
+        code = lib.bf_phase_mask(
+            spec.data_ptr(), w_uniq.data_ptr(), w_idx.data_ptr(),
+            y.data_ptr(), m, t, nb, u,
+            _floats(min_phase_rad, mag_threshold, mag_mult, 1.0 / nfft),
+            stream)
+    check(lib, code, "phase_mask")
+    phase_mask.launches += 1
+    return y
+
+
+def _mcra_coefs(a_s, a_d, a_d2, delta, big_l):
+    """The MCRA constants as the kernels take them; the complements are
+    formed in double precision, as the plain version forms them."""
+    return (a_s, 1.0 - a_s, a_d, 1.0 - a_d, a_d2, delta, float(big_l))
+
+
+def mpf_march(spec, w_uniq, w_idx, state: MpfState, p, bug_dc_zero: bool):
+    """The MPF front end and march; see :func:`mpf_march_plain`. On CUDA:
+    complex64 spec and w_uniq, int64 w_idx, contiguous, 2 to 32 mics; the
+    state's vectors go through float32. Two launches per call: the dual
+    beams over every (frame, bin) into (4, T, NB) planes, then the march."""
+    if not spec.is_cuda:
+        return mpf_march_plain(spec, w_uniq, w_idx, state, p, bug_dc_zero)
+    t, m, nb, u = _check_front(spec, w_uniq, w_idx, "MPF")
+    dev = spec.device
+    rows = _state_rows(state)
+    check_tensor(rows, "state", torch.float32, (9, nb), dev)
+    if t == 0:
+        return torch.empty((0, nb), dtype=torch.complex64, device=dev), state
+    planes = torch.empty((4, t, nb), dtype=torch.float32, device=dev)
+    y = torch.empty((t, nb), dtype=torch.complex64, device=dev)
+    rows_out = torch.empty_like(rows)
+    coef = _floats(
+        p.min_phase * math.pi / 180.0, p.min_mag,
+        *_mcra_coefs(p.MCRA_alphaS, p.MCRA_alphaD, p.MCRA_alphaD2,
+                     p.MCRA_delta, p.MCRA_L),
+        p.MPF_alphaS, 1 - p.MPF_alphaS, p.MPF_eta, p.MPF_rev_gamma,
+        1.0 - p.MPF_rev_gamma / p.MPF_rev_delta, p.out_amp, p.noise_floor)
+    flags = ((_ONLY_NOISE if p.out_only_noise else 0)
+             | (_ONLY_MCRA if p.out_only_mcra else 0)
+             | (_DC_ZERO if bug_dc_zero else 0))
+    with torch.cuda.device(dev):
+        lib, stream = launch_context(dev)
+        code = lib.bf_mpf_march(
+            spec.data_ptr(), w_uniq.data_ptr(), w_idx.data_ptr(),
+            rows.data_ptr(), planes.data_ptr(), y.data_ptr(),
+            rows_out.data_ptr(), m, t, nb, u, coef, flags, stream)
+    check(lib, code, "mpf_march")
+    mpf_march.launches += 1
+    return y, _rows_state(MpfState, rows_out, state[0].dtype)
+
+
+def mcra_march(s_f, sq, x, state: McraState, p, bug_dc_zero: bool):
+    """The MCRA march; see :func:`mcra_march_plain`. On CUDA: float32 s_f
+    and sq, complex64 x, contiguous; the state's vectors go through
+    float32."""
+    if not x.is_cuda:
+        return mcra_march_plain(s_f, sq, x, state, p, bug_dc_zero)
+    if x.dim() != 2:
+        raise ValueError(f"x must be (T, NB), got {tuple(x.shape)}")
+    t, nb = x.shape
+    dev = x.device
+    check_tensor(s_f, "s_f", torch.float32, (t, nb), dev)
+    check_tensor(sq, "sq", torch.float32, (t, nb), dev)
+    check_tensor(x, "x", torch.complex64, (t, nb), dev)
+    rows = _state_rows(state)
+    check_tensor(rows, "state", torch.float32, (6, nb), dev)
+    if t == 0:
+        return torch.empty((0, nb), dtype=torch.complex64, device=dev), state
+    y = torch.empty((t, nb), dtype=torch.complex64, device=dev)
+    rows_out = torch.empty_like(rows)
+    coef = _floats(*_mcra_coefs(p.alphaS, p.alphaD, p.alphaD2, p.delta,
+                                p.L), p.out_amp)
+    flags = ((_ONLY_NOISE if p.out_only_noise else 0)
+             | (_DC_ZERO if bug_dc_zero else 0))
+    with torch.cuda.device(dev):
+        lib, stream = launch_context(dev)
+        code = lib.bf_mcra_march(
+            s_f.data_ptr(), sq.data_ptr(), x.data_ptr(), rows.data_ptr(),
+            y.data_ptr(), rows_out.data_ptr(), t, nb, coef, flags, stream)
+    check(lib, code, "mcra_march")
+    mcra_march.launches += 1
+    return y, _rows_state(McraState, rows_out, state[0].dtype)
+
+
+phase_mask.launches = 0
+mpf_march.launches = 0
+mcra_march.launches = 0

@@ -1,6 +1,6 @@
-"""Model registry. ``das``, ``mvdr``, ``lcmv`` and ``gss`` are ported so
-far; the other nodes of ``beamform_tpu.models`` follow in the order of
-ROADMAP.md §1."""
+"""Model registry. ``das``, ``mvdr``, ``lcmv``, ``gss``, ``phase``,
+``mcra`` and ``phasempf`` are ported so far; the other nodes of
+``beamform_tpu.models`` follow in the order of ROADMAP.md §1."""
 
 from __future__ import annotations
 
@@ -11,18 +11,25 @@ from beamform_tpu_torch.geometry import ArrayGeometry
 from beamform_tpu_torch.models.das import DasModel
 from beamform_tpu_torch.models.gss import GssModel
 from beamform_tpu_torch.models.lcmv import LcmvModel
+from beamform_tpu_torch.models.mcra import McraModel
 from beamform_tpu_torch.models.mvdr import MvdrModel
+from beamform_tpu_torch.models.phase import PhaseModel
+from beamform_tpu_torch.models.phasempf import PhasempfModel
 
 MODEL_REGISTRY: Dict[str, Any] = {"das": DasModel, "mvdr": MvdrModel,
-                                  "lcmv": LcmvModel, "gss": GssModel}
+                                  "lcmv": LcmvModel, "gss": GssModel,
+                                  "phase": PhaseModel, "mcra": McraModel,
+                                  "phasempf": PhasempfModel}
 
 
 def get_model(name: str, engine: EngineConfig, array_cfg: ArrayConfig,
               param_overrides: Optional[Dict[str, Any]] = None,
-              device="cpu"):
+              device="cuda"):
     """Build a model from configs the way a launch file builds a node, with
-    its constants on ``device``. LCMV and GSS take the config's
-    interference angles as their static set, as in the JAX package."""
+    its constants on ``device`` (the card by default; without CUDA that
+    raises, and ``device="cpu"`` asks for the CPU). LCMV and GSS take the
+    config's interference angles as their static set, as in the JAX
+    package."""
     if name not in MODEL_REGISTRY:
         raise NotImplementedError(
             f"model {name!r} is not ported to beamform_tpu_torch yet; "

@@ -1,5 +1,5 @@
-"""Shared building blocks for the beamformer models (the subset DAS and
-MVDR need).
+"""Shared building blocks for the beamformer models (the subset the ported
+nodes need).
 
 Counterpart of ``beamform_tpu/models/common.py``: per-bin C++ loops become
 batched tensor ops over ``(frames, mics, bins)``.
@@ -208,3 +208,31 @@ def prepare_input(x, engine: EngineConfig, rdtype, device) -> torch.Tensor:
 def make_window(engine: EngineConfig, rdtype) -> torch.Tensor:
     """Periodic sqrt-Hann window, computed in float64 and cast."""
     return torch.as_tensor(sqrt_hann(engine.fft_win), dtype=rdtype)
+
+
+def map_frame_blocks(fn, spec: torch.Tensor, w_idx: torch.Tensor, *,
+                     pairs: int = 1, budget_bytes: float = 192e6):
+    """Apply a stateless per-frame spectral function in frame blocks so its
+    internal (F, pairs, NB) intermediates stay within ``budget_bytes``.
+
+    ``fn((spec_block (F, M, NB), idx_block (F,)))`` returns an (F, NB)
+    tensor or a tuple of them; the blocks' results are concatenated over
+    frames."""
+    t, _, nb = spec.shape
+    fb = max(8, int(budget_bytes / (max(pairs, 1) * nb * 4)))
+    if t <= fb:
+        return fn((spec, w_idx))
+    outs = [fn((spec[i:i + fb], w_idx[i:i + fb])) for i in range(0, t, fb)]
+    if isinstance(outs[0], tuple):
+        return tuple(torch.cat(parts) for parts in zip(*outs))
+    return torch.cat(outs)
+
+
+def polar_mag_phase(z: torch.Tensor):
+    """(|z|, atan2 phase) — the reference's mag/phase reconstruction
+    (e.g. phase.cpp:115: mag*cos(pha) + i*mag*sin(pha))."""
+    return z.abs(), torch.atan2(z.imag, z.real)
+
+
+def from_mag_phase(mag: torch.Tensor, pha: torch.Tensor) -> torch.Tensor:
+    return torch.complex(mag * torch.cos(pha), mag * torch.sin(pha))

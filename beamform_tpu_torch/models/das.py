@@ -24,7 +24,7 @@ class DasModel(BatchableModel, nn.Module):
     name = "das"
 
     def __init__(self, engine: EngineConfig, geom: ArrayGeometry,
-                 params: DasParams = DasParams(), device="cpu"):
+                 params: DasParams = DasParams(), device="cuda"):
         super().__init__()
         self.engine, self.geom, self.params = engine, geom, params
         self.rdtype, self.cdtype = common.dtypes_of(engine)

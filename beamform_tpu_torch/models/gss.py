@@ -54,7 +54,7 @@ class GssModel(BatchableConstrainedModel, nn.Module):
 
     def __init__(self, engine: EngineConfig, geom: ArrayGeometry,
                  params: GssParams = GssParams(), interference_angles=(),
-                 capacity: int | None = None, device="cpu"):
+                 capacity: int | None = None, device="cuda"):
         """``capacity``: interference-slot capacity of the demixing state
         (the fixed-shape replacement for the reference's reallocation,
         gss.cpp:241-286). Defaults to len(interference_angles); sessions

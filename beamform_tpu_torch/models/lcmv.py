@@ -92,7 +92,7 @@ class LcmvModel(BatchableConstrainedModel, MvdrModel):
 
     def __init__(self, engine: EngineConfig, geom: ArrayGeometry,
                  params: LcmvParams = LcmvParams(), interference_angles=(),
-                 device="cpu"):
+                 device="cuda"):
         super().__init__(engine, geom, params, device=device)
         self.interf = tuple(interference_angles)
 

@@ -155,7 +155,7 @@ class MvdrModel(BatchableModel, nn.Module):
     name = "mvdr"
 
     def __init__(self, engine: EngineConfig, geom: ArrayGeometry,
-                 params: MvdrParams = MvdrParams(), device="cpu"):
+                 params: MvdrParams = MvdrParams(), device="cuda"):
         super().__init__()
         self.engine, self.geom, self.params = engine, geom, params
         self.rdtype, self.cdtype = common.dtypes_of(engine)

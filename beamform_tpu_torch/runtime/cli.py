@@ -1,10 +1,11 @@
 """Command-line interface of the port: ``beamform-tpu-torch
-{das,mvdr,lcmv,gss}``.
+{das,mvdr,lcmv,gss,phase,mcra,phasempf}``.
 
 Counterpart of ``beamform_tpu/runtime/cli.py`` for the ported slice: the
-offline and ``--stream`` paths of the ``das``, ``mvdr``, ``lcmv`` and
-``gss`` nodes, WAV in and WAV out, with an xRT (audio-seconds per
-wall-second) report. Node parameters start from the reference's launch
+offline and ``--stream`` paths of the ``das``, ``mvdr``, ``lcmv``, ``gss``,
+``phase``, ``mcra`` and ``phasempf`` nodes, WAV in and WAV out, with an xRT
+(audio-seconds per wall-second) report; ``mcra`` has no steering and
+ignores ``--theta``. Node parameters start from the reference's launch
 preset and take ``--param KEY=VALUE`` overrides, as in the JAX CLI. The
 interference set of LCMV and GSS follows ``--interference-events`` (a
 replayed /theta_interference message list) or, under ``--stream``,

@@ -6,18 +6,20 @@ Run from the root of a checkout, with no arguments:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from ``beamform_tpu_torch/csrc``, checks
-each of the seven kernels (WOLA analysis and synthesis, the MVDR and LCMV
-streaming solves, the Gauss-Jordan inverse, the fused MVDR/LCMV kernel and
-the fused GSS kernel) against its plain-torch version at the main paths'
-shapes, with its time beside its bound (the least time the card could take
-for the same work) and, where one PyTorch call computes the same function,
+each of the ten kernels (WOLA analysis and synthesis, the MVDR and LCMV
+streaming solves, the Gauss-Jordan inverse, the fused MVDR/LCMV kernel, the
+fused GSS kernel, the phase mask, the MPF beams and march, and the MCRA
+march) against its plain-torch version at the main paths' shapes, with
+its time beside its bound (the least time the card could take for the
+same work) and, where one PyTorch call computes the same function,
 that call's time. It drives the main paths at full width (16 mics of the
 aira16 array, 48 kHz, 30 s, hop 1024) through ``run_offline``,
 ``StreamingSession`` and the CLI: delay-and-sum; MVDR and LCMV under the
 reference's launch presets with the ``auto`` (streaming solve), ``dense``
 (Gauss-Jordan) and ``mega`` (fused) solvers, on noise and on a speech-like
 input, LCMV also with two static interferers and with an interference
-event timeline; and the GSS node on the same scenes. It checks each output
+event timeline; the GSS node on the same scenes; and the phase, phasempf
+and mcra nodes on noise and on a steered source. It checks each output
 against the float64 CPU path, counts each path's own kernel launches, and
 measures each path's xRT and device time per call (CUDA events). Each
 phase logs ``phase <name>: start`` and ``phase <name>: ok`` and raises on
@@ -81,6 +83,30 @@ MEGA_LCMV_REL_TOL = 3e-3
 # the fused GSS kernel vs its plain version: the same march in another
 # summation order, no solve (no conditioning to amplify round-off)
 GSS_REL_TOL = 1e-5
+# the phase masks' contract (the JAX package's tests/test_phase_mask.py
+# assert_close_mod_flips), relative to the reference's peak: the 99.9th
+# percentile of the deviation under FLIP_TIGHT, at most FLIP_FRAC of the
+# values over it (the bins that a rounding difference moves across a
+# binary mask's threshold), none over FLIP_CEIL
+FLIP_TIGHT, FLIP_FRAC, FLIP_CEIL = 5e-5, 1e-3, 5e-2
+# the JAX package's own float32 error against its float64 path, max sample
+# deviation, on the first 10 s of this script's noise and source inputs
+# under the launch presets (its float32 path on the CPU is the batched
+# formulation; measured on an x86 CPU and printed by
+# tests/test_torch_phase.py, test_torch_phasempf.py and test_torch_mcra.py,
+# test_*_float32_error_is_the_jax_packages). A node's float32 output on the
+# card is held to F64_FACTOR times it, or to the flip contract against the
+# float64 CPU path, whichever is looser.
+JAX_F32_DEV = {("phase", "noise"): 3.391656192182346e-08,
+               ("phase", "source"): 2.038878882615336e-06,
+               ("phasempf", "noise"): 4.8331931596572e-11,
+               ("phasempf", "source"): 5.040598329841828e-06,
+               ("mcra", "noise"): 4.082204300426273e-07,
+               ("mcra", "source"): 1.65012677477705e-05}
+# operations counted for one float32 atan2 (the JAX package's atan2f: two
+# abs, max, min, the fold test, one division, the degree-4 odd polynomial
+# and the octant and quadrant selects)
+ATAN2_OPS = 20
 REPS = 20
 # the least time of a call (the H100 SXM's published peaks, at 700 W):
 # HBM bytes, and float32 operations outside the tensor cores
@@ -181,22 +207,35 @@ def make_speech_input(num_mics: int, seconds: float) -> np.ndarray:
     return x.astype(np.float32)
 
 
-def mvdr_preset(**kw) -> dict:
-    """The reference's launch preset for mvdr, plus overrides."""
+def make_source_input(num_mics: int, seconds: float) -> np.ndarray:
+    """A far-field source at THETA over the aira16 array (its delays
+    applied exactly in the frequency domain), pink-ish like
+    make_speech_input and under its envelope, at a level where the phase
+    node's magnitude gate passes in the loud low bins, plus weak noise: the
+    phase masks see bins on both sides of their thresholds."""
+    import torch
+    from beamform_tpu_torch.geometry import ArrayGeometry, steering_delays
+    rng = np.random.default_rng(11)
+    n = int(seconds * FS)
+    tau = steering_delays(ArrayGeometry.from_config(aira16()),
+                          torch.tensor(THETA, dtype=torch.float64)).numpy()
+    f = np.fft.rfftfreq(n, 1.0 / FS)
+    src = np.fft.rfft(rng.standard_normal(n)) / np.sqrt(1.0 + f / 300.0)
+    x = np.fft.irfft(src[None] * np.exp(-2j * np.pi * f[None]
+                                        * tau[:num_mics, None]), n=n)
+    x /= np.std(x)
+    t = np.arange(n) / FS
+    syllab = np.clip(np.sin(2 * np.pi * 3.7 * t) + 0.2, 0.0, 1.0)
+    phrase = (np.sin(2 * np.pi * 0.37 * t + 1.0) > -0.2).astype(np.float64)
+    x = 3.0 * x * (syllab * phrase)[None, :]
+    x += 0.01 * rng.standard_normal(x.shape)
+    return x.astype(np.float32)
+
+
+def preset(node: str, **kw) -> dict:
+    """The reference's launch preset for ``node``, plus overrides."""
     from beamform_tpu_torch.config import load_launch_params
-    return dict(load_launch_params("mvdr"), **kw)
-
-
-def lcmv_preset(**kw) -> dict:
-    """The reference's launch preset for lcmv, plus overrides."""
-    from beamform_tpu_torch.config import load_launch_params
-    return dict(load_launch_params("lcmv"), **kw)
-
-
-def gss_preset(**kw) -> dict:
-    """The reference's launch preset for gss, plus overrides."""
-    from beamform_tpu_torch.config import load_launch_params
-    return dict(load_launch_params("gss"), **kw)
+    return dict(load_launch_params(node), **kw)
 
 
 def aira16(interference=()):
@@ -214,7 +253,7 @@ def event_timeline(num_frames: int, spec: str = EVENTS[1]):
     from beamform_tpu_torch.runtime.cli import interference_from_spec
     return interference_from_spec(
         spec, num_frames, HOP, FS, EVENTS[0],
-        lcmv_preset()["interf_angle_threshold"])
+        preset("lcmv")["interf_angle_threshold"])
 
 
 def engine(dtype="float32"):
@@ -226,14 +265,18 @@ def counters():
     """Every kernel wrapper of the port, by the name the kernels line
     uses."""
     from beamform_tpu_torch.kernels import (gss_stream, lcmv_stream, linalg,
-                                            mega_stream, mvdr_stream, wola)
+                                            mega_stream, mvdr_stream,
+                                            phase_mask, wola)
     return {"wola_analysis": wola.wola_analysis,
             "wola_synthesis": wola.wola_synthesis,
             "mvdr_stream": mvdr_stream.mvdr_stream,
             "gj_inverse": linalg.gj_inverse,
             "lcmv_stream": lcmv_stream.lcmv_stream,
             "mega_stream": mega_stream.mega_stream,
-            "gss_stream": gss_stream.gss_mega}
+            "gss_stream": gss_stream.gss_mega,
+            "phase_mask": phase_mask.phase_mask,
+            "mpf_march": phase_mask.mpf_march,
+            "mcra_march": phase_mask.mcra_march}
 
 
 def reset_launches():
@@ -615,7 +658,7 @@ def phase_mvdr_kernels(x: np.ndarray) -> dict:
     from beamform_tpu_torch.models import common, get_model
     from beamform_tpu_torch.models.mvdr import white_r
     dev = torch.device(DEVICE)
-    params = mvdr_preset()
+    params = preset("mvdr")
     model = get_model("mvdr", engine(), aira16(), params, device=dev)
     xp = common.prepare_input(x, engine(), torch.float32, dev)
     spec, mag, _ = wola_analysis(xp, torch.zeros((16, HOP), device=dev),
@@ -704,7 +747,7 @@ def phase_mvdr(x: np.ndarray, xs: np.ndarray) -> tuple:
 
     def run(sig, solver, theta=THETA, dtype="float32", device=DEVICE):
         return run_offline("mvdr", sig, engine=engine(dtype), array_cfg=cfg,
-                           theta=theta, params=mvdr_preset(solver=solver),
+                           theta=theta, params=preset("mvdr", solver=solver),
                            device=device)
 
     # each path's own launches: one analysis, one synthesis, and one stream
@@ -760,7 +803,7 @@ def phase_mvdr(x: np.ndarray, xs: np.ndarray) -> tuple:
         if not diff <= DAS_ABS_TOL:
             raise AssertionError(f"mvdr {inp} auto vs dense {diff}")
 
-    model = get_model("mvdr", engine(), cfg, mvdr_preset(), device=DEVICE)
+    model = get_model("mvdr", engine(), cfg, preset("mvdr"), device=DEVICE)
     for inp, sig in (("noise", x), ("speech", xs)):
         xp = common.prepare_input(sig, engine(), torch.float32, DEVICE)
         _, mag, _ = common.stft_ext_carry_mag(
@@ -803,7 +846,7 @@ def phase_lcmv_kernels(x: np.ndarray) -> dict:
     from beamform_tpu_torch.kernels.wola import wola_analysis
     from beamform_tpu_torch.models import common, get_model
     dev = torch.device(DEVICE)
-    params = lcmv_preset()
+    params = preset("lcmv")
     model = get_model("lcmv", engine(), aira16(), params, device=dev)
     xp = common.prepare_input(x, engine(), torch.float32, dev)
     spec, mag, _ = wola_analysis(xp, torch.zeros((16, HOP), device=dev),
@@ -858,7 +901,7 @@ def phase_lcmv(x: np.ndarray, xs: np.ndarray, y_mvdr: np.ndarray) -> tuple:
         interf = {"static": INTERFERERS, "events": EVENTS[0]}.get(scene, ())
         return run_offline(
             "lcmv", sig, engine=engine(dtype), array_cfg=aira16(interf),
-            theta=THETA, params=lcmv_preset(solver=solver), device=device,
+            theta=THETA, params=preset("lcmv", solver=solver), device=device,
             interference=timeline if scene == "events" else None)
 
     # each path's own launches: one analysis, one synthesis, and one LCMV
@@ -948,7 +991,7 @@ def phase_mega_kernels(x: np.ndarray) -> dict:
     from beamform_tpu_torch.models import common, get_model
     dev = torch.device(DEVICE)
     xp, tail, prev, mag = fused_inputs(x)
-    params = mvdr_preset()
+    params = preset("mvdr")
     model = get_model("mvdr", engine(), aira16(), params, device=dev)
     ib, w, thr = model.ib, params["past_windows"], params["freq_mag_threshold"]
     m, t, nib = xp.shape[0], xp.shape[1] // HOP, len(ib)
@@ -958,7 +1001,7 @@ def phase_mega_kernels(x: np.ndarray) -> dict:
     d = common.weights_for_thetas(model.geom, model.freqs,
                                   torch.full((1,), THETA, device=dev),
                                   torch.float32, torch.complex64)
-    lmodel = get_model("lcmv", engine(), aira16(), lcmv_preset(), device=dev)
+    lmodel = get_model("lcmv", engine(), aira16(), preset("lcmv"), device=dev)
     cases = [("MVDR", d.index_select(2, ib)[:, None].contiguous(), False,
               MEGA_REL_TOL),
              ("LCMV S=1", lcmv_constraints(lmodel, 0, 0), True, MEGA_REL_TOL),
@@ -1016,7 +1059,7 @@ def phase_gss_kernels(x: np.ndarray) -> dict:
     xp, tail, prev, mag = fused_inputs(x)
     results = {}
     for interf, capacity in (((), 0), (INTERFERERS, 2), (INTERFERERS, 15)):
-        model = get_model("gss", engine(), aira16(interf), gss_preset(),
+        model = get_model("gss", engine(), aira16(interf), preset("gss"),
                           device=dev)
         model.capacity = capacity
         p = model.params
@@ -1071,7 +1114,8 @@ def phase_gss_kernels(x: np.ndarray) -> dict:
 
 FUSED_EXPECT = {k: 0 for k in ("wola_analysis", "wola_synthesis",
                                "mvdr_stream", "gj_inverse", "lcmv_stream",
-                               "mega_stream", "gss_stream")}
+                               "mega_stream", "gss_stream", "phase_mask",
+                               "mpf_march", "mcra_march")}
 
 
 def check_scene(label, y, ref, n_out, may_be_nonfinite, tol=DAS_ABS_TOL):
@@ -1112,11 +1156,10 @@ def phase_mega(x: np.ndarray, xs: np.ndarray, mvdr_outs, mvdr_refs,
     y_mvdr = first = None
     for node, scene, sig in runs:
         interf = {"static": INTERFERERS, "events": EVENTS[0]}.get(scene, ())
-        preset = mvdr_preset if node == "mvdr" else lcmv_preset
         reset_launches()
         y = run_offline(node, sig, engine=engine(),
                         array_cfg=aira16(interf), theta=THETA,
-                        params=preset(solver="mega"), device=DEVICE,
+                        params=preset(node, solver="mega"), device=DEVICE,
                         interference=timeline if scene == "events" else None)
         got = read_launches()
         log(f"{node} mega main path launches ({scene}): {got}")
@@ -1149,7 +1192,7 @@ def phase_gss(x: np.ndarray, xs: np.ndarray) -> tuple:
         interf = {"static": INTERFERERS, "events": EVENTS[0]}.get(scene, ())
         return run_offline(
             "gss", sig, engine=engine(dtype), array_cfg=aira16(interf),
-            theta=THETA, params=gss_preset(solver=solver), device=device,
+            theta=THETA, params=preset("gss", solver=solver), device=device,
             interference=timeline if scene == "events" else None)
 
     outs, launches = {}, None
@@ -1172,6 +1215,228 @@ def phase_gss(x: np.ndarray, xs: np.ndarray) -> tuple:
     return outs["noise"], launches
 
 
+def flip_stats(got, ref) -> tuple:
+    """(99.9th percentile, share over FLIP_TIGHT, max) of |got - ref| /
+    max |ref|, over tensors or arrays."""
+    got, ref = (np.asarray(a.cpu()) if hasattr(a, "cpu") else np.asarray(a)
+                for a in (got, ref))
+    dev = np.abs(got - ref) / max(float(np.abs(ref).max()), 1e-12)
+    return (float(np.percentile(dev, 99.9)), float(np.mean(dev > FLIP_TIGHT)),
+            float(dev.max()))
+
+
+def flips_ok(stats) -> bool:
+    return (stats[0] < FLIP_TIGHT and stats[1] <= FLIP_FRAC
+            and stats[2] < FLIP_CEIL)
+
+
+def fmt_flips(stats) -> str:
+    return (f"p99.9 {stats[0]:.3e}, share over {FLIP_TIGHT:g} "
+            f"{stats[1]:.2e}, max {stats[2]:.3e} of peak")
+
+
+def log_launch_split(fn, prefix: str, calls: int = 5):
+    """The device time of each kernel whose name holds ``prefix`` in one
+    call of ``fn``: torch.profiler over ``calls`` calls after one warm-up,
+    the mean per call (a profile that lost a kernel shows as a count below
+    ``calls``)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    for e in prof.key_averages():
+        if prefix in e.key and not e.key.startswith("aten::"):
+            log(f"  launch {e.key[:70]}: "
+                f"{getattr(e, 'device_time_total', 0.0) / 1e3 / calls:.4f} "
+                f"ms per call (x{e.count} in {calls} calls, profiler)")
+
+
+def front_flops(m: int) -> float:
+    """Operations of the phase masks' front end per (frame, bin): per mic
+    conj(w) x (6), |x| (4) and one atan2; per pair the wrapped distance
+    and its sum (4); the two means (2)."""
+    return m * (10 + ATAN2_OPS) + 4 * m * (m - 1) / 2 + 2
+
+
+def phase_phase_kernels(x: np.ndarray, xsrc: np.ndarray) -> dict:
+    """The phase-mask, MPF and MCRA march kernels against their plain
+    versions on the card, on the main paths' operands: the analysis of the
+    30 s noise input (timed) and of the steered-source input (16 mics,
+    1026 bins, 1407 frames) under the launch presets; the phase mask and
+    the MPF kernels with one steering and with a theta timeline (two
+    rows), the MPF state and the MCRA march from a zero state. Outputs and
+    states are held to their plain versions under the flip contract,
+    current_L and first_L exactly. Returns the noise input's numbers."""
+    import torch
+    from beamform_tpu_torch.config import make_params
+    from beamform_tpu_torch.kernels import phase_mask as kpm
+    from beamform_tpu_torch.kernels.wola import wola_analysis
+    from beamform_tpu_torch.models import common, get_model
+    from beamform_tpu_torch.models.mcra import freq_smooth
+    dev = torch.device(DEVICE)
+    model = get_model("phase", engine(), aira16(), preset("phase"),
+                      device=dev)
+    pp = model.params
+    mp = make_params("phasempf", preset("phasempf"))
+    cp = make_params("mcra", preset("mcra"))
+    results = {}
+
+    def check(label, got, ref, ms=None, plain_ms=None):
+        stats = flip_stats(got, ref)
+        log(f"kernel {label}: {fmt_flips(stats)} (flip contract)"
+            + ("" if ms is None else
+               f"; {ms:.4f} ms vs plain torch {plain_ms:.4f} ms"))
+        if not flips_ok(stats):
+            raise AssertionError(f"{label}: {stats}")
+        return float((got - ref).abs().max())
+
+    def check_state(label, got, ref):
+        if (int(got.current_l) != int(ref.current_l)
+                or bool(got.first_l) != bool(ref.first_l)):
+            raise AssertionError(f"{label}: current_L / first_L differ")
+        for name, a, b in zip(got._fields, got[:-2], ref[:-2]):
+            check(f"{label} state {name}", a, b)
+
+    for scene, sig in (("noise", x), ("source", xsrc)):
+        xp = common.prepare_input(sig, engine(), torch.float32, dev)
+        spec, _, _ = wola_analysis(xp, torch.zeros((16, HOP), device=dev))
+        t, m, nb = spec.shape
+        th = np.full(t, THETA)
+        th[t // 2:] = -40.0
+        for steer, theta in (("one steering", THETA),
+                             ("theta timeline", th)):
+            uniq, w_idx = model._theta_ctrl(theta, t)
+            w = common.weights_for_thetas(model.geom, model.freqs, uniq,
+                                          torch.float32, torch.complex64)
+            u = w.shape[0]
+            timed = scene == "noise" and u == 1
+            pm = (spec, w, w_idx, pp.min_phase * np.pi / 180.0,
+                  pp.mag_threshold, pp.mag_mult, 2 * HOP)
+            st0 = kpm.init_state(kpm.MpfState, nb, torch.float32, dev)
+            mpf = (spec, w, w_idx, st0, mp, True)
+            label = f"M={m} NB={nb} T={t} U={u} ({scene}, {steer})"
+            got, ref = kpm.phase_mask(*pm), kpm.phase_mask_plain(*pm)
+            torch.cuda.synchronize()
+            times = ((cuda_ms(lambda: kpm.phase_mask(*pm)),
+                      cuda_ms(lambda: kpm.phase_mask_plain(*pm), reps=3))
+                     if timed else ())
+            err = check(f"phase_mask {label}", got, ref, *times)
+            if timed:
+                results["phase_mask"] = dict(
+                    max_abs_err=err, ms=times[0], plain_ms=times[1],
+                    **bound(8 * (t + u) * m * nb + 8 * t + 8 * t * nb,
+                            t * nb * (front_flops(m) + 14)),
+                    library_ms=None)
+            (y, st), (y_ref, st_ref) = (kpm.mpf_march(*mpf),
+                                        kpm.mpf_march_plain(*mpf))
+            torch.cuda.synchronize()
+            times = ((cuda_ms(lambda: kpm.mpf_march(*mpf)),
+                      cuda_ms(lambda: kpm.mpf_march_plain(*mpf), reps=3))
+                     if timed else ())
+            err = check(f"mpf_march {label}", y, y_ref, *times)
+            check_state(f"mpf_march {label}", st, st_ref)
+            if timed:
+                log_launch_split(lambda: kpm.mpf_march(*mpf), "mpf_")
+                # the march's share per (frame, bin): the MCRA step (20),
+                # leakage, reverberation and lambda (14), the output (8)
+                results["mpf_march"] = dict(
+                    max_abs_err=err, ms=times[0], plain_ms=times[1],
+                    **bound(8 * (t + u) * m * nb + 8 * t + 8 * t * nb
+                            + 2 * 4 * 9 * nb,
+                            t * nb * (front_flops(m) + 16 + 42)),
+                    library_ms=None)
+        x0 = spec[:, 0].contiguous()
+        sq = x0.abs() ** 2
+        s_f = freq_smooth(sq, x0[:, 0].abs())
+        mst0 = kpm.init_state(kpm.McraState, nb, torch.float32, dev)
+        mc = (s_f, sq, x0, mst0, cp, True)
+        (y, st), (y_ref, st_ref) = (kpm.mcra_march(*mc),
+                                    kpm.mcra_march_plain(*mc))
+        torch.cuda.synchronize()
+        timed = scene == "noise"
+        times = ((cuda_ms(lambda: kpm.mcra_march(*mc)),
+                  cuda_ms(lambda: kpm.mcra_march_plain(*mc), reps=3))
+                 if timed else ())
+        label = f"mcra_march NB={nb} T={t} ({scene}, mic 0)"
+        err = check(label, y, y_ref, *times)
+        check_state(label, st, st_ref)
+        if timed:
+            # per (frame, bin): the MCRA step (20), the output (14)
+            results["mcra_march"] = dict(
+                max_abs_err=err, ms=times[0], plain_ms=times[1],
+                **bound(24 * t * nb + 2 * 4 * 6 * nb, 34 * t * nb),
+                library_ms=None)
+    return results
+
+
+PHASE_KERNEL = {"phase": "phase_mask", "phasempf": "mpf_march",
+                "mcra": "mcra_march"}
+
+
+def phase_phase_node(node: str, x: np.ndarray, xsrc: np.ndarray) -> tuple:
+    """A phase-mask node (``phase``, ``phasempf`` or ``mcra``) through
+    run_offline under its launch preset: on the noise input with this
+    path's launches counted alone (one analysis, the node's kernel, one
+    synthesis, nothing else), on the steered-source input and, but for
+    mcra (no steering), on the source under a theta timeline. Each output
+    against the float64 CPU path: within F64_FACTOR times the JAX
+    package's own float32 error or under the flip contract, whichever is
+    looser (the line says which held), with the max sample deviation
+    beside PERF.md's 1e-3 budget. Returns (output on noise, launches)."""
+    from beamform_tpu_torch import run_offline
+    t = -(-x.shape[1] // HOP)
+    th = np.full(t, THETA)
+    th[t // 2:] = -40.0
+
+    def run(sig, theta=THETA, dtype="float32", device=DEVICE):
+        return run_offline(node, sig, engine=engine(dtype),
+                           array_cfg=aira16(), theta=theta,
+                           params=preset(node), device=device)
+
+    reset_launches()
+    outs = {"noise": run(x)}
+    launches = read_launches()
+    log(f"{node} main path launches (noise): {launches}")
+    want = dict(FUSED_EXPECT, wola_analysis=1, wola_synthesis=1,
+                **{PHASE_KERNEL[node]: 1})
+    if launches != want:
+        raise AssertionError(f"{node} launches {launches}, expected {want}")
+    scenes = {"noise": (x, THETA), "source": (xsrc, THETA)}
+    if node != "mcra":
+        scenes["source timeline"] = (xsrc, th)
+    outs.update({s: run(sig, theta) for s, (sig, theta) in scenes.items()
+                 if s != "noise"})
+    t0 = time.perf_counter()
+    refs = {s: run(sig, theta, "float64", "cpu")
+            for s, (sig, theta) in scenes.items()}
+    log(f"{node} float64 CPU references ({len(refs)} scenes, full 30 s): "
+        f"{time.perf_counter() - t0:.1f} s")
+    for scene, y in outs.items():
+        ref = refs[scene]
+        if y.shape != (t * HOP,) or not np.isfinite(y).all():
+            raise AssertionError(f"{node} {scene}: shape {y.shape} / "
+                                 "non-finite output")
+        dev = float(np.abs(y - ref).max())
+        stats = flip_stats(y, ref)
+        jax_dev = JAX_F32_DEV[(node, scene.split()[0])]
+        held = [name for name, ok in (
+            ("flip contract", flips_ok(stats)),
+            (f"{F64_FACTOR:g}x the JAX float32 error {jax_dev:.3e}",
+             dev <= F64_FACTOR * jax_dev)) if ok]
+        log(f"{node} {scene} {DEVICE} float32 vs cpu float64: max sample "
+            f"deviation {dev:.3e} (peak {np.abs(ref).max():.3e}; budget "
+            f"{DAS_ABS_TOL:g} {'met' if dev <= DAS_ABS_TOL else 'EXCEEDED'}"
+            f"); {fmt_flips(stats)}; held: {', '.join(held) or 'none'}")
+        if not held:
+            raise AssertionError(f"{node} {scene}: deviation {dev}, {stats}")
+    return outs["noise"], launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1188,6 +1453,7 @@ def main() -> int:
     phase("build", phase_build)
     x = make_input(16, SECONDS)
     xs = make_speech_input(16, SECONDS)
+    xsrc = make_source_input(16, SECONDS)
     t_main = -(-x.shape[1] // HOP)
     wola = phase("kernels", phase_kernels, t_main)
     kern = {"wola_analysis": wola["analysis"],
@@ -1195,7 +1461,8 @@ def main() -> int:
             **phase("mvdr_kernels", phase_mvdr_kernels, x),
             **phase("lcmv_kernels", phase_lcmv_kernels, x),
             **phase("mega_kernels", phase_mega_kernels, x),
-            **phase("gss_kernels", phase_gss_kernels, x)}
+            **phase("gss_kernels", phase_gss_kernels, x),
+            **phase("phase_kernels", phase_phase_kernels, x, xsrc)}
     y, das_launches = phase("das", phase_das, x)
     with tempfile.TemporaryDirectory(prefix=".chip_smoke_", dir=ROOT) as tmp:
         phase("das_streaming", phase_streaming, x, y, tmp)
@@ -1205,53 +1472,64 @@ def main() -> int:
     y_mvdr = mvdr_outs[("noise", "auto")]
     with tempfile.TemporaryDirectory(prefix=".chip_smoke_", dir=ROOT) as tmp:
         phase("mvdr_streaming", phase_streaming, x, y_mvdr, tmp, "mvdr",
-              mvdr_preset())
-        phase("mvdr_cli", phase_cli, x, tmp, "mvdr", mvdr_preset())
-    phase("mvdr_xrt", phase_xrt, x, card, "mvdr", mvdr_preset(), "noise")
-    phase("mvdr_xrt", phase_xrt, xs, card, "mvdr", mvdr_preset(), "speech")
-    phase("mvdr_xrt", phase_xrt, x, card, "mvdr", mvdr_preset(solver="dense"),
-          "noise, dense")
+              preset("mvdr"))
+        phase("mvdr_cli", phase_cli, x, tmp, "mvdr", preset("mvdr"))
+    phase("mvdr_xrt", phase_xrt, x, card, "mvdr", preset("mvdr"), "noise")
+    phase("mvdr_xrt", phase_xrt, xs, card, "mvdr", preset("mvdr"), "speech")
+    phase("mvdr_xrt", phase_xrt, x, card, "mvdr",
+          preset("mvdr", solver="dense"), "noise, dense")
     lcmv_outs, lcmv_refs, lcmv_launches = phase("lcmv", phase_lcmv, x, xs,
                                                 y_mvdr)
     with tempfile.TemporaryDirectory(prefix=".chip_smoke_", dir=ROOT) as tmp:
         phase("lcmv_streaming", phase_streaming, x,
-              lcmv_outs[("noise", "auto")], tmp, "lcmv", lcmv_preset(),
+              lcmv_outs[("noise", "auto")], tmp, "lcmv", preset("lcmv"),
               tol=0.0)
-        phase("lcmv_cli", phase_cli, x, tmp, "lcmv", lcmv_preset(),
+        phase("lcmv_cli", phase_cli, x, tmp, "lcmv", preset("lcmv"),
               ["--stream", "64"], seconds=4.0, interference=EVENTS[0],
               events="1.5:2:-60,3:2:70.5", tol=0.0)
-    phase("lcmv_xrt", phase_xrt, x, card, "lcmv", lcmv_preset(), "noise, S=1")
-    phase("lcmv_xrt", phase_xrt, xs, card, "lcmv", lcmv_preset(),
+    phase("lcmv_xrt", phase_xrt, x, card, "lcmv", preset("lcmv"), "noise, S=1")
+    phase("lcmv_xrt", phase_xrt, xs, card, "lcmv", preset("lcmv"),
           "speech, S=1")
-    phase("lcmv_xrt", phase_xrt, x, card, "lcmv", lcmv_preset(), "noise, S=3",
+    phase("lcmv_xrt", phase_xrt, x, card, "lcmv", preset("lcmv"), "noise, S=3",
           INTERFERERS)
-    phase("lcmv_xrt", phase_xrt, x, card, "lcmv", lcmv_preset(solver="dense"),
-          "noise, dense")
+    phase("lcmv_xrt", phase_xrt, x, card, "lcmv",
+          preset("lcmv", solver="dense"), "noise, dense")
     y_mega, mega_launches = phase("mega", phase_mega, x, xs, mvdr_outs,
                                   mvdr_refs, lcmv_outs, lcmv_refs)
     with tempfile.TemporaryDirectory(prefix=".chip_smoke_", dir=ROOT) as tmp:
         phase("mega_streaming", phase_streaming, x, y_mega, tmp, "mvdr",
-              mvdr_preset(solver="mega"), tol=0.0)
+              preset("mvdr", solver="mega"), tol=0.0)
         phase("mega_cli", phase_cli, x, tmp, "mvdr",
-              mvdr_preset(solver="mega"), ["--param", "solver=mega"])
+              preset("mvdr", solver="mega"), ["--param", "solver=mega"])
         phase("mega_cli", phase_cli, x, tmp, "lcmv",
-              lcmv_preset(solver="mega"),
+              preset("lcmv", solver="mega"),
               ["--stream", "64", "--param", "solver=mega"], seconds=4.0,
               interference=EVENTS[0], events="1.5:2:-60,3:2:70.5", tol=0.0)
-    phase("mega_xrt", phase_xrt, x, card, "mvdr", mvdr_preset(solver="mega"),
-          "noise, mega")
-    phase("mega_xrt", phase_xrt, x, card, "lcmv", lcmv_preset(solver="mega"),
-          "noise, S=1, mega")
+    phase("mega_xrt", phase_xrt, x, card, "mvdr",
+          preset("mvdr", solver="mega"), "noise, mega")
+    phase("mega_xrt", phase_xrt, x, card, "lcmv",
+          preset("lcmv", solver="mega"), "noise, S=1, mega")
     y_gss, gss_launches = phase("gss", phase_gss, x, xs)
     with tempfile.TemporaryDirectory(prefix=".chip_smoke_", dir=ROOT) as tmp:
         phase("gss_streaming", phase_streaming, x, y_gss, tmp, "gss",
-              gss_preset(), tol=0.0)
-        phase("gss_cli", phase_cli, x, tmp, "gss", gss_preset(),
+              preset("gss"), tol=0.0)
+        phase("gss_cli", phase_cli, x, tmp, "gss", preset("gss"),
               ["--stream", "64"], seconds=4.0, interference=EVENTS[0],
               events="1.5:2:-60,3:2:70.5", tol=0.0)
-    phase("gss_xrt", phase_xrt, x, card, "gss", gss_preset(), "noise")
-    phase("gss_xrt", phase_xrt, x, card, "gss", gss_preset(), "noise, S=3",
+    phase("gss_xrt", phase_xrt, x, card, "gss", preset("gss"), "noise")
+    phase("gss_xrt", phase_xrt, x, card, "gss", preset("gss"), "noise, S=3",
           INTERFERERS)
+    node_launches = {}
+    for node in ("phase", "phasempf", "mcra"):
+        y_node, node_launches[node] = phase(node, phase_phase_node, node, x,
+                                            xsrc)
+        with tempfile.TemporaryDirectory(prefix=".chip_smoke_",
+                                         dir=ROOT) as tmp:
+            phase(f"{node}_streaming", phase_streaming, x, y_node, tmp, node,
+                  preset(node))
+            phase(f"{node}_cli", phase_cli, x, tmp, node, preset(node),
+                  ["--stream", "64"], seconds=4.0)
+        phase(f"{node}_xrt", phase_xrt, x, card, node, preset(node), "noise")
 
     launches = {"wola_analysis": das_launches["wola_analysis"],
                 "wola_synthesis": das_launches["wola_synthesis"],
@@ -1259,7 +1537,9 @@ def main() -> int:
                 "gj_inverse": mvdr_launches["dense"]["gj_inverse"],
                 "lcmv_stream": lcmv_launches["auto"]["lcmv_stream"],
                 "mega_stream": mega_launches["mega_stream"],
-                "gss_stream": gss_launches["gss_stream"]}
+                "gss_stream": gss_launches["gss_stream"],
+                **{k: node_launches[node][k]
+                   for node, k in PHASE_KERNEL.items()}}
     csrc = "beamform_tpu_torch/csrc/"
     meta = {"wola_analysis": ("wola.cu",
                               "beamform_tpu/kernels/wola_pallas.py:120"),
@@ -1273,7 +1553,13 @@ def main() -> int:
             "mega_stream": ("mega_stream.cu",
                             "beamform_tpu/kernels/mega_stream.py:230"),
             "gss_stream": ("gss_stream.cu",
-                           "beamform_tpu/kernels/gss_stream.py:64")}
+                           "beamform_tpu/kernels/gss_stream.py:64"),
+            "phase_mask": ("phase_mask.cu",
+                           "beamform_tpu/kernels/phase_mask.py:111"),
+            "mpf_march": ("phase_mask.cu",
+                          "beamform_tpu/kernels/phase_mask.py:190"),
+            # no Pallas kernel: the MCRA node's lax.scan
+            "mcra_march": ("phase_mask.cu", "beamform_tpu/models/mcra.py:124")}
     log(f"chip_smoke wall time {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": csrc + meta[k][0],

@@ -716,3 +716,225 @@ def test_fused_paths_chunks_equal_offline_on_cuda(cuda, node, solver):
     chunks = [sess.process(x[:, f0 * 1024:(f0 + 7) * 1024], 20.0)
               for f0 in range(0, 49, 7)]
     assert torch.equal(torch.cat(chunks), offline)
+
+
+# ------------------------------------------------- phase, phasempf, mcra
+
+def _assert_close_mod_flips(got, ref, tight=5e-5, frac=1e-3, ceil=5e-2):
+    """The JAX package's contract for the phase masks
+    (tests/test_phase_mask.py ``assert_close_mod_flips``): relative to the
+    peak of ``ref``, the 99.9th percentile of the deviation under
+    ``tight``, at most ``frac`` of the samples over it (the bins a
+    rounding difference moves across a binary mask's threshold), and none
+    over ``ceil``."""
+    got, ref = (np.asarray(a.cpu()) if torch.is_tensor(a) else a
+                for a in (got, ref))
+    dev = np.abs(got - ref) / max(np.abs(ref).max(), 1e-12)
+    assert np.percentile(dev, 99.9) < tight, np.percentile(dev, 99.9)
+    assert np.mean(dev > tight) <= frac, np.mean(dev > tight)
+    assert dev.max() < ceil, dev.max()
+
+
+def _phase_operands(m, t, nb, u, seed, device):
+    """Spectra (T, M, NB) of a source steered by one of ``u`` rows under
+    a noise level that rises over the bins, so the bins' mean pair
+    distances spread across the masks' thresholds; the steering rows
+    (U, M, NB) and each frame's row (T,)."""
+    from beamform_tpu_torch.geometry import (ArrayGeometry, steering_delays,
+                                             steering_weights)
+    rng = np.random.default_rng(seed)
+    geom = ArrayGeometry.from_xy(rng.uniform(-0.1, 0.1, (m, 2)).tolist())
+    freqs = torch.linspace(0.0, 24000.0, nb, dtype=torch.float64)
+    w = steering_weights(freqs, steering_delays(geom, np.linspace(20, -40,
+                                                                  u)))
+    idx = np.sort(rng.integers(0, u, t))
+    s = rng.standard_normal((t, 1, nb)) + 1j * rng.standard_normal((t, 1, nb))
+    noise = (rng.standard_normal((t, m, nb))
+             + 1j * rng.standard_normal((t, m, nb)))
+    spec = s * w.numpy()[idx] + noise * np.linspace(0.01, 2.0, nb)
+    return (torch.as_tensor(spec, dtype=torch.complex64, device=device),
+            w.to(torch.complex64).to(device),
+            torch.as_tensor(idx, dtype=torch.int64, device=device))
+
+
+PM_SHAPES = [(3, 40, 130, 1), (16, 40, 130, 2), (32, 9, 258, 3),
+             (16, 1407, 1026, 1)]
+
+
+@pytest.mark.parametrize("m,t,nb,u", PM_SHAPES)
+def test_phase_mask_kernel_matches_plain(cuda, m, t, nb, u):
+    """Ragged bins (not a multiple of the block), 3 to 32 mics, several
+    steering rows, and the main path's shape (16 mics, 1026 bins, 1407
+    frames)."""
+    from beamform_tpu_torch.kernels import phase_mask as kpm
+    spec, w, idx = _phase_operands(m, t, nb, u, m + t, cuda)
+    args = (spec, w, idx, 0.35, 0.004, 0.1, 2 * (nb - 2))
+    before = kpm.phase_mask.launches
+    got = kpm.phase_mask(*args)
+    torch.cuda.synchronize()
+    assert kpm.phase_mask.launches == before + 1
+    assert got.shape == (t, nb) and got.dtype == torch.complex64
+    assert torch.equal(got[:, 0], spec[:, 0, 0])
+    _assert_close_mod_flips(got, kpm.phase_mask_plain(*args))
+
+
+def _carried(cls, plain_march, nb, device, steps=5):
+    """A state of ``cls`` after a few frames of its plain march from zero,
+    one frame before a rollover of ``current_l`` (MCRA_L = 7)."""
+    from beamform_tpu_torch.kernels import phase_mask as kpm
+    st = kpm.init_state(cls, nb, torch.float32, device)
+    st = plain_march(st, steps)
+    return st._replace(current_l=torch.tensor(7, dtype=torch.int32,
+                                              device=device))
+
+
+MPF_FLAGS = [{}, {"out_only_noise": True}, {"out_only_mcra": True},
+             {"bug_dc_zero": False}]
+
+
+@pytest.mark.parametrize("flags", MPF_FLAGS)
+@pytest.mark.parametrize("m,t,nb,u", [(3, 60, 130, 1), (16, 1407, 1026, 2)])
+def test_mpf_kernels_match_plain(cuda, m, t, nb, u, flags):
+    """The dual beams and the MCRA/MPF march from a carried state across
+    a rollover, under each output option."""
+    from beamform_tpu_torch.config import PhasempfParams
+    from beamform_tpu_torch.kernels import phase_mask as kpm
+    flags = dict(flags)
+    dc_zero = flags.pop("bug_dc_zero", True)
+    p = PhasempfParams(**dict(load_launch_params("phasempf"), MCRA_L=7,
+                              **flags))
+    spec, w, idx = _phase_operands(m, t, nb, u, 7 * m + t, cuda)
+    st0 = _carried(kpm.MpfState, lambda st, n: kpm.mpf_march_plain(
+        spec[:n], w, idx[:n], st, p, dc_zero)[1], nb, cuda)
+    before = kpm.mpf_march.launches
+    y, st = kpm.mpf_march(spec, w, idx, st0, p, dc_zero)
+    torch.cuda.synchronize()
+    assert kpm.mpf_march.launches == before + 1
+    y_ref, st_ref = kpm.mpf_march_plain(spec, w, idx, st0, p, dc_zero)
+    _assert_close_mod_flips(y, y_ref)
+    assert st.current_l.dtype == torch.int32 and st.first_l.dtype == torch.bool
+    assert int(st.current_l) == int(st_ref.current_l)
+    assert not bool(st.first_l) and not bool(st_ref.first_l)
+    for a, b in zip(st[:7], st_ref[:7]):
+        _assert_close_mod_flips(a, b)
+
+
+@pytest.mark.parametrize("only_noise", [False, True])
+@pytest.mark.parametrize("t,nb", [(50, 130), (1407, 1026)])
+def test_mcra_march_kernel_matches_plain(cuda, t, nb, only_noise):
+    from beamform_tpu_torch.config import McraParams
+    from beamform_tpu_torch.kernels import phase_mask as kpm
+    from beamform_tpu_torch.models.mcra import freq_smooth
+    rng = np.random.default_rng(t)
+    env = np.abs(np.sin(np.arange(t) / 9.0))[:, None] + 0.05
+    x = torch.as_tensor(env * (rng.standard_normal((t, nb))
+                               + 1j * rng.standard_normal((t, nb))),
+                        dtype=torch.complex64, device=cuda)
+    sq = x.abs() ** 2
+    s_f = freq_smooth(sq, x[:, 0].abs())
+    p = McraParams(**dict(load_launch_params("mcra"), L=7,
+                          out_only_noise=only_noise))
+    for dc_zero in (True, False):
+        st0 = _carried(kpm.McraState, lambda st, n: kpm.mcra_march_plain(
+            s_f[:n], sq[:n], x[:n], st, p, dc_zero)[1], nb, cuda)
+        before = kpm.mcra_march.launches
+        y, st = kpm.mcra_march(s_f, sq, x, st0, p, dc_zero)
+        torch.cuda.synchronize()
+        assert kpm.mcra_march.launches == before + 1
+        y_ref, st_ref = kpm.mcra_march_plain(s_f, sq, x, st0, p, dc_zero)
+        _assert_close_mod_flips(y, y_ref)
+        assert int(st.current_l) == int(st_ref.current_l)
+        assert bool(st.first_l) == bool(st_ref.first_l) is False
+        for a, b in zip(st[:4], st_ref[:4]):
+            _assert_close_mod_flips(a, b)
+
+
+def test_phase_wrappers_refuse_what_they_do_not_take(cuda):
+    from beamform_tpu_torch.config import McraParams, PhasempfParams
+    from beamform_tpu_torch.kernels import phase_mask as kpm
+    spec, w, idx = _phase_operands(3, 4, 130, 1, 0, cuda)
+    mask = (0.35, 0.004, 0.1, 256)
+    mp = PhasempfParams()
+    st = kpm.init_state(kpm.MpfState, 130, torch.float32, cuda)
+    counts = (kpm.phase_mask.launches, kpm.mpf_march.launches,
+              kpm.mcra_march.launches)
+    for bad, match in (
+            ((spec.cdouble(), w.cdouble(), idx), "takes torch.complex64"),
+            ((spec, w[:, :2].contiguous(), idx), "shape"),
+            ((spec, w.cpu(), idx), "is on cpu"),
+            ((spec, w.conj(), idx), "conjugate"),
+            ((spec, w, idx.int()), "takes torch.int64"),
+            ((spec.transpose(0, 1).contiguous().transpose(0, 1), w, idx),
+             "contiguous"),
+            ((spec[:, :1].contiguous(), w[:, :1].contiguous(), idx),
+             "2 to 32 mics")):
+        with pytest.raises(ValueError, match=match):
+            kpm.phase_mask(*bad, *mask)
+        with pytest.raises(ValueError, match=match):
+            kpm.mpf_march(*bad, st, mp, True)
+    with pytest.raises(ValueError, match="shape"):
+        kpm.mpf_march(spec, w, idx, kpm.init_state(
+            kpm.MpfState, 129, torch.float32, cuda), mp, True)
+    x = spec[:, 0].contiguous()
+    sq = x.abs() ** 2
+    mst = kpm.init_state(kpm.McraState, 130, torch.float32, cuda)
+    for bad, match in (((sq, sq, x.conj()), "conjugate"),
+                       ((sq.double(), sq, x), "takes torch.float32"),
+                       ((sq, sq[:, :5], x), "shape")):
+        with pytest.raises(ValueError, match=match):
+            kpm.mcra_march(*bad, mst, McraParams(), True)
+    assert counts == (kpm.phase_mask.launches, kpm.mpf_march.launches,
+                      kpm.mcra_march.launches)
+
+
+def _source_scene(cfg, seconds, hop, theta=20.0, seed=5):
+    """A far-field source at ``theta`` (its delays applied exactly in the
+    frequency domain) under a syllabic envelope, plus weak noise."""
+    from beamform_tpu_torch.geometry import ArrayGeometry, steering_delays
+    rng = np.random.default_rng(seed)
+    n = int(seconds * 48000) // hop * hop
+    tau = steering_delays(ArrayGeometry.from_config(cfg), theta).numpy()
+    f = np.fft.rfftfreq(n, 1.0 / 48000)
+    s = np.fft.rfft(rng.standard_normal(n))
+    x = np.fft.irfft(s[None] * np.exp(-2j * np.pi * f[None] * tau[:, None]),
+                     n=n)
+    env = np.clip(np.sin(2 * np.pi * 3.7 * np.arange(n) / 48000) + 0.2, 0,
+                  1)
+    x = 3.0 * x * env + 0.05 * rng.standard_normal(x.shape)
+    return x.astype(np.float32)
+
+
+@pytest.mark.parametrize("node", ["phase", "phasempf", "mcra"])
+def test_phase_nodes_on_cuda_match_float64_cpu(cuda, node):
+    """16 mics at hop 128 and 1024 under the launch presets: the card's
+    float32 output against the float64 CPU path under the mask contract,
+    each path's exact launches, and chunks equal to one offline call."""
+    from beamform_tpu_torch.kernels import phase_mask as kpm
+    cfg = load_array_config(os.path.join(ROOT, "beamform_tpu_torch",
+                                         "configs", "aira16.yaml"))
+    counters = (kw.wola_analysis, kw.wola_synthesis, km.mvdr_stream,
+                klc.lcmv_stream, kl.gj_inverse, kmega.mega_stream,
+                kgss.gss_mega, kpm.phase_mask, kpm.mpf_march, kpm.mcra_march)
+    expect = {"phase": 7, "phasempf": 8, "mcra": 9}[node]
+    for hop in (128, 1024):
+        x = _source_scene(cfg, 1.0, hop)
+        t = x.shape[1] // hop
+        th = np.full(t, 20.0)
+        th[t // 2:] = -35.0
+        eng = EngineConfig(window_size=hop)
+        model = get_model(node, eng, cfg, load_launch_params(node),
+                          device=cuda)
+        before = [f.launches for f in counters]
+        got = model.process(x, th)
+        ran = [f.launches - b for f, b in zip(counters, before)]
+        assert ran == [1, 1] + [int(i == expect) for i in range(2, 10)]
+        ref = run_offline(node, x, engine=EngineConfig(window_size=hop,
+                                                        dtype="float64"),
+                          array_cfg=cfg, theta=th,
+                          params=load_launch_params(node), device="cpu")
+        assert np.isfinite(got.cpu().numpy()).all()
+        _assert_close_mod_flips(got, ref)
+        sess = StreamingSession(model)
+        chunks = [sess.process(x[:, f0 * hop:(f0 + 5) * hop], th[f0:f0 + 5])
+                  for f0 in range(0, t, 5)]
+        assert torch.equal(torch.cat(chunks)[:got.shape[0]], got)

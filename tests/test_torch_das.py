@@ -118,7 +118,8 @@ def test_das_float64_matches_oracle(timeline):
     t = x.shape[1] // HOP
     th = _timeline(t) if timeline else THETA
     _, teng = _engines("float64")
-    y = DasModel(teng, tgeom.ArrayGeometry.from_xy(AIRA3)).process(x, th)
+    y = DasModel(teng, tgeom.ArrayGeometry.from_xy(AIRA3),
+                 device="cpu").process(x, th)
     o = on.DasOracle(AIRA3, HOP, FS, float(np.atleast_1d(th)[0]))
     outs = []
     for k in range(t):
@@ -150,7 +151,7 @@ def test_constants_from_jax_equal_port_constants():
     for dtype in ("float32", "float64"):
         jeng, teng = _engines(dtype)
         jm = JDas(jeng, jgeom.ArrayGeometry.from_xy(AIRA3))
-        tm = DasModel(teng, tgeom.ArrayGeometry.from_xy(AIRA3))
+        tm = DasModel(teng, tgeom.ArrayGeometry.from_xy(AIRA3), device="cpu")
         for name, value in constants_from_jax(jm).items():
             got = getattr(tm, name)
             assert got.dtype == value.dtype
@@ -288,6 +289,24 @@ def test_cli_output_resampling_is_not_ported(tmp_path, capsys):
     assert "not ported" in capsys.readouterr().err
 
 
+def test_default_device_is_cuda_and_never_falls_back():
+    """get_model and the model classes build on the card unless the caller
+    asks for the CPU: without CUDA the default raises through torch and
+    never returns a model on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from beamform_tpu_torch.models import MODEL_REGISTRY
+    cfg = load_array_config(_cfg("aira3.yaml"))
+    for build in ([lambda: get_model("das", EngineConfig(), cfg)]
+                  + [lambda cls=cls: cls(EngineConfig(),
+                                         tgeom.ArrayGeometry.from_config(cfg))
+                     for cls in MODEL_REGISTRY.values()]):
+        with pytest.raises((AssertionError, RuntimeError)):
+            build()
+    assert get_model("das", EngineConfig(), cfg,
+                     device="cpu").device.type == "cpu"
+
+
 def test_cli_cuda_device_needs_cuda(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
@@ -308,6 +327,10 @@ def test_import_loads_no_jax():
             " beamform_tpu_torch.kernels.mega_stream,"
             " beamform_tpu_torch.kernels.gss_stream,"
             " beamform_tpu_torch.models.gss,"
+            " beamform_tpu_torch.kernels.phase_mask,"
+            " beamform_tpu_torch.models.phase,"
+            " beamform_tpu_torch.models.mcra,"
+            " beamform_tpu_torch.models.phasempf,"
             " beamform_tpu_torch.runtime.timeline, chip_smoke; "
             "assert 'jax' not in sys.modules, 'jax imported'; "
             "assert 'beamform_tpu' not in sys.modules")

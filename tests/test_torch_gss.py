@@ -106,7 +106,8 @@ def _models(xy, dtype, solver="scan", interf=(), capacity=None):
     """(port model, JAX model ``scan``) with the same parameters."""
     return (GssModel(_engine(dtype), tgeom.ArrayGeometry.from_xy(xy),
                      GssParams(**PARAMS, solver=solver),
-                     interference_angles=interf, capacity=capacity),
+                     interference_angles=interf, capacity=capacity,
+                     device="cpu"),
             JGss(_jengine(dtype), jgeom.ArrayGeometry.from_xy(xy),
                  jcfg.GssParams(**PARAMS, solver="scan"),
                  interference_angles=interf, capacity=capacity))
@@ -170,8 +171,9 @@ def test_gss_masked_capacity_equals_exact():
     t = x.shape[1] // HOP
     geom = tgeom.ArrayGeometry.from_xy(AIRA3)
     exact = GssModel(_engine("float64"), geom, GssParams(**PARAMS),
-                     interference_angles=(60.0,))
-    padded = GssModel(_engine("float64"), geom, GssParams(**PARAMS))
+                     interference_angles=(60.0,), device="cpu")
+    padded = GssModel(_engine("float64"), geom, GssParams(**PARAMS),
+                      device="cpu")
     y_masked = padded.process(
         x, THETA, interference=static_interference(t, [60.0], capacity=4))
     np.testing.assert_allclose(y_masked.numpy(),
@@ -261,30 +263,36 @@ def test_gss_strategy():
     for solver, want in (("auto", "scan"), ("scan", "scan"),
                          ("mega", "mega")):
         m = GssModel(_engine("float32"), geom, GssParams(**PARAMS,
-                                                         solver=solver))
+                                                         solver=solver),
+                     device="cpu")
         assert m._strategy(1) == want
     m = GssModel(_engine("float64"), geom, GssParams(**PARAMS,
-                                                     solver="mega"))
+                                                     solver="mega"),
+                 device="cpu")
     assert m._strategy(2) == "mega"
     dc = GssModel(_engine("float32"), geom,
-                  GssParams(**dict(PARAMS, freq_min=0.0), solver="mega"))
+                  GssParams(**dict(PARAMS, freq_min=0.0), solver="mega"),
+                  device="cpu")
     with pytest.raises(ValueError, match="capacity"):
         dc._strategy(1)
     with pytest.raises(ValueError, match="unknown"):
         GssModel(_engine("float32"), geom, GssParams(**PARAMS,
-                                                     solver="dense"))
+                                                     solver="dense"),
+                 device="cpu")
 
     class OnCuda(GssModel):
         device = torch.device("cuda")
 
-    assert OnCuda(_engine("float32"), geom, GssParams(**PARAMS))._strategy(
-        16) == "mega"
+    on_cuda = OnCuda(_engine("float32"), geom, GssParams(**PARAMS),
+                     device="cpu")
+    assert on_cuda._strategy(16) == "mega"
     for engine, params, match in (
             (_engine("float32"), dict(PARAMS, solver="scan"), "CPU only"),
             (_engine("float64"), PARAMS, "float32"),
             (_engine("float32"), dict(PARAMS, freq_min=0.0), "cannot take")):
         with pytest.raises(ValueError, match=match):
-            OnCuda(engine, geom, GssParams(**params))._strategy(1)
+            OnCuda(engine, geom, GssParams(**params),
+                   device="cpu")._strategy(1)
 
 
 def test_gss_params_match():
@@ -334,7 +342,7 @@ def test_gss_theta_change_resets_w():
     t = x.shape[1] // HOP
     geom = tgeom.ArrayGeometry.from_xy(AIRA3)
     model = GssModel(_engine("float64"), geom, GssParams(**PARAMS),
-                     interference_angles=(60.0,))
+                     interference_angles=(60.0,), device="cpu")
     th = np.full(t, 10.0)
     th[t // 2:] = -30.0
     y, state = model.process_chunk(torch.as_tensor(x[:, :t * HOP]), th,
@@ -343,7 +351,7 @@ def test_gss_theta_change_resets_w():
     for solver in ("scan", "mega"):
         fresh = GssModel(_engine("float64"), geom,
                          GssParams(**PARAMS, solver=solver),
-                         interference_angles=(60.0,))
+                         interference_angles=(60.0,), device="cpu")
         st = fresh.stream_init()
         st = (st[0]._replace(tail=torch.as_tensor(
             x[:, (t // 2 - 1) * HOP:(t // 2) * HOP])), st[1], st[2])
@@ -370,7 +378,7 @@ def test_gss_inactive_slots_stay_zero(solver):
     for cap in (3, 15):
         tl, _ = _timelines(t, events[:1], capacity=cap)
         model = GssModel(_engine("float64"), tgeom.ArrayGeometry.from_xy(XY4),
-                         GssParams(**PARAMS, solver=solver))
+                         GssParams(**PARAMS, solver=solver), device="cpu")
         y, st = model.process_chunk(torch.as_tensor(x[:, :t * HOP]), THETA,
                                     model.stream_init(capacity=cap),
                                     interference=tl)
@@ -388,7 +396,8 @@ def test_gss_control_holds_conjugated_values():
     kernel's tensor check refuses such a view."""
     from beamform_tpu_torch.kernels._build import check_tensor
     model = GssModel(_engine("float32"), tgeom.ArrayGeometry.from_xy(XY4),
-                     GssParams(**PARAMS), interference_angles=(60.0,))
+                     GssParams(**PARAMS), interference_angles=(60.0,),
+                     device="cpu")
     (ah, _, _, _), _, _ = model._interf_ctrl(THETA, 4)
     assert not ah.is_conj()
     cpu = torch.device("cpu")
@@ -407,7 +416,8 @@ def test_gss_active_bits_come_with_the_cached_control():
     x = (0.1 * rng.standard_normal((4, t * HOP))).astype(np.float32)
     tl, _ = _timelines(t, [(2, 2, 60.0)], capacity=15)
     model = GssModel(_engine("float32"), tgeom.ArrayGeometry.from_xy(XY4),
-                     GssParams(**PARAMS, solver="mega"), capacity=15)
+                     GssParams(**PARAMS, solver="mega"), capacity=15,
+                     device="cpu")
     ctrl, idx, reset = model._interf_ctrl(THETA, t, tl)
     ah, act, _, bits = ctrl
     assert bits.dtype == torch.int32 and bits.shape == (ah.shape[0],)
@@ -437,7 +447,8 @@ def test_gss_chunked_equals_offline(solver):
     th = np.full(t, THETA)
     th[t // 2 + 1:] = -10.0
     model = GssModel(_engine("float64"), tgeom.ArrayGeometry.from_xy(XY4),
-                     GssParams(**PARAMS, solver=solver), capacity=3)
+                     GssParams(**PARAMS, solver=solver), capacity=3,
+                     device="cpu")
     offline = model.process(x, th, interference=tl).numpy()
     sess = StreamingSession(model)
     outs = []

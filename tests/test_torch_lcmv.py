@@ -136,7 +136,7 @@ def test_lcmv_float64_matches_oracle(solver, scene):
         ref = np.concatenate(outs)
     model = LcmvModel(_engine("float64"), tgeom.ArrayGeometry.from_xy(xy),
                       LcmvParams(**params, solver=solver),
-                      interference_angles=interf)
+                      interference_angles=interf, device="cpu")
     y = model.process(x, THETA, interference=tl).numpy()
     assert np.isfinite(y).all()
     np.testing.assert_allclose(y, ref, rtol=0, atol=1e-7)
@@ -152,8 +152,8 @@ def test_lcmv_masked_capacity_equals_exact(solver):
     p = LcmvParams(**dict(PARAMS, past_windows=4), solver=solver)
     geom = tgeom.ArrayGeometry.from_xy(AIRA3)
     exact = LcmvModel(_engine("float64"), geom, p,
-                      interference_angles=(60.0,))
-    padded = LcmvModel(_engine("float64"), geom, p)
+                      interference_angles=(60.0,), device="cpu")
+    padded = LcmvModel(_engine("float64"), geom, p, device="cpu")
     y_masked = padded.process(
         x, THETA, interference=static_interference(t, [60.0], capacity=5))
     np.testing.assert_allclose(y_masked.numpy(),
@@ -168,9 +168,11 @@ def test_lcmv_one_constraint_equals_mvdr():
     geom = tgeom.ArrayGeometry.from_xy(AIRA3)
     for solver in ("dense", "stream"):
         y_l = LcmvModel(_engine("float64"), geom,
-                        LcmvParams(**PARAMS, solver=solver)).process(x, THETA)
+                        LcmvParams(**PARAMS, solver=solver),
+                        device="cpu").process(x, THETA)
         y_m = MvdrModel(_engine("float64"), geom,
-                        MvdrParams(**PARAMS, solver=solver)).process(x, THETA)
+                        MvdrParams(**PARAMS, solver=solver),
+                        device="cpu").process(x, THETA)
         np.testing.assert_allclose(y_l.numpy(), y_m.numpy(), rtol=0,
                                    atol=1e-9)
 
@@ -325,7 +327,7 @@ def test_lcmv_chunked_equals_offline(solver):
     tl = _timeline(t, events, capacity=15)
     model = LcmvModel(_engine("float64"), tgeom.ArrayGeometry.from_xy(XY4),
                       LcmvParams(**dict(PARAMS, past_windows=5),
-                                 solver=solver))
+                                 solver=solver), device="cpu")
     offline = model.process(x, THETA, interference=tl).numpy()
     sess = StreamingSession(model)
     outs = []
@@ -352,7 +354,7 @@ def test_lcmv_checkpoints_move_between_packages(direction, tmp_path):
     jmodel = JLcmv(JEngine(sample_rate=FS, window_size=HOP, dtype="float64"),
                    jgeom.ArrayGeometry.from_xy(XY4), JLcmvParams(**p))
     tmodel = LcmvModel(_engine("float64"), tgeom.ArrayGeometry.from_xy(XY4),
-                       LcmvParams(**p))
+                       LcmvParams(**p), device="cpu")
     full = np.asarray(jmodel.process(x, THETA, interference=tl_j))
 
     def rows(timeline, a, b):
@@ -503,6 +505,6 @@ def test_solver_policy_with_slots():
                                       nfft=2048) == "mega"
     model = LcmvModel(_engine("float32"), tgeom.ArrayGeometry.from_xy(AIRA3),
                       LcmvParams(**dict(PARAMS, freq_max=24000.0),
-                                 solver="mega"))
+                                 solver="mega"), device="cpu")
     with pytest.raises(ValueError, match="Nyquist"):
         model.process(np.zeros((3, 4 * HOP), np.float32), THETA)

@@ -176,7 +176,7 @@ def test_mega_float64_matches_oracle(scene):
         t = x.shape[1] // HOP
         th = _timeline(t) if scene == "mvdr_timeline" else THETA
         model = MvdrModel(_engine("float64"), tgeom.ArrayGeometry.from_xy(
-            AIRA3), MvdrParams(**PARAMS, solver="mega"))
+            AIRA3), MvdrParams(**PARAMS, solver="mega"), device="cpu")
         y = model.process(x, th).numpy()
         o = on.MvdrOracle(AIRA3, HOP, FS, float(np.atleast_1d(th)[0]),
                           **PARAMS)
@@ -192,7 +192,7 @@ def test_mega_float64_matches_oracle(scene):
         interf = (60.0, -75.0)
         model = LcmvModel(_engine("float64"), tgeom.ArrayGeometry.from_xy(
             AIRA3), LcmvParams(**PARAMS, solver="mega"),
-            interference_angles=interf)
+            interference_angles=interf, device="cpu")
         y = model.process(x, THETA).numpy()
         ref = run_oracle(on.LcmvOracle(AIRA3, HOP, FS, THETA,
                                        interference_angles=interf, **PARAMS),
@@ -202,7 +202,7 @@ def test_mega_float64_matches_oracle(scene):
         t = x.shape[1] // HOP
         params = dict(PARAMS, past_windows=5)
         model = LcmvModel(_engine("float64"), tgeom.ArrayGeometry.from_xy(
-            XY4), LcmvParams(**params, solver="mega"))
+            XY4), LcmvParams(**params, solver="mega"), device="cpu")
         y = model.process(x, THETA,
                           interference=_events_timeline(t, events)).numpy()
         o = on.LcmvOracle(XY4, HOP, FS, THETA, interference_angles=(),
@@ -224,9 +224,11 @@ def test_mega_lcmv_one_slot_equals_mvdr():
                    quiet_hops=8)
     geom = tgeom.ArrayGeometry.from_xy(AIRA3)
     y_l = LcmvModel(_engine("float64"), geom,
-                    LcmvParams(**PARAMS, solver="mega")).process(x, THETA)
+                    LcmvParams(**PARAMS, solver="mega"),
+                    device="cpu").process(x, THETA)
     y_m = MvdrModel(_engine("float64"), geom,
-                    MvdrParams(**PARAMS, solver="mega")).process(x, THETA)
+                    MvdrParams(**PARAMS, solver="mega"),
+                    device="cpu").process(x, THETA)
     np.testing.assert_allclose(y_l.numpy(), y_m.numpy(), rtol=0, atol=1e-9)
 
 
@@ -247,13 +249,13 @@ def test_mega_float32_matches_jax_model(node):
     if node == "mvdr":
         jm = JMvdr(jeng, jgeo, JMvdrParams(**PARAMS, solver="mega"))
         tm = MvdrModel(_engine("float32"), geo,
-                       MvdrParams(**PARAMS, solver="mega"))
+                       MvdrParams(**PARAMS, solver="mega"), device="cpu")
     else:
         jm = JLcmv(jeng, jgeo, JLcmvParams(**PARAMS, solver="mega"),
                    interference_angles=(60.0,))
         tm = LcmvModel(_engine("float32"), geo,
                        LcmvParams(**PARAMS, solver="mega"),
-                       interference_angles=(60.0,))
+                       interference_angles=(60.0,), device="cpu")
     np.testing.assert_array_equal(tm.ib.numpy(), jm.ib)
     ref = np.asarray(jm.process(x, th))
     got = tm.process(x, th)
@@ -273,10 +275,12 @@ def test_mega_chunked_equals_offline(node):
     params = dict(PARAMS, past_windows=5, solver="mega")
     geom = tgeom.ArrayGeometry.from_xy(XY4)
     if node == "mvdr":
-        model, tl, th = MvdrModel(_engine("float64"), geom,
-                                  MvdrParams(**params)), None, _timeline(t)
+        model = MvdrModel(_engine("float64"), geom, MvdrParams(**params),
+                          device="cpu")
+        tl, th = None, _timeline(t)
     else:
-        model = LcmvModel(_engine("float64"), geom, LcmvParams(**params))
+        model = LcmvModel(_engine("float64"), geom, LcmvParams(**params),
+                          device="cpu")
         tl, th = _events_timeline(t, events, capacity=15), THETA
     kw = {} if tl is None else dict(interference=tl)
     offline = model.process(x, th, **kw).numpy()
@@ -307,7 +311,7 @@ def test_mega_checkpoints_move_between_packages(direction, tmp_path):
     jmodel = JLcmv(JEngine(sample_rate=FS, window_size=HOP, dtype="float64"),
                    jgeom.ArrayGeometry.from_xy(XY4), JLcmvParams(**p))
     tmodel = LcmvModel(_engine("float64"), tgeom.ArrayGeometry.from_xy(XY4),
-                       LcmvParams(**p, solver="mega"))
+                       LcmvParams(**p, solver="mega"), device="cpu")
     full = np.asarray(jmodel.process(x, THETA, interference=tl_j))
 
     def rows(timeline, a, b):

@@ -111,7 +111,7 @@ def test_mvdr_float64_matches_oracle(solver, timeline):
     th = _timeline(t) if timeline else THETA
     _, teng = _engines("float64")
     model = MvdrModel(teng, tgeom.ArrayGeometry.from_xy(AIRA3),
-                      MvdrParams(**PARAMS, solver=solver))
+                      MvdrParams(**PARAMS, solver=solver), device="cpu")
     y = model.process(x, th).numpy()
     o = on.MvdrOracle(AIRA3, HOP, FS, float(np.atleast_1d(th)[0]), **PARAMS)
     outs = []
@@ -129,7 +129,8 @@ def test_mvdr_float64_aira16_dense_equals_stream_and_oracle():
     x = _scene(xy, seconds=0.2, seed=3)
     _, teng = _engines("float64")
     ys = [MvdrModel(teng, tgeom.ArrayGeometry.from_xy(xy),
-                    MvdrParams(**PARAMS, solver=s)).process(x, THETA).numpy()
+                    MvdrParams(**PARAMS, solver=s),
+                    device="cpu").process(x, THETA).numpy()
           for s in ("dense", "stream")]
     ref = run_oracle(on.MvdrOracle(xy, HOP, FS, THETA, **PARAMS), x, HOP)
     for y in ys:
