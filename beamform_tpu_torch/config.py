@@ -13,9 +13,9 @@ reference semantics as the JAX package:
 * interference slots ``angle_interf1..`` are parsed until a value with
   ``abs(angle) > 180`` (sentinel 181.0) is found (``util.h:94-113``).
 
-Only the ported nodes (``das``, ``mvdr``, ``lcmv``, ``gss``, ``phase``,
-``mcra``, ``phasempf``) have parameter classes so far; the other nodes'
-classes arrive with their models (ROADMAP.md §1).
+Only the ported nodes (``das``, ``mvdr``, ``lcmv``, ``gss``, ``gsc``,
+``phase``, ``mcra``, ``phasempf``) have parameter classes so far; the
+other nodes' classes arrive with their models (ROADMAP.md §1).
 """
 
 from __future__ import annotations
@@ -209,6 +209,31 @@ class GssParams:
 
 
 @dataclass(frozen=True)
+class GscParams:
+    """gsc.cpp:206-258 defaults."""
+
+    use_vad: bool = False
+    vad_threshold: float = 0.1
+    mu0: float = 0.0005
+    mu_max: float = 0.01
+    filter_size: int = 128
+    write_mu: bool = False
+    # adaptive-stage strategy (models/gsc.py GscModel._strategy): "sample",
+    # the faithful per-sample recurrence (the CUDA kernel of
+    # kernels/gsc.py on a CUDA float32 engine with 128 taps, its plain
+    # version on the CPU); "xmu", the same recurrence with the input-only
+    # mu terms (block powers, q-branch steps) computed outside the kernel;
+    # "blocklms", the NON-faithful block LMS of kernels/gsc_blocklms.py
+    # (filters frozen for block_samples, updates land at block ends);
+    # "block", the JAX package's lookahead-8 kernel, which runs the
+    # per-sample recurrence on the CPU and is not ported to CUDA yet
+    solver: str = "sample"
+    # blocklms only: samples the filter bank stays frozen for (128, 256,
+    # 512 or 1024)
+    block_samples: int = 128
+
+
+@dataclass(frozen=True)
 class PhaseParams:
     """phase.cpp:165-191 defaults.
 
@@ -269,10 +294,10 @@ class PhasempfParams:
 
 
 PARAM_CLASSES = {"das": DasParams, "mvdr": MvdrParams, "lcmv": LcmvParams,
-                 "gss": GssParams, "phase": PhaseParams, "mcra": McraParams,
-                 "phasempf": PhasempfParams}
+                 "gss": GssParams, "gsc": GscParams, "phase": PhaseParams,
+                 "mcra": McraParams, "phasempf": PhasempfParams}
 # implementation knobs are not reference parameters: no warn-and-default
-_IMPL_KNOBS = {"solver", "spectra_bf16"}
+_IMPL_KNOBS = {"solver", "spectra_bf16", "block_samples"}
 
 
 def load_launch_params(node: str, path: Optional[str] = None
@@ -311,6 +336,8 @@ def make_params(model: str, overrides: Optional[Dict[str, Any]] = None):
     obj = cls(**kw)
     for f in dataclasses.fields(cls):
         if f.name in _IMPL_KNOBS:
+            if f.name in kw:
+                log.debug("%s/%s (impl knob): %s", model, f.name, kw[f.name])
             continue
         if f.name in kw:
             log.info("%s/%s: %s", model, f.name, kw[f.name])

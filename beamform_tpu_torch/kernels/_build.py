@@ -139,6 +139,10 @@ def _declare(lib):
     lib.bf_mpf_march.restype = i
     lib.bf_mcra_march.argtypes = [p] * 6 + [i] * 2 + [fp, i, p]
     lib.bf_mcra_march.restype = i
+    lib.bf_gsc_sample.argtypes = [p] * 10 + [i] * 5 + [fp, p]
+    lib.bf_gsc_sample.restype = i
+    lib.bf_gsc_blocklms.argtypes = [p] * 8 + [i] * 5 + [fp, p]
+    lib.bf_gsc_blocklms.restype = i
 
 
 def check(lib, code: int, what: str):

@@ -1,5 +1,5 @@
-"""Model registry. ``das``, ``mvdr``, ``lcmv``, ``gss``, ``phase``,
-``mcra`` and ``phasempf`` are ported so far; the other nodes of
+"""Model registry. ``das``, ``mvdr``, ``lcmv``, ``gss``, ``gsc``,
+``phase``, ``mcra`` and ``phasempf`` are ported so far; the other nodes of
 ``beamform_tpu.models`` follow in the order of ROADMAP.md §1."""
 
 from __future__ import annotations
@@ -9,6 +9,7 @@ from typing import Any, Dict, Optional
 from beamform_tpu_torch.config import ArrayConfig, EngineConfig, make_params
 from beamform_tpu_torch.geometry import ArrayGeometry
 from beamform_tpu_torch.models.das import DasModel
+from beamform_tpu_torch.models.gsc import GscModel
 from beamform_tpu_torch.models.gss import GssModel
 from beamform_tpu_torch.models.lcmv import LcmvModel
 from beamform_tpu_torch.models.mcra import McraModel
@@ -18,7 +19,8 @@ from beamform_tpu_torch.models.phasempf import PhasempfModel
 
 MODEL_REGISTRY: Dict[str, Any] = {"das": DasModel, "mvdr": MvdrModel,
                                   "lcmv": LcmvModel, "gss": GssModel,
-                                  "phase": PhaseModel, "mcra": McraModel,
+                                  "gsc": GscModel, "phase": PhaseModel,
+                                  "mcra": McraModel,
                                   "phasempf": PhasempfModel}
 
 

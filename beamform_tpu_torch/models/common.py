@@ -94,10 +94,13 @@ class WolaCarry(NamedTuple):
 
 
 def wola_carry_init(engine: EngineConfig, num_mics: int, rdtype,
-                    device=None) -> WolaCarry:
+                    device=None, per_mic_out: bool = False) -> WolaCarry:
+    """Zero carries; ``per_mic_out`` keeps one synthesis carry per mic,
+    ``out_prev`` (M, hop), for the per-mic resynthesis (GSC)."""
     h = engine.hop
+    out_shape = (num_mics, h) if per_mic_out else (h,)
     return WolaCarry(torch.zeros((num_mics, h), dtype=rdtype, device=device),
-                     torch.zeros((h,), dtype=rdtype, device=device))
+                     torch.zeros(out_shape, dtype=rdtype, device=device))
 
 
 def _require_kernel_layout(engine: EngineConfig):
@@ -136,11 +139,19 @@ def istft_ext_carry(y_ext: torch.Tensor, engine: EngineConfig,
                     window: torch.Tensor, out_prev: torch.Tensor):
     """Streaming synthesis: (T, NB) + out_prev (hop,) -> ((T*hop,) stream,
     new_out_prev). CUDA tensors go through the fused kernel."""
+    out, prev = istft_channels_carry(y_ext[None], engine, window,
+                                     out_prev[None])
+    return out[0], prev[0]
+
+
+def istft_channels_carry(y_ext: torch.Tensor, engine: EngineConfig,
+                         window: torch.Tensor, out_prev: torch.Tensor):
+    """Per-channel streaming synthesis: (C, T, NB) + out_prev (C, hop) ->
+    ((C, T*hop) streams, new out_prev (C, hop)). CUDA tensors go through
+    the fused kernel, all channels in one launch."""
     if y_ext.is_cuda:
         _require_kernel_layout(engine)
-        out, prev = wola_synthesis(y_ext.contiguous()[None],
-                                   out_prev.contiguous()[None])
-        return out[0], prev[0]
+        return wola_synthesis(y_ext.contiguous(), out_prev.contiguous())
     p = synth_frames_ext(y_ext, engine) * window
     return overlap_add_carry(p, engine.hop, out_prev)
 

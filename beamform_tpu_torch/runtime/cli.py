@@ -1,12 +1,16 @@
 """Command-line interface of the port: ``beamform-tpu-torch
-{das,mvdr,lcmv,gss,phase,mcra,phasempf}``.
+{das,mvdr,lcmv,gss,gsc,phase,mcra,phasempf}``.
 
 Counterpart of ``beamform_tpu/runtime/cli.py`` for the ported slice: the
 offline and ``--stream`` paths of the ``das``, ``mvdr``, ``lcmv``, ``gss``,
-``phase``, ``mcra`` and ``phasempf`` nodes, WAV in and WAV out, with an xRT
-(audio-seconds per wall-second) report; ``mcra`` has no steering and
-ignores ``--theta``. Node parameters start from the reference's launch
-preset and take ``--param KEY=VALUE`` overrides, as in the JAX CLI. The
+``gsc``, ``phase``, ``mcra`` and ``phasempf`` nodes, WAV in and WAV out,
+with an xRT (audio-seconds per wall-second) report; ``mcra`` has no
+steering and ignores ``--theta``. Node parameters start from the
+reference's launch preset and take ``--param KEY=VALUE`` overrides, as in
+the JAX CLI, which prints the reference's line for each parameter at
+``--log-level`` (warn-and-default lines at the default ``warning``). The
+``gsc`` preset writes the reference's mu trace, to ``--mu-file`` (default
+``~/mu_behavior.txt``, the reference's file). The
 interference set of LCMV and GSS follows ``--interference-events`` (a
 replayed /theta_interference message list) or, under ``--stream``,
 ``--interf-control`` (a polled file of messages); GSS sizes its demixing
@@ -20,6 +24,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import logging
 import sys
 import time
 
@@ -96,6 +101,13 @@ def build_parser():
                         "per-node parameters (configs/launch_params.yaml), "
                         "then apply --param overrides; 'off' starts from "
                         "the in-code node defaults instead (default: on)")
+    p.add_argument("--log-level", choices=("debug", "info", "warning",
+                                           "error"), default="warning",
+                   help="console log level (the reference's per-parameter "
+                        "INFO/WARN lines)")
+    p.add_argument("--mu-file", default=None, metavar="PATH",
+                   help="gsc with write_mu: the mu trace file (default "
+                        "~/mu_behavior.txt)")
     p.add_argument("--out-format", choices=("pcm16", "pcm24", "pcm32",
                                             "float32"), default="pcm16")
     p.add_argument("--report-json", action="store_true",
@@ -258,8 +270,28 @@ def _run_stream(model, x, theta, args, hop, interference=None,
     return np.concatenate(outs)[:x.shape[1] + (-x.shape[1]) % hop]
 
 
+def _attach_log_handler(level: str):
+    """Reference-style console logging on stderr, as the JAX CLI attaches
+    it to ``beamform_tpu``: ``make_params`` logs each node parameter on
+    ``beamform_tpu_torch.config`` (INFO when given, WARN with the default
+    when absent, mvdr.cpp:150-186). Scoped to the package's logger, and
+    idempotent across repeated in-process calls: a handler a previous call
+    attached is replaced."""
+    handler = logging.StreamHandler(sys.stderr)
+    handler.setFormatter(
+        logging.Formatter("[%(levelname)s] [%(name)s]: %(message)s"))
+    pkg_log = logging.getLogger("beamform_tpu_torch")
+    for h in [h for h in pkg_log.handlers
+              if isinstance(h, logging.StreamHandler)
+              and not isinstance(h, logging.NullHandler)]:
+        pkg_log.removeHandler(h)
+    pkg_log.addHandler(handler)
+    pkg_log.setLevel(getattr(logging, level.upper()))
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
+    _attach_log_handler(args.log_level)
     missing = _not_ported(args)
     if missing:
         print(f"error: {missing} is not ported to beamform_tpu_torch yet "
@@ -303,6 +335,8 @@ def main(argv=None) -> int:
 
     params = _node_params(args)
     model = get_model(args.node, engine, array_cfg, params, device=device)
+    if args.mu_file and hasattr(model, "mu_file_path"):
+        model.mu_file_path = args.mu_file
     thresh = float(params.get("interf_angle_threshold", 5.0))
     interference = interf_ctrl = None
     if args.interference_events:

@@ -6,10 +6,11 @@ Run from the root of a checkout, with no arguments:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from ``beamform_tpu_torch/csrc``, checks
-each of the ten kernels (WOLA analysis and synthesis, the MVDR and LCMV
-streaming solves, the Gauss-Jordan inverse, the fused MVDR/LCMV kernel, the
-fused GSS kernel, the phase mask, the MPF beams and march, and the MCRA
-march) against its plain-torch version at the main paths' shapes, with
+each of the thirteen kernels (WOLA analysis and synthesis, the MVDR and
+LCMV streaming solves, the Gauss-Jordan inverse, the fused MVDR/LCMV
+kernel, the fused GSS kernel, the phase mask, the MPF beams and march, the
+MCRA march, and GSC's per-sample, xmu and block-LMS adaptive stages)
+against its plain-torch version at the main paths' shapes, with
 its time beside its bound (the least time the card could take for the
 same work) and, where one PyTorch call computes the same function,
 that call's time. It drives the main paths at full width (16 mics of the
@@ -18,8 +19,10 @@ aira16 array, 48 kHz, 30 s, hop 1024) through ``run_offline``,
 reference's launch presets with the ``auto`` (streaming solve), ``dense``
 (Gauss-Jordan) and ``mega`` (fused) solvers, on noise and on a speech-like
 input, LCMV also with two static interferers and with an interference
-event timeline; the GSS node on the same scenes; and the phase, phasempf
-and mcra nodes on noise and on a steered source. It checks each output
+event timeline; the GSS node on the same scenes; the phase, phasempf and
+mcra nodes on noise and on a steered source; and the GSC node's
+``sample``, ``xmu``, ``blocklms`` and ``write_mu`` paths on noise and
+speech. It checks each output
 against the float64 CPU path, counts each path's own kernel launches, and
 measures each path's xRT and device time per call (CUDA events). Each
 phase logs ``phase <name>: start`` and ``phase <name>: ok`` and raises on
@@ -34,6 +37,7 @@ The last two lines of standard output are one JSON object per kernel
 from __future__ import annotations
 
 import json
+import multiprocessing
 import os
 import subprocess
 import sys
@@ -94,15 +98,46 @@ FLIP_TIGHT, FLIP_FRAC, FLIP_CEIL = 5e-5, 1e-3, 5e-2
 # under the launch presets (its float32 path on the CPU is the batched
 # formulation; measured on an x86 CPU and printed by
 # tests/test_torch_phase.py, test_torch_phasempf.py and test_torch_mcra.py,
-# test_*_float32_error_is_the_jax_packages). A node's float32 output on the
-# card is held to F64_FACTOR times it, or to the flip contract against the
+# test_*_float32_error_is_the_jax_packages; GSC's, its mu trace's too, on
+# the first GSC_REF_HOPS hops of the 30 s noise and speech inputs, printed
+# by tests/test_torch_gsc.py). A node's float32 output on the card is held
+# to F64_FACTOR times it, or to the flip contract (GSC: 1e-3) against the
 # float64 CPU path, whichever is looser.
-JAX_F32_DEV = {("phase", "noise"): 3.391656192182346e-08,
+JAX_F32_DEV = {("gsc sample", "noise"): 4.319052691048597e-07,
+               ("gsc sample", "speech"): 5.778214488827427e-07,
+               ("gsc blocklms128", "noise"): 4.210896216716442e-07,
+               ("gsc blocklms128", "speech"): 3.2633158316211497e-07,
+               ("gsc blocklms512", "noise"): 4.214430540452896e-07,
+               ("gsc blocklms512", "speech"): 3.239743388630534e-07,
+               ("gsc mu trace", "noise"): 3.792054392526411e-05,
+               ("gsc mu trace", "speech"): 0.001019976902577537,
+               ("phase", "noise"): 3.391656192182346e-08,
                ("phase", "source"): 2.038878882615336e-06,
                ("phasempf", "noise"): 4.8331931596572e-11,
                ("phasempf", "source"): 5.040598329841828e-06,
                ("mcra", "noise"): 4.082204300426273e-07,
                ("mcra", "source"): 1.65012677477705e-05}
+# the write_mu trace against the float64 CPU trace: each line's relative
+# deviation (mu_trace_dev) within this, or within F64_FACTOR times the JAX
+# package's own float32 error on the same lines, whichever is looser (the
+# lead-in's lines divide by powers near float32's resolution)
+MU_TRACE_TOL = 1e-3
+# GSC's per-sample paths are held to the float64 CPU recurrence over their
+# first GSC_REF_HOPS hops (98,304 samples): the chain is causal, so that
+# prefix is the same computation, and the float64 loop over all 30 s would
+# take minutes
+GSC_REF_HOPS = 96
+# the GSC kernels against their plain versions: two streams of this many
+# hops (the plain per-sample loop takes ~0.1 ms a sample on the card), with
+# the VAD gate at GSC_VAD, where it holds the filters over part of the
+# noise and speech inputs (their outputs' power is ~0.025 past the
+# lead-in)
+GSC_CHECK_HOPS = 48
+GSC_VAD = 0.025
+# worker processes for the GSC float64 CPU references, which run beside the
+# card's phases (the per-sample recurrence's loop is serial: the six took
+# 72 s one after the other on the H100's host)
+REF_WORKERS = 3
 # operations counted for one float32 atan2 (the JAX package's atan2f: two
 # abs, max, min, the fold test, one division, the degree-4 odd polynomial
 # and the octant and quadrant selects)
@@ -264,9 +299,9 @@ def engine(dtype="float32"):
 def counters():
     """Every kernel wrapper of the port, by the name the kernels line
     uses."""
-    from beamform_tpu_torch.kernels import (gss_stream, lcmv_stream, linalg,
-                                            mega_stream, mvdr_stream,
-                                            phase_mask, wola)
+    from beamform_tpu_torch.kernels import (gsc, gsc_blocklms, gss_stream,
+                                            lcmv_stream, linalg, mega_stream,
+                                            mvdr_stream, phase_mask, wola)
     return {"wola_analysis": wola.wola_analysis,
             "wola_synthesis": wola.wola_synthesis,
             "mvdr_stream": mvdr_stream.mvdr_stream,
@@ -276,7 +311,10 @@ def counters():
             "gss_stream": gss_stream.gss_mega,
             "phase_mask": phase_mask.phase_mask,
             "mpf_march": phase_mask.mpf_march,
-            "mcra_march": phase_mask.mcra_march}
+            "mcra_march": phase_mask.mcra_march,
+            "gsc_sample": gsc.gsc_sample,
+            "gsc_xmu": gsc.gsc_xmu,
+            "gsc_blocklms": gsc_blocklms.gsc_blocklms}
 
 
 def reset_launches():
@@ -571,12 +609,14 @@ def phase_cli(x: np.ndarray, tmp: str, node: str = "das", params=None,
 
 
 def phase_xrt(x: np.ndarray, card: str, node: str = "das", params=None,
-              label: str = "noise", interference=()):
-    """xRT of a node's path after warm-up, each run synchronised: with the
-    input already on the card (model.process) and end to end from host
-    numpy to host numpy (run_offline); the device time of one call by CUDA
-    events; then a torch.profiler breakdown of one device-resident call.
-    Returns the device time per call in ms."""
+              label: str = "noise", interference=(), reps: int = 10,
+              warmups: int = 3):
+    """xRT of a node's path after ``warmups`` calls, median of ``reps``
+    runs, each synchronised: with the input already on the card
+    (model.process) and end to end from host numpy to host numpy
+    (run_offline); the device time of one call by CUDA events; then a
+    torch.profiler breakdown of one device-resident call. Returns the
+    device time per call in ms."""
     import torch
     from beamform_tpu_torch import run_offline
     from beamform_tpu_torch.models import get_model
@@ -595,10 +635,10 @@ def phase_xrt(x: np.ndarray, card: str, node: str = "das", params=None,
 
     for name, fn in (("device-resident", on_device),
                      ("host-to-host run_offline", host_to_host)):
-        for _ in range(3):
+        for _ in range(warmups):
             fn()
         walls = []
-        for _ in range(10):
+        for _ in range(reps):
             t0 = time.perf_counter()
             fn()
             torch.cuda.synchronize()
@@ -606,14 +646,14 @@ def phase_xrt(x: np.ndarray, card: str, node: str = "das", params=None,
         med = float(np.median(walls))
         log(f"{node} xRT ({name}, {label}, 16 ch, 48 kHz, {seconds:g} s): "
             f"{seconds / med:.1f}x real time (median {med * 1e3:.3f} ms of "
-            f"10, min {min(walls) * 1e3:.3f}, max {max(walls) * 1e3:.3f}) "
-            f"on {card}")
+            f"{reps}, min {min(walls) * 1e3:.3f}, max "
+            f"{max(walls) * 1e3:.3f}) on {card}")
 
     # the device time of one call: CUDA events around the device-resident
-    # call, median of 10; the profiler below only breaks it down
-    event_ms = cuda_ms(lambda: model.process(xd, THETA), reps=10)
+    # call; the profiler below only breaks it down
+    event_ms = cuda_ms(lambda: model.process(xd, THETA), reps=reps)
     log(f"{node} device time per call ({label}, CUDA events, median of "
-        f"10): {event_ms:.3f} ms on {card}")
+        f"{reps}): {event_ms:.3f} ms on {card}")
 
     # one warm-up call inside the profiler before the recorded one: without
     # it the trace lost most of a call's kernels in some profiles
@@ -1115,7 +1155,9 @@ def phase_gss_kernels(x: np.ndarray) -> dict:
 FUSED_EXPECT = {k: 0 for k in ("wola_analysis", "wola_synthesis",
                                "mvdr_stream", "gj_inverse", "lcmv_stream",
                                "mega_stream", "gss_stream", "phase_mask",
-                               "mpf_march", "mcra_march")}
+                               "mpf_march", "mcra_march", "gsc_sample",
+                               "gsc_xmu", "gsc_blocklms")}
+GSC_EXPECT = FUSED_EXPECT
 
 
 def check_scene(label, y, ref, n_out, may_be_nonfinite, tol=DAS_ABS_TOL):
@@ -1437,6 +1479,303 @@ def phase_phase_node(node: str, x: np.ndarray, xsrc: np.ndarray) -> tuple:
     return outs["noise"], launches
 
 
+GSC_KERNEL = {"sample": "gsc_sample", "xmu": "gsc_xmu",
+              "blocklms": "gsc_blocklms", "write_mu": "gsc_sample"}
+
+
+def event_ms(fn):
+    """(fn(), its device time in ms by CUDA events): one call, for the
+    plain per-sample loops, too slow to repeat."""
+    import torch
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    out = fn()
+    b.record()
+    b.synchronize()
+    return out, a.elapsed_time(b)
+
+
+def gsc_aligned(sig: np.ndarray):
+    """Stage 1 of the gsc path on the card: the (16, S) phase-aligned
+    streams the adaptive stage takes, at THETA from a zero carry."""
+    import torch
+    from beamform_tpu_torch.models import common
+    model = gsc_model({})
+    xp = common.prepare_input(sig, engine(), torch.float32, DEVICE)
+    w_conj, w_idx = model._steering(THETA, xp.shape[1] // HOP)
+    aligned, _ = model.aligned_streams(xp, w_conj, w_idx,
+                                       model.stream_init()[0])
+    return aligned
+
+
+def gsc_zero(b: int, dtype=None):
+    import torch
+    dtype = dtype or torch.float32
+    return (torch.zeros((b, 15, 128), dtype=dtype, device=DEVICE),
+            torch.zeros((b, 15, 128), dtype=dtype, device=DEVICE),
+            torch.zeros((b, 128), dtype=dtype, device=DEVICE))
+
+
+def gsc_bound(b: int, s: int, rows: int = 16) -> dict:
+    """The adaptive stage's least time for B streams of S samples: the
+    input rows (16 mics, or the xmu mode's 46 packed rows) read once, the
+    output and the state written once; 4 (M-1) K = 7,680 operations a
+    sample (the dot product and the update, a multiply and an add per
+    tap)."""
+    state = 4 * b * (2 * 15 * 128 + 128)
+    return bound(4 * b * rows * s + 4 * b * s + 2 * state,
+                 4.0 * 15 * 128 * b * s)
+
+
+def mu_trace_dev(got: np.ndarray, ref: np.ndarray) -> float:
+    """The largest relative deviation of a mu trace's lines from the
+    reference's, beyond the lines' 6-decimal resolution."""
+    err = np.maximum(np.abs(got - ref) - 1e-6, 0.0)
+    return float((err / np.maximum(np.abs(ref), 1e-12)).max())
+
+
+def check_gsc_kernel(label, got, ref, ref64, ms, plain_ms) -> float:
+    """Hold an adaptive-stage kernel's output to its plain float32 version
+    on the same card inputs: no further from the plain version in float64
+    than F64_FACTOR times the plain float32 version is. Logs the numbers;
+    returns the max abs error against plain."""
+    import torch
+    abs_err = float((got - ref).abs().max())
+    k64 = float((got.double() - ref64).abs().max())
+    p64 = float((ref.double() - ref64).abs().max())
+    log(f"kernel {label}: max_abs_err vs plain {abs_err:.3e} (peak "
+        f"{float(ref64.abs().max()):.3e}); vs float64 kernel {k64:.3e}, "
+        f"plain {p64:.3e} (bar {F64_FACTOR:g}x plain); {ms:.4f} ms vs plain "
+        f"torch {plain_ms:.4f} ms")
+    if not (k64 <= F64_FACTOR * p64 and torch.isfinite(got).all()):
+        raise AssertionError(f"{label}: vs float64 {k64}, plain {p64}")
+    return abs_err
+
+
+def gsc_model(over: dict, dtype: str = "float32", device=None):
+    """The GSC node under the launch preset without write_mu, with
+    ``over`` on top, on ``device`` (default DEVICE)."""
+    from beamform_tpu_torch.models import get_model
+    return get_model("gsc", engine(dtype), aira16(),
+                     preset("gsc", **dict(dict(write_mu=False), **over)),
+                     device=device or DEVICE)
+
+
+def gsc_reference(inp: str, path: str) -> tuple:
+    """A float64 CPU reference of the gsc phase, run in a worker process
+    beside the card's phases: ``"per-sample"`` the per-sample recurrence
+    (write_mu on) over the first GSC_REF_HOPS hops of the input, or
+    ``"blocklms<l>"`` block LMS at l over all of it. Returns (output, the
+    mu trace's lines or None)."""
+    import torch
+    torch.set_num_threads(2)
+    sig = {"noise": make_input, "speech": make_speech_input}[inp](16,
+                                                                  SECONDS)
+    if path == "per-sample":
+        sig, over = sig[:, :GSC_REF_HOPS * HOP], {"write_mu": True}
+    else:
+        over = {"solver": "blocklms", "block_samples": int(path[8:])}
+    model = gsc_model(over, "float64", "cpu")
+    with tempfile.TemporaryDirectory(prefix=".chip_smoke_", dir=ROOT) as tmp:
+        model.mu_file_path = os.path.join(tmp, "mu.txt")
+        y = model.process(sig, THETA).numpy()
+        trace = np.loadtxt(model.mu_file_path) if over.get("write_mu") \
+            else None
+    return y, trace
+
+
+def gsc_plain64(a: np.ndarray, over: dict) -> np.ndarray:
+    """The per-sample recurrence's plain version in float64 on the CPU from
+    a zero state, on (B, 16, S) aligned streams from the card: the
+    gsc_kernels phase's reference, run in a worker process."""
+    import torch
+    from beamform_tpu_torch.config import make_params
+    from beamform_tpu_torch.kernels import gsc as kg
+    torch.set_num_threads(2)
+    at = torch.as_tensor(a, dtype=torch.float64)
+    z = torch.zeros((at.shape[0], 15, 128), dtype=torch.float64)
+    return kg.gsc_sample_plain(at, z, z.clone(), z[:, 0].clone(),
+                               make_params("gsc", preset("gsc", **over)))[0]\
+        .numpy()
+
+
+def phase_gsc_kernels(x: np.ndarray, xs: np.ndarray, card: str,
+                      pool) -> dict:
+    """The GSC kernels against their plain versions on the card, on the
+    main path's operands: the aligned streams of the noise and speech
+    inputs (M = 16, K = 128), two streams of GSC_CHECK_HOPS hops from a
+    zero state, VAD off and on (its threshold GSC_VAD gates part of the
+    samples); the per-sample kernel with its mu trace and the xmu mode,
+    and block LMS at l = 128 and 512. The per-sample recurrence's float64
+    reference runs on the CPU in ``pool`` meanwhile. Then each kernel's
+    time by CUDA events at the main shape (one stream, 30 s), and the
+    per-sample and block-LMS kernels' aggregate rate at bench.py's batch
+    of 32 streams over 10 s. Returns the main shape's numbers per
+    kernel."""
+    import torch
+    from beamform_tpu_torch.config import make_params
+    from beamform_tpu_torch.kernels import gsc as kg
+    from beamform_tpu_torch.kernels import gsc_blocklms as kb
+    full = {"noise": gsc_aligned(x), "speech": gsc_aligned(xs)}
+    n = GSC_CHECK_HOPS * HOP
+    a2 = torch.stack([full["noise"][:, :n], full["speech"][:, :n]])
+    a2 = a2.contiguous()
+    overs = {v: dict(write_mu=False, use_vad=v, vad_threshold=GSC_VAD)
+             for v in (False, True)}
+    refs64 = {v: pool.apply_async(gsc_plain64, (a2.cpu().numpy(), over))
+              for v, over in overs.items()}
+    errs, plain_ms = {}, {}
+    for use_vad, over in overs.items():
+        p = make_params("gsc", preset("gsc", **over))
+        ref, p_ms = event_ms(lambda: kg.gsc_sample_plain(
+            a2, *gsc_zero(2), p, with_mu=True))
+        ref64 = [torch.as_tensor(refs64[use_vad].get(), device=a2.device)]
+        share = float(ref[4][1].float().mean())
+        for name, fn in (("gsc_sample", kg.gsc_sample),
+                         ("gsc_xmu", kg.gsc_xmu)):
+            got, ms = event_ms(lambda: fn(a2, *gsc_zero(2), p, with_mu=True))
+            err = check_gsc_kernel(
+                f"{name} B=2 M=16 S={n} vad={use_vad} (updates in "
+                f"{share:.3f} of samples)", got[0], ref[0], ref64[0], ms,
+                p_ms)
+            mu, mu_ref = got[4][0], ref[4][0]
+            off = float(((mu - mu_ref).abs()
+                         > 1e-3 * mu_ref.abs()).float().mean())
+            flips = float((got[4][1] != ref[4][1]).float().mean())
+            log(f"  mu trace vs plain: share off by more than 1e-3 "
+                f"relative {off:.2e}, update flags differing {flips:.2e}")
+            if not (off <= 1e-3 and flips <= 1e-3):
+                raise AssertionError(f"{name} trace: {off}, {flips}")
+            errs[name] = max(errs.get(name, 0.0), err)
+            plain_ms[name] = p_ms
+        for l in (128, 512):
+            pl = make_params("gsc", preset("gsc", solver="blocklms",
+                                           block_samples=l, **over))
+            ref, p_ms = event_ms(lambda: kb.gsc_blocklms_plain(
+                a2, *gsc_zero(2), pl))
+            ref64 = kb.gsc_blocklms_plain(a2.double(),
+                                          *gsc_zero(2, torch.float64), pl)
+            got, ms = event_ms(lambda: kb.gsc_blocklms(a2, *gsc_zero(2), pl))
+            err = check_gsc_kernel(f"gsc_blocklms l={l} B=2 M=16 S={n} "
+                                   f"vad={use_vad}", got[0], ref[0],
+                                   ref64[0], ms, p_ms)
+            errs["gsc_blocklms"] = max(errs.get("gsc_blocklms", 0.0), err)
+            if l == 128:
+                plain_ms["gsc_blocklms"] = p_ms
+        del ref64
+
+    # the main shape: one stream of 30 s, zero state, the launch preset
+    p = make_params("gsc", preset("gsc", write_mu=False))
+    pl = make_params("gsc", preset("gsc", write_mu=False, solver="blocklms"))
+    a1 = full["noise"][None].contiguous()
+    s = a1.shape[-1]
+    calls = (("gsc_sample", lambda: kg.gsc_sample(a1, *gsc_zero(1), p)),
+             ("gsc_xmu", lambda: kg.gsc_xmu(a1, *gsc_zero(1), p)),
+             ("gsc_blocklms", lambda: kb.gsc_blocklms(a1, *gsc_zero(1), pl)))
+    results = {}
+    for name, fn in calls:
+        ms = cuda_ms(fn, reps=3)
+        log(f"kernel {name} B=1 M=16 S={s} (30 s, noise): {ms:.4f} ms, "
+            f"{ms * 1e6 / s:.1f} ns per sample of the chain, "
+            f"{SECONDS / ms * 1e3:.1f}x real time on {card}; plain torch "
+            f"{plain_ms[name]:.4f} ms over B=2, {GSC_CHECK_HOPS} hops")
+        results[name] = dict(max_abs_err=errs[name], ms=ms,
+                             plain_ms=plain_ms[name],
+                             **gsc_bound(1, s, 46 if name == "gsc_xmu"
+                                         else 16), library_ms=None)
+    # the xmu mode's packing outside the kernel, apart
+    pk_ms = cuda_ms(lambda: kg.xmu_inputs(a1, gsc_zero(1)[0], p), reps=3)
+    log(f"  xmu_inputs (plain torch, outside the kernel): {pk_ms:.4f} ms")
+
+    # bench.py's gsc_batch32 shape: 32 streams of 10 s
+    n10 = int(10 * FS) // HOP * HOP
+    a32 = torch.stack([full["noise" if i % 2 else "speech"][
+        :, 1000 * i:1000 * i + n10] for i in range(32)]).contiguous()
+    batch32 = (("gsc_sample", lambda: kg.gsc_sample(a32, *gsc_zero(32), p)),
+               ("gsc_blocklms", lambda: kb.gsc_blocklms(a32, *gsc_zero(32),
+                                                        pl)))
+    for name, fn in batch32:
+        ms = cuda_ms(fn, reps=3)
+        log(f"kernel {name} B=32 M=16 S={n10} (10 s each): {ms:.4f} ms, "
+            f"aggregate {32 * n10 / FS / ms * 1e3:.1f} audio-s per s, "
+            f"{ms * 1e6 / n10:.1f} ns per sample of each chain on {card}")
+    return results
+
+
+def phase_gsc(x: np.ndarray, xs: np.ndarray, tmp: str, refs: dict) -> tuple:
+    """The GSC node through run_offline under the launch preset without
+    write_mu (bench.py's LAUNCH["gsc"]), for ``sample``, ``xmu``,
+    ``blocklms`` at l = 128 and 512, and with write_mu on (its trace under
+    ``tmp``), on noise and speech; each path's launches counted alone (one
+    analysis, one synthesis over the 16 mics, one adaptive-stage kernel).
+    Against the float64 CPU path (``refs``: {(input, path): the pending
+    gsc_reference}): the per-sample paths over their first GSC_REF_HOPS
+    hops (one float64 run per input serves the three, the trace too),
+    block LMS over the full 30 s. Returns (the sample path's output on
+    noise, {path: its launch counts})."""
+    t = -(-x.shape[1] // HOP)
+    paths = {"sample": {}, "xmu": {"solver": "xmu"},
+             "blocklms128": {"solver": "blocklms"},
+             "blocklms512": {"solver": "blocklms", "block_samples": 512},
+             "write_mu": {"write_mu": True}}
+    outs, launches, traces = {}, {}, {}
+    for inp, sig in (("noise", x), ("speech", xs)):
+        traces[inp] = os.path.join(tmp, f"mu_{inp}.txt")
+        for path, over in paths.items():
+            mdl = gsc_model(over)
+            mdl.mu_file_path = traces[inp]
+            reset_launches()
+            outs[(inp, path)] = mdl.process(sig, THETA).cpu().numpy()
+            got = read_launches()
+            want = dict(GSC_EXPECT, wola_analysis=1, wola_synthesis=1,
+                        **{GSC_KERNEL[path.rstrip("0123456789")]: 1})
+            log(f"gsc {path} main path launches ({inp}): {got}")
+            if got != want:
+                raise AssertionError(f"gsc {path} launches {got}, expected "
+                                     f"{want}")
+            launches.setdefault(path, got)
+    t0 = time.perf_counter()
+    refs = {key: job.get() for key, job in refs.items()}
+    log(f"gsc float64 CPU references (the per-sample recurrence over "
+        f"{GSC_REF_HOPS} hops, block LMS over 30 s; 2 inputs; worker "
+        f"processes since the kernel checks): waited "
+        f"{time.perf_counter() - t0:.1f} s for them")
+    for (inp, path), y in outs.items():
+        if y.shape != (t * HOP,) or not np.isfinite(y).all():
+            raise AssertionError(f"gsc {inp} {path}: shape {y.shape} / "
+                                 "non-finite output")
+        blocks = path.startswith("blocklms")
+        ref = refs[(inp, path if blocks else "per-sample")][0]
+        dev = float(np.abs(y[:len(ref)] - ref).max())
+        jax_dev = JAX_F32_DEV[("gsc " + (path if blocks else "sample"), inp)]
+        bar = max(DAS_ABS_TOL, F64_FACTOR * jax_dev)
+        log(f"gsc {inp} {path} {DEVICE} float32 vs cpu float64 "
+            f"({'30 s' if blocks else f'first {GSC_REF_HOPS} hops'}): max "
+            f"sample deviation {dev:.3e} (bar {bar:g}: the larger of "
+            f"{DAS_ABS_TOL:g} and {F64_FACTOR:g}x the JAX float32 error "
+            f"{jax_dev:.3e}; peak {np.abs(ref).max():.3e})")
+        if not dev <= bar:
+            raise AssertionError(f"gsc {inp} {path} deviation {dev}")
+    for inp in ("noise", "speech"):
+        got = np.loadtxt(traces[inp])
+        ref = refs[(inp, "per-sample")][1]
+        dev = mu_trace_dev(got[:len(ref)], ref)
+        abs_dev = float(np.abs(got[:len(ref)] - ref).max())
+        jax_dev = JAX_F32_DEV[("gsc mu trace", inp)]
+        bar = max(MU_TRACE_TOL, F64_FACTOR * jax_dev)
+        log(f"gsc {inp} mu trace: {len(got)} lines on the card; first "
+            f"{len(ref)} vs float64 CPU: max relative deviation {dev:.3e} "
+            f"beyond the 1e-6 resolution (bar {bar:.3e}: the larger of "
+            f"{MU_TRACE_TOL:g} and {F64_FACTOR:g}x the JAX float32 error "
+            f"{jax_dev:.3e}; max abs {abs_dev:.3e}, peak "
+            f"{float(np.abs(ref).max()):.3e})")
+        if len(got) != t or not dev <= bar:
+            raise AssertionError(f"gsc {inp} mu trace: {len(got)} lines, "
+                                 f"relative deviation {dev}")
+    return outs[("noise", "sample")], launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1449,8 +1788,17 @@ def main() -> int:
         f"python {sys.version.split()[0]}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-
     phase("build", phase_build)
+    # worker processes for GSC's float64 CPU references, idle until drive
+    # gives them work; leaving the block stops them
+    with multiprocessing.get_context("spawn").Pool(REF_WORKERS) as pool:
+        return drive(pool, card, t_start)
+
+
+def drive(pool, card: str, t_start: float) -> int:
+    """Every phase after the build in order, then the kernels line and the
+    result line."""
+    import torch
     x = make_input(16, SECONDS)
     xs = make_speech_input(16, SECONDS)
     xsrc = make_source_input(16, SECONDS)
@@ -1462,7 +1810,14 @@ def main() -> int:
             **phase("lcmv_kernels", phase_lcmv_kernels, x),
             **phase("mega_kernels", phase_mega_kernels, x),
             **phase("gss_kernels", phase_gss_kernels, x),
-            **phase("phase_kernels", phase_phase_kernels, x, xsrc)}
+            **phase("phase_kernels", phase_phase_kernels, x, xsrc),
+            **phase("gsc_kernels", phase_gsc_kernels, x, xs, card, pool)}
+    # the gsc phase's float64 CPU references run in the workers from here
+    # on, beside the node phases: not beside the kernel checks above,
+    # whose host launch overheads they would inflate
+    gsc_refs = {(inp, path): pool.apply_async(gsc_reference, (inp, path))
+                for path in ("per-sample", "blocklms128", "blocklms512")
+                for inp in ("noise", "speech")}
     y, das_launches = phase("das", phase_das, x)
     with tempfile.TemporaryDirectory(prefix=".chip_smoke_", dir=ROOT) as tmp:
         phase("das_streaming", phase_streaming, x, y, tmp)
@@ -1530,6 +1885,26 @@ def main() -> int:
             phase(f"{node}_cli", phase_cli, x, tmp, node, preset(node),
                   ["--stream", "64"], seconds=4.0)
         phase(f"{node}_xrt", phase_xrt, x, card, node, preset(node), "noise")
+    with tempfile.TemporaryDirectory(prefix=".chip_smoke_", dir=ROOT) as tmp:
+        y_gsc, gsc_launches = phase("gsc", phase_gsc, x, xs, tmp, gsc_refs)
+        gsc_preset = preset("gsc", write_mu=False)
+        phase("gsc_streaming", phase_streaming, x, y_gsc, tmp, "gsc",
+              gsc_preset, tol=0.0)
+        # the CLI runs the preset, write_mu on: its trace to --mu-file
+        mu_file = os.path.join(tmp, "cli_mu.txt")
+        phase("gsc_cli", phase_cli, x, tmp, "gsc", gsc_preset,
+              ["--stream", "64", "--mu-file", mu_file], seconds=4.0, tol=0.0)
+        with open(mu_file) as f:
+            lines = len(f.read().split())
+        log(f"gsc cli mu trace: {lines} lines (3 chunks of 64 hops)")
+        if lines != 192:
+            raise AssertionError(f"gsc cli mu trace {lines} lines")
+    # a GSC call takes ~0.3-0.6 s: fewer runs than the other nodes'
+    phase("gsc_xrt", phase_xrt, x, card, "gsc", gsc_preset, "noise, sample",
+          reps=3, warmups=1)
+    phase("gsc_xrt", phase_xrt, x, card, "gsc",
+          preset("gsc", write_mu=False, solver="blocklms"),
+          "noise, blocklms l=128", reps=3, warmups=1)
 
     launches = {"wola_analysis": das_launches["wola_analysis"],
                 "wola_synthesis": das_launches["wola_synthesis"],
@@ -1539,7 +1914,10 @@ def main() -> int:
                 "mega_stream": mega_launches["mega_stream"],
                 "gss_stream": gss_launches["gss_stream"],
                 **{k: node_launches[node][k]
-                   for node, k in PHASE_KERNEL.items()}}
+                   for node, k in PHASE_KERNEL.items()},
+                "gsc_sample": gsc_launches["sample"]["gsc_sample"],
+                "gsc_xmu": gsc_launches["xmu"]["gsc_xmu"],
+                "gsc_blocklms": gsc_launches["blocklms128"]["gsc_blocklms"]}
     csrc = "beamform_tpu_torch/csrc/"
     meta = {"wola_analysis": ("wola.cu",
                               "beamform_tpu/kernels/wola_pallas.py:120"),
@@ -1559,7 +1937,13 @@ def main() -> int:
             "mpf_march": ("phase_mask.cu",
                           "beamform_tpu/kernels/phase_mask.py:190"),
             # no Pallas kernel: the MCRA node's lax.scan
-            "mcra_march": ("phase_mask.cu", "beamform_tpu/models/mcra.py:124")}
+            "mcra_march": ("phase_mask.cu", "beamform_tpu/models/mcra.py:124"),
+            "gsc_sample": ("gsc_sample.cu",
+                           "beamform_tpu/kernels/gsc_pallas.py:37"),
+            "gsc_xmu": ("gsc_sample.cu",
+                        "beamform_tpu/kernels/gsc_pallas.py:193"),
+            "gsc_blocklms": ("gsc_blocklms.cu",
+                             "beamform_tpu/kernels/gsc_blocklms.py:135")}
     log(f"chip_smoke wall time {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": csrc + meta[k][0],

@@ -938,3 +938,222 @@ def test_phase_nodes_on_cuda_match_float64_cpu(cuda, node):
         chunks = [sess.process(x[:, f0 * hop:(f0 + 5) * hop], th[f0:f0 + 5])
                   for f0 in range(0, t, 5)]
         assert torch.equal(torch.cat(chunks)[:got.shape[0]], got)
+
+
+# ---------------------------------------------------------------------------
+# GSC: the per-sample kernel (and its xmu mode) and the block-LMS kernel
+# ---------------------------------------------------------------------------
+
+
+def _gsc_operands(b, m, s, seed, device, dtype=torch.float32):
+    """Aligned audio (B, M, S) and a carried state: registers and recent
+    outputs of the same scale as the audio, filters small and non-zero."""
+    rng = np.random.default_rng(seed)
+
+    def t(shape, scale):
+        return torch.as_tensor(scale * rng.standard_normal(shape),
+                               dtype=dtype, device=device)
+
+    return (t((b, m, s), 0.2), t((b, m - 1, 128), 0.2),
+            t((b, m - 1, 128), 0.01), t((b, 128), 0.1))
+
+
+def _gsc_params(**kw):
+    from beamform_tpu_torch.config import GscParams
+    return GscParams(**dict(dict(mu0=0.0005, mu_max=0.05, filter_size=128,
+                                 vad_threshold=0.05), **kw))
+
+
+def _dev64(got, ref64):
+    return float((got.double() - ref64.double()).abs().max())
+
+
+@pytest.mark.parametrize("m", [3, 4, 16])
+@pytest.mark.parametrize("use_vad", [False, True])
+@pytest.mark.parametrize("xmu", [False, True])
+def test_gsc_sample_kernel_matches_plain(cuda, m, use_vad, xmu):
+    """Rows 9 and 10 against the plain recurrence from a carried state,
+    two streams: the JAX package's kernel-vs-scan tolerance
+    (tests/test_gsc_pallas.py), and the kernel no further from float64
+    than twice the plain float32 version plus that tolerance."""
+    from beamform_tpu_torch.kernels import gsc as kg
+    ops = _gsc_operands(2, m, 1024, m + 7 * use_vad, cuda)
+    p = _gsc_params(use_vad=use_vad)
+    fn = kg.gsc_xmu if xmu else kg.gsc_sample
+    before = fn.launches
+    got = fn(*ops, p)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    ref = kg.gsc_sample_plain(*ops, p)
+    ref64 = kg.gsc_sample_plain(*(o.double() for o in ops), p)
+    for g, r in zip(got, ref):
+        assert g.shape == r.shape and torch.isfinite(g).all()
+        torch.testing.assert_close(g, r, atol=2e-5, rtol=1e-4)
+    assert torch.equal(got[1], ref[1])               # the registers
+    assert _dev64(got[0], ref64[0]) <= 2 * _dev64(ref[0], ref64[0]) + 2e-5
+
+
+def test_gsc_sample_kernel_chunks_equal_one_call(cuda):
+    """Fresh power sums and tiles at the same offsets: two calls of 512
+    samples give one call of 1024 bit for bit, trace included."""
+    from beamform_tpu_torch.kernels import gsc as kg
+    a, blk, flt, lo = _gsc_operands(3, 16, 1024, 5, cuda)
+    p = _gsc_params(use_vad=True, vad_threshold=0.05)
+    full = kg.gsc_sample(a, blk, flt, lo, p, with_mu=True)
+    one = kg.gsc_sample(a[..., :512].contiguous(), blk, flt, lo, p,
+                        with_mu=True)
+    two = kg.gsc_sample(a[..., 512:].contiguous(), *one[1:4], p,
+                        with_mu=True)
+    assert torch.equal(torch.cat([one[0], two[0]], -1), full[0])
+    for x, y in zip(two[1:4], full[1:4]):
+        assert torch.equal(x, y)
+    assert torch.equal(torch.cat([one[4][0], two[4][0]], -1), full[4][0])
+    assert torch.equal(torch.cat([one[4][1], two[4][1]], -1), full[4][1])
+
+
+@pytest.mark.parametrize("use_vad", [False, True])
+def test_gsc_sample_kernel_mu_trace(cuda, use_vad):
+    """The mu trace (channel 0's step, the update flag) against the plain
+    recurrence's; the VAD threshold gates about half the samples."""
+    from beamform_tpu_torch.kernels import gsc as kg
+    ops = _gsc_operands(1, 16, 1024, 3, cuda)
+    # the threshold at the median power of the ungated run's outputs
+    free = kg.gsc_sample_plain(*ops, _gsc_params())[0]
+    level = float(torch.sqrt(kg.window_sums(free * free, 128) / 128).median())
+    p = _gsc_params(use_vad=use_vad, vad_threshold=level)
+    got = kg.gsc_sample(*ops, p, with_mu=True)
+    ref = kg.gsc_sample_plain(*ops, p, with_mu=True)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got[4][0], ref[4][0], atol=1e-7, rtol=1e-4)
+    assert got[4][1].dtype == torch.bool
+    assert torch.equal(got[4][1], ref[4][1])
+    if use_vad:
+        assert 0 < int(got[4][1].sum()) < got[4][1].numel()
+
+
+def test_gsc_sample_kernel_cold_start_and_nan(cuda):
+    """From a zero state (osq = 0 over the first outputs, every step 0
+    until the registers fill) and with a NaN sample mid-stream: the
+    kernel's NaN and zero handling against the plain recurrence's."""
+    from beamform_tpu_torch.kernels import gsc as kg
+    a, blk, flt, lo = _gsc_operands(1, 4, 512, 9, cuda)
+    zero = [torch.zeros_like(t) for t in (blk, flt, lo)]
+    p = _gsc_params()
+    got = kg.gsc_sample(a, *zero, p)
+    ref = kg.gsc_sample_plain(a, *zero, p)
+    torch.testing.assert_close(got[0], ref[0], atol=2e-5, rtol=1e-4)
+    bad = a.clone()
+    bad[0, 1, 300] = float("nan")
+    got = kg.gsc_sample(bad, blk, flt, lo, p)
+    ref = kg.gsc_sample_plain(bad, blk, flt, lo, p)
+    torch.cuda.synchronize()
+    assert not torch.isnan(got[2]).any()             # the taps scrubbed
+    torch.testing.assert_close(got[0][:, :300], ref[0][:, :300], atol=2e-5,
+                               rtol=1e-4)
+    assert torch.isnan(got[0][0, 300])
+
+
+@pytest.mark.parametrize("l", [128, 256, 512, 1024])
+@pytest.mark.parametrize("m", [3, 16])
+@pytest.mark.parametrize("use_vad", [False, True])
+def test_gsc_blocklms_kernel_matches_plain(cuda, l, m, use_vad):
+    """Row 11 against its plain version from a carried state, two
+    streams, at the JAX package's kernel-vs-scan tolerance
+    (tests/test_gsc_blocklms.py)."""
+    from beamform_tpu_torch.kernels import gsc_blocklms as kb
+    ops = _gsc_operands(2, m, 2048, l + m, cuda)
+    p = _gsc_params(use_vad=use_vad, mu_max=0.01, solver="blocklms",
+                    block_samples=l)
+    before = kb.gsc_blocklms.launches
+    got = kb.gsc_blocklms(*ops, p)
+    torch.cuda.synchronize()
+    assert kb.gsc_blocklms.launches == before + 1
+    ref = kb.gsc_blocklms_plain(*ops, p)
+    torch.testing.assert_close(got[0], ref[0], atol=5e-6, rtol=1e-4)
+    torch.testing.assert_close(got[2], ref[2], atol=2e-6, rtol=1e-4)
+    assert torch.equal(got[1], ref[1])
+    torch.testing.assert_close(got[3], ref[3], atol=5e-6, rtol=1e-4)
+    one = kb.gsc_blocklms(*(o[..., :1024].contiguous() if i == 0 else o
+                            for i, o in enumerate(ops)), p)
+    two = kb.gsc_blocklms(ops[0][..., 1024:].contiguous(), *one[1:], p)
+    assert torch.equal(torch.cat([one[0], two[0]], -1), got[0])
+    assert torch.equal(two[2], got[2])
+
+
+def test_gsc_kernels_raise_on_what_they_do_not_take(cuda):
+    from beamform_tpu_torch.kernels import gsc as kg
+    from beamform_tpu_torch.kernels import gsc_blocklms as kb
+    a, blk, flt, lo = _gsc_operands(1, 4, 256, 0, cuda)
+    p = _gsc_params()
+    with pytest.raises(ValueError, match="filter_size"):
+        kg.gsc_sample(a, blk[..., :64].contiguous(),
+                      flt[..., :64].contiguous(), lo[..., :64].contiguous(),
+                      p)
+    with pytest.raises(ValueError, match="float32"):
+        kg.gsc_sample(a.double(), blk.double(), flt.double(), lo.double(), p)
+    with pytest.raises(ValueError, match="float32"):
+        kg.gsc_xmu(a.double(), blk.double(), flt.double(), lo.double(), p)
+    with pytest.raises(ValueError, match="multiple of 128"):
+        kg.gsc_sample(a[..., :200].contiguous(), blk, flt, lo, p)
+    big = _gsc_operands(1, 17, 256, 0, cuda)
+    with pytest.raises(ValueError, match="16 mics"):
+        kg.gsc_sample(*big, p)
+    with pytest.raises(ValueError, match="block_samples"):
+        kb.gsc_blocklms(a, blk, flt, lo,
+                        _gsc_params(solver="blocklms", block_samples=512))
+
+
+def _gsc_model(cuda, dtype="float32", **kw):
+    cfg = load_array_config(os.path.join(ROOT, "beamform_tpu_torch",
+                                         "configs", "aira16.yaml"))
+    return get_model("gsc", EngineConfig(dtype=dtype), cfg,
+                     {**load_launch_params("gsc"), "write_mu": False, **kw},
+                     device=cuda), cfg
+
+
+def test_gsc_model_raises_on_cuda(cuda):
+    """K != 128, float64 and solver='block' raise on the card, never a
+    quiet plain loop."""
+    x = np.zeros((16, 2048), np.float32)
+    for kw, err in (({"filter_size": 64}, ValueError),
+                    ({"solver": "block"}, NotImplementedError)):
+        with pytest.raises(err):
+            _gsc_model(cuda, **kw)[0].process(x, 20.0)
+    with pytest.raises(ValueError, match="float32"):
+        _gsc_model(cuda, dtype="float64")[0].process(x, 20.0)
+
+
+@pytest.mark.parametrize("solver", ["sample", "xmu", "blocklms", "write_mu"])
+def test_gsc_on_cuda_matches_float64_cpu(cuda, solver, tmp_path):
+    """16 mics, 1 s under the launch preset: the card's float32 output
+    against the float64 CPU path within 1e-3, each path's own launches,
+    and chunks equal to one offline call."""
+    from beamform_tpu_torch.kernels import gsc as kg
+    from beamform_tpu_torch.kernels import gsc_blocklms as kb
+    over = ({"write_mu": True} if solver == "write_mu"
+            else {"solver": solver})
+    model, cfg = _gsc_model(cuda, **over)
+    model.mu_file_path = str(tmp_path / "mu.txt")
+    rng = np.random.default_rng(4)
+    x = (0.1 * rng.standard_normal((16, 48 * 1024))).astype(np.float32)
+    fns = (kg.gsc_sample, kg.gsc_xmu, kb.gsc_blocklms, kw.wola_analysis,
+           kw.wola_synthesis)
+    before = [f.launches for f in fns]
+    got = model.process(x, 20.0).cpu().numpy()
+    ran = [f.launches - b for f, b in zip(fns, before)]
+    which = {"sample": 0, "write_mu": 0, "xmu": 1, "blocklms": 2}[solver]
+    assert ran == [int(i == which) for i in range(3)] + [1, 1]
+    # the same solver without the trace file (write_mu leaves the output
+    # as it is)
+    ref = run_offline("gsc", x, engine=EngineConfig(dtype="float64"),
+                      array_cfg=cfg, theta=20.0,
+                      params={**load_launch_params("gsc"), **over,
+                              "write_mu": False},
+                      device="cpu")
+    assert np.isfinite(got).all() and np.abs(got - ref).max() <= 1e-3
+    if solver == "write_mu":
+        assert len(open(model.mu_file_path).read().splitlines()) == 48
+    sess = StreamingSession(model)
+    chunks = [sess.process(x[:, f0 * 1024:(f0 + 8) * 1024], 20.0)
+              for f0 in range(0, 48, 8)]
+    assert np.array_equal(torch.cat(chunks).cpu().numpy(), got)

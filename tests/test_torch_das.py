@@ -171,7 +171,7 @@ def test_run_offline_matches_jax_float64():
     assert isinstance(got, np.ndarray) and got.shape == ref.shape
     np.testing.assert_allclose(got, ref, rtol=0, atol=1e-12)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        run_offline("gsc", x, engine=teng, array_cfg=cfg_t, device="cpu")
+        run_offline("ref", x, engine=teng, array_cfg=cfg_t, device="cpu")
 
 
 # -------------------------------------------------------------- streaming
@@ -273,7 +273,7 @@ def test_cli_wav_roundtrip_equals_run_offline(tmp_path, capsys):
     np.testing.assert_array_equal(got[0], ref)
 
 
-@pytest.mark.parametrize("argv", [["gsc"], ["das", "--live"]])
+@pytest.mark.parametrize("argv", [["ref"], ["das", "--live"]])
 def test_cli_rejects_what_is_not_ported(argv, tmp_path, capsys):
     src = _write_scene(tmp_path, seconds=0.05)
     assert cli.main(argv + ["--in", src, "--device", "cpu"]) == 2

@@ -447,8 +447,8 @@ def test_cli_lcmv_interf_control_matches_jax_cli(tmp_path):
     (["lcmv", "--interf-control", "x.txt", "--interference-events",
       "0.1:1:20", "--stream", "4"], "mutually exclusive"),
     (["lcmv", "--interf-control", "x.txt"], "needs --stream"),
-    (["gsc", "--interference-events", "0.1:1:20"], "not ported"),
-    (["gsc", "--interf-control", "x.txt", "--stream", "4"], "not ported"),
+    (["ref", "--interference-events", "0.1:1:20"], "not ported"),
+    (["ref", "--interf-control", "x.txt", "--stream", "4"], "not ported"),
     (["lcmv", "--theta-control", "t.txt"], "not ported")])
 def test_cli_interference_flag_errors(argv, message, tmp_path, capsys):
     src, cfg = _cli_inputs(tmp_path)
@@ -508,3 +508,37 @@ def test_solver_policy_with_slots():
                                  solver="mega"), device="cpu")
     with pytest.raises(ValueError, match="Nyquist"):
         model.process(np.zeros((3, 4 * HOP), np.float32), THETA)
+
+
+def test_lcmv_float32_error_with_interferers_is_the_jax_packages():
+    """chip_smoke.py's two-interferer scene (16 mics, 70 and -60 degrees,
+    the launch preset) on 1.5 s of its noise input: the port's plain
+    float32 stream solve (the CUDA ``auto`` path's plain version) is
+    within twice the JAX package's own float32 error against float64.
+    The card's ``auto`` being further from float64 than ``mega`` with
+    interferers is this float32 error of the algorithm, not a fault of the
+    port (measured here on 3 s: JAX float32 3.67e-05, the port's plain
+    stream 4.15e-05 and dense 4.19e-05)."""
+    import chip_smoke
+    cfg_j = dataclasses.replace(
+        jload(os.path.join(ROOT, "beamform_tpu", "configs", "aira16.yaml")),
+        interference_angles=chip_smoke.INTERFERERS)
+    cfg_t = dataclasses.replace(
+        load_array_config(os.path.join(ROOT, "beamform_tpu_torch", "configs",
+                                       "aira16.yaml")),
+        interference_angles=chip_smoke.INTERFERERS)
+    x = chip_smoke.make_input(16, 1.5)
+    params = chip_smoke.preset("lcmv")
+    from beamform_tpu.models import get_model as jget
+    ref = np.asarray(jget("lcmv", JEngine(dtype="float64"), cfg_j,
+                          params).process(x, chip_smoke.THETA))
+    jax32 = np.asarray(jget("lcmv", JEngine(), cfg_j, params).process(
+        x, chip_smoke.THETA))
+    port32 = get_model("lcmv", EngineConfig(), cfg_t,
+                       dict(params, solver="stream"), device="cpu").process(
+                           x, chip_smoke.THETA).numpy()
+    jax_dev = float(np.abs(jax32 - ref).max())
+    port_dev = float(np.abs(port32 - ref).max())
+    print(f"lcmv two interferers float32 vs float64: JAX {jax_dev!r}, port "
+          f"stream {port_dev!r} (peak {float(np.abs(ref).max())!r})")
+    assert 1e-7 < jax_dev and port_dev <= 2 * jax_dev
