@@ -225,8 +225,9 @@ class GscParams:
     # mu terms (block powers, q-branch steps) computed outside the kernel;
     # "blocklms", the NON-faithful block LMS of kernels/gsc_blocklms.py
     # (filters frozen for block_samples, updates land at block ends);
-    # "block", the JAX package's lookahead-8 kernel, which runs the
-    # per-sample recurrence on the CPU and is not ported to CUDA yet
+    # "block", the exact lookahead-8 factorisation of kernels/gsc_block.py
+    # (its CUDA kernel on the card; on the CPU the per-sample recurrence,
+    # as the JAX package runs it off the TPU)
     solver: str = "sample"
     # blocklms only: samples the filter bank stays frozen for (128, 256,
     # 512 or 1024)
@@ -295,7 +296,8 @@ class PhasempfParams:
 
 PARAM_CLASSES = {"das": DasParams, "mvdr": MvdrParams, "lcmv": LcmvParams,
                  "gss": GssParams, "gsc": GscParams, "phase": PhaseParams,
-                 "mcra": McraParams, "phasempf": PhasempfParams}
+                 "mcra": McraParams, "phasempf": PhasempfParams,
+                 "ref": DasParams, "read": DasParams}
 # implementation knobs are not reference parameters: no warn-and-default
 _IMPL_KNOBS = {"solver", "spectra_bf16", "block_samples"}
 

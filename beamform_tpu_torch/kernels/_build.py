@@ -143,6 +143,8 @@ def _declare(lib):
     lib.bf_gsc_sample.restype = i
     lib.bf_gsc_blocklms.argtypes = [p] * 8 + [i] * 5 + [fp, p]
     lib.bf_gsc_blocklms.restype = i
+    lib.bf_gsc_block.argtypes = [p] * 11 + [i] * 4 + [fp, p]
+    lib.bf_gsc_block.restype = i
 
 
 def check(lib, code: int, what: str):

@@ -154,20 +154,26 @@ def coef_array(params, m: int):
     return (ctypes.c_float * len(vals))(*vals)
 
 
+def check_shape(m: int, k: int, s: int):
+    """Raise unless the CUDA per-sample kernels take M mics, K taps and S
+    samples (the lookahead-8 kernel takes the same)."""
+    if not 2 <= m <= MAX_MICS:
+        raise ValueError(f"the CUDA GSC kernel takes 2 to {MAX_MICS} mics, "
+                         f"got {m}; run on the CPU")
+    if k != K:
+        raise ValueError(f"the CUDA GSC kernel takes filter_size {K}, got "
+                         f"{k}; other sizes run on the CPU")
+    if s % TILE:
+        raise ValueError(f"the CUDA GSC kernel takes a multiple of {TILE} "
+                         f"samples, got {s}")
+
+
 def _launch(inp, aligned_shape, block, filt, last_out, params, xmu: bool,
             with_mu: bool, what: str):
     b, m, s = aligned_shape
     c = m - 1
     dev = inp.device
-    if not 2 <= m <= MAX_MICS:
-        raise ValueError(f"the CUDA GSC kernel takes 2 to {MAX_MICS} mics, "
-                         f"got {m}; run on the CPU")
-    if filt.shape[-1] != K:
-        raise ValueError(f"the CUDA GSC kernel takes filter_size {K}, got "
-                         f"{filt.shape[-1]}; other sizes run on the CPU")
-    if s % TILE:
-        raise ValueError(f"the CUDA GSC kernel takes a multiple of {TILE} "
-                         f"samples, got {s}")
+    check_shape(m, filt.shape[-1], s)
     rows = 3 * m - 2 if xmu else m
     check_tensor(inp, "packed input" if xmu else "aligned", torch.float32,
                  (b, rows, s), dev)

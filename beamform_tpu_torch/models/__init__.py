@@ -1,6 +1,7 @@
-"""Model registry. ``das``, ``mvdr``, ``lcmv``, ``gss``, ``gsc``,
-``phase``, ``mcra`` and ``phasempf`` are ported so far; the other nodes of
-``beamform_tpu.models`` follow in the order of ROADMAP.md §1."""
+"""Model registry: the ten processing nodes of ``beamform_tpu.models``
+(``das``, ``mvdr``, ``lcmv``, ``gss``, ``gsc``, ``phase``, ``mcra``,
+``phasempf``, ``ref`` and ``read``). The ``write`` node (playback) is not
+ported yet (ROADMAP.md §1)."""
 
 from __future__ import annotations
 
@@ -16,12 +17,14 @@ from beamform_tpu_torch.models.mcra import McraModel
 from beamform_tpu_torch.models.mvdr import MvdrModel
 from beamform_tpu_torch.models.phase import PhaseModel
 from beamform_tpu_torch.models.phasempf import PhasempfModel
+from beamform_tpu_torch.models.refmic import ReadModel, RefModel
 
 MODEL_REGISTRY: Dict[str, Any] = {"das": DasModel, "mvdr": MvdrModel,
                                   "lcmv": LcmvModel, "gss": GssModel,
                                   "gsc": GscModel, "phase": PhaseModel,
                                   "mcra": McraModel,
-                                  "phasempf": PhasempfModel}
+                                  "phasempf": PhasempfModel,
+                                  "ref": RefModel, "read": ReadModel}
 
 
 def get_model(name: str, engine: EngineConfig, array_cfg: ArrayConfig,

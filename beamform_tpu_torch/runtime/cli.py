@@ -1,13 +1,14 @@
 """Command-line interface of the port: ``beamform-tpu-torch
-{das,mvdr,lcmv,gss,gsc,phase,mcra,phasempf}``.
+{das,mvdr,lcmv,gss,gsc,phase,mcra,phasempf,ref,read}``.
 
 Counterpart of ``beamform_tpu/runtime/cli.py`` for the ported slice: the
 offline and ``--stream`` paths of the ``das``, ``mvdr``, ``lcmv``, ``gss``,
-``gsc``, ``phase``, ``mcra`` and ``phasempf`` nodes, WAV in and WAV out,
-with an xRT (audio-seconds per wall-second) report; ``mcra`` has no
-steering and ignores ``--theta``. Node parameters start from the
-reference's launch preset and take ``--param KEY=VALUE`` overrides, as in
-the JAX CLI, which prints the reference's line for each parameter at
+``gsc``, ``phase``, ``mcra``, ``phasempf``, ``ref`` and ``read`` nodes,
+WAV in and WAV out, with an xRT (audio-seconds per wall-second) report;
+``mcra``, ``ref`` and ``read`` have no steering and ignore ``--theta``.
+Node parameters start from the reference's launch preset and take
+``--param KEY=VALUE`` overrides, as in the JAX CLI, which prints the
+reference's line for each parameter at
 ``--log-level`` (warn-and-default lines at the default ``warning``). The
 ``gsc`` preset writes the reference's mu trace, to ``--mu-file`` (default
 ``~/mu_behavior.txt``, the reference's file). The
@@ -15,9 +16,10 @@ interference set of LCMV and GSS follows ``--interference-events`` (a
 replayed /theta_interference message list) or, under ``--stream``,
 ``--interf-control`` (a polled file of messages); GSS sizes its demixing
 state for the timeline's slot capacity. ``--device`` picks the torch
-device (default ``cuda``, which must be present). Other nodes, the live
-runtimes, live steering and output resampling are not ported yet and fail
-with a message that says so.
+device (default ``cuda``, which must be present): unlike the JAX CLI,
+where ``--device`` names the ALSA PCM of ``--live``. The ``write`` node,
+the live runtimes, live steering and output resampling are not ported yet
+and fail with a message that says so.
 """
 
 from __future__ import annotations
@@ -77,7 +79,9 @@ def build_parser():
                    help="output WAV path (default: rosjack write_file_path "
                         "or <in>.<node>.wav)")
     p.add_argument("--device", default="cuda",
-                   help="torch device to run on (default: cuda)")
+                   help="torch device to run on (default: cuda); not the "
+                        "JAX CLI's --device, which names the ALSA PCM of "
+                        "--live")
     p.add_argument("--array-config", default=None,
                    help="beamform_config.yaml (mic geometry, initial angle)")
     p.add_argument("--rosjack-config", default=None,

@@ -6,10 +6,11 @@ Run from the root of a checkout, with no arguments:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from ``beamform_tpu_torch/csrc``, checks
-each of the thirteen kernels (WOLA analysis and synthesis, the MVDR and
+each of the fourteen kernels (WOLA analysis and synthesis, the MVDR and
 LCMV streaming solves, the Gauss-Jordan inverse, the fused MVDR/LCMV
 kernel, the fused GSS kernel, the phase mask, the MPF beams and march, the
-MCRA march, and GSC's per-sample, xmu and block-LMS adaptive stages)
+MCRA march, and GSC's per-sample, xmu, block-LMS and lookahead-8 adaptive
+stages)
 against its plain-torch version at the main paths' shapes, with
 its time beside its bound (the least time the card could take for the
 same work) and, where one PyTorch call computes the same function,
@@ -20,9 +21,10 @@ reference's launch presets with the ``auto`` (streaming solve), ``dense``
 (Gauss-Jordan) and ``mega`` (fused) solvers, on noise and on a speech-like
 input, LCMV also with two static interferers and with an interference
 event timeline; the GSS node on the same scenes; the phase, phasempf and
-mcra nodes on noise and on a steered source; and the GSC node's
-``sample``, ``xmu``, ``blocklms`` and ``write_mu`` paths on noise and
-speech. It checks each output
+mcra nodes on noise and on a steered source; the GSC node's
+``sample``, ``xmu``, ``blocklms``, ``block`` and ``write_mu`` paths on
+noise and speech; and the ``ref`` and ``read`` nodes on noise (with DAS
+against ``ref`` on the steered source). It checks each output
 against the float64 CPU path, counts each path's own kernel launches, and
 measures each path's xRT and device time per call (CUDA events). Each
 phase logs ``phase <name>: start`` and ``phase <name>: ok`` and raises on
@@ -134,6 +136,11 @@ GSC_REF_HOPS = 96
 # lead-in)
 GSC_CHECK_HOPS = 48
 GSC_VAD = 0.025
+# the lookahead-8 kernel against its plain version over the first this
+# many of those hops: the plain version's chain is ~200 small launches a
+# group of 8 samples (20 s in float32 for 48 hops on the card), and it
+# runs in float32 and float64 for each VAD setting
+GSC_BLOCK_CHECK_HOPS = 24
 # worker processes for the GSC float64 CPU references, which run beside the
 # card's phases (the per-sample recurrence's loop is serial: the six took
 # 72 s one after the other on the H100's host)
@@ -299,9 +306,10 @@ def engine(dtype="float32"):
 def counters():
     """Every kernel wrapper of the port, by the name the kernels line
     uses."""
-    from beamform_tpu_torch.kernels import (gsc, gsc_blocklms, gss_stream,
-                                            lcmv_stream, linalg, mega_stream,
-                                            mvdr_stream, phase_mask, wola)
+    from beamform_tpu_torch.kernels import (gsc, gsc_block, gsc_blocklms,
+                                            gss_stream, lcmv_stream, linalg,
+                                            mega_stream, mvdr_stream,
+                                            phase_mask, wola)
     return {"wola_analysis": wola.wola_analysis,
             "wola_synthesis": wola.wola_synthesis,
             "mvdr_stream": mvdr_stream.mvdr_stream,
@@ -314,7 +322,8 @@ def counters():
             "mcra_march": phase_mask.mcra_march,
             "gsc_sample": gsc.gsc_sample,
             "gsc_xmu": gsc.gsc_xmu,
-            "gsc_blocklms": gsc_blocklms.gsc_blocklms}
+            "gsc_blocklms": gsc_blocklms.gsc_blocklms,
+            "gsc_block": gsc_block.gsc_block}
 
 
 def reset_launches():
@@ -1156,7 +1165,7 @@ FUSED_EXPECT = {k: 0 for k in ("wola_analysis", "wola_synthesis",
                                "mvdr_stream", "gj_inverse", "lcmv_stream",
                                "mega_stream", "gss_stream", "phase_mask",
                                "mpf_march", "mcra_march", "gsc_sample",
-                               "gsc_xmu", "gsc_blocklms")}
+                               "gsc_xmu", "gsc_blocklms", "gsc_block")}
 GSC_EXPECT = FUSED_EXPECT
 
 
@@ -1480,7 +1489,8 @@ def phase_phase_node(node: str, x: np.ndarray, xsrc: np.ndarray) -> tuple:
 
 
 GSC_KERNEL = {"sample": "gsc_sample", "xmu": "gsc_xmu",
-              "blocklms": "gsc_blocklms", "write_mu": "gsc_sample"}
+              "blocklms": "gsc_blocklms", "block": "gsc_block",
+              "write_mu": "gsc_sample"}
 
 
 def event_ms(fn):
@@ -1509,22 +1519,27 @@ def gsc_aligned(sig: np.ndarray):
     return aligned
 
 
-def gsc_zero(b: int, dtype=None):
+def gsc_zero(b: int, dtype=None, lookahead: bool = False):
+    """A zero state for B streams: block, filt, last_out, and with
+    ``lookahead`` the block kernel's gram and uold too."""
     import torch
     dtype = dtype or torch.float32
-    return (torch.zeros((b, 15, 128), dtype=dtype, device=DEVICE),
-            torch.zeros((b, 15, 128), dtype=dtype, device=DEVICE),
-            torch.zeros((b, 128), dtype=dtype, device=DEVICE))
+    shapes = [(b, 15, 128), (b, 15, 128), (b, 128)]
+    shapes += [(b, 15, 8), (b, 15, 8)] if lookahead else []
+    return tuple(torch.zeros(sh, dtype=dtype, device=DEVICE)
+                 for sh in shapes)
 
 
-def gsc_bound(b: int, s: int, rows: int = 16) -> dict:
+def gsc_bound(b: int, s: int, rows: int = 16,
+              lookahead: bool = False) -> dict:
     """The adaptive stage's least time for B streams of S samples: the
     input rows (16 mics, or the xmu mode's 46 packed rows) read once, the
-    output and the state written once; 4 (M-1) K = 7,680 operations a
-    sample (the dot product and the update, a multiply and an add per
-    tap)."""
+    output and the state written once (the block kernel also reads uold
+    and writes gram and uold); 4 (M-1) K = 7,680 operations a sample (the
+    dot product and the update, a multiply and an add per tap)."""
     state = 4 * b * (2 * 15 * 128 + 128)
-    return bound(4 * b * rows * s + 4 * b * s + 2 * state,
+    extra = 3 * 4 * b * 15 * 8 if lookahead else 0
+    return bound(4 * b * rows * s + 4 * b * s + 2 * state + extra,
                  4.0 * 15 * 128 * b * s)
 
 
@@ -1607,15 +1622,20 @@ def phase_gsc_kernels(x: np.ndarray, xs: np.ndarray, card: str,
     inputs (M = 16, K = 128), two streams of GSC_CHECK_HOPS hops from a
     zero state, VAD off and on (its threshold GSC_VAD gates part of the
     samples); the per-sample kernel with its mu trace and the xmu mode,
-    and block LMS at l = 128 and 512. The per-sample recurrence's float64
+    block LMS at l = 128 and 512, and the lookahead-8 kernel over the
+    first GSC_BLOCK_CHECK_HOPS hops (its plain version in float64 on the
+    card as the third point; its deviation from
+    the per-sample kernel's output, the same function up to round-off and
+    the NaN scrub's timing, logged). The per-sample recurrence's float64
     reference runs on the CPU in ``pool`` meanwhile. Then each kernel's
     time by CUDA events at the main shape (one stream, 30 s), and the
-    per-sample and block-LMS kernels' aggregate rate at bench.py's batch
-    of 32 streams over 10 s. Returns the main shape's numbers per
-    kernel."""
+    per-sample, block-LMS and lookahead-8 kernels' aggregate rate at
+    bench.py's batch of 32 streams over 10 s. Returns the main shape's
+    numbers per kernel."""
     import torch
     from beamform_tpu_torch.config import make_params
     from beamform_tpu_torch.kernels import gsc as kg
+    from beamform_tpu_torch.kernels import gsc_block as kbk
     from beamform_tpu_torch.kernels import gsc_blocklms as kb
     full = {"noise": gsc_aligned(x), "speech": gsc_aligned(xs)}
     n = GSC_CHECK_HOPS * HOP
@@ -1625,7 +1645,7 @@ def phase_gsc_kernels(x: np.ndarray, xs: np.ndarray, card: str,
              for v in (False, True)}
     refs64 = {v: pool.apply_async(gsc_plain64, (a2.cpu().numpy(), over))
               for v, over in overs.items()}
-    errs, plain_ms = {}, {}
+    errs, plain_ms, sample_out = {}, {}, {}
     for use_vad, over in overs.items():
         p = make_params("gsc", preset("gsc", **over))
         ref, p_ms = event_ms(lambda: kg.gsc_sample_plain(
@@ -1649,6 +1669,8 @@ def phase_gsc_kernels(x: np.ndarray, xs: np.ndarray, card: str,
                 raise AssertionError(f"{name} trace: {off}, {flips}")
             errs[name] = max(errs.get(name, 0.0), err)
             plain_ms[name] = p_ms
+            if name == "gsc_sample":
+                sample_out[use_vad] = got[0]
         for l in (128, 512):
             pl = make_params("gsc", preset("gsc", solver="blocklms",
                                            block_samples=l, **over))
@@ -1663,27 +1685,49 @@ def phase_gsc_kernels(x: np.ndarray, xs: np.ndarray, card: str,
             errs["gsc_blocklms"] = max(errs.get("gsc_blocklms", 0.0), err)
             if l == 128:
                 plain_ms["gsc_blocklms"] = p_ms
+        pb = make_params("gsc", preset("gsc", solver="block", **over))
+        nb = GSC_BLOCK_CHECK_HOPS * HOP
+        ab = a2[..., :nb].contiguous()
+        ref, p_ms = event_ms(lambda: kbk.gsc_block_plain(
+            ab, *gsc_zero(2, lookahead=True), pb))
+        ref64, p64_ms = event_ms(lambda: kbk.gsc_block_plain(
+            ab.double(), *gsc_zero(2, torch.float64, True), pb))
+        got, ms = event_ms(lambda: kbk.gsc_block(
+            ab, *gsc_zero(2, lookahead=True), pb))
+        err = check_gsc_kernel(f"gsc_block B=2 M=16 S={nb} vad={use_vad}",
+                               got[0], ref[0], ref64[0], ms, p_ms)
+        errs["gsc_block"] = max(errs.get("gsc_block", 0.0), err)
+        plain_ms["gsc_block"] = p_ms
+        vs_sample = float((got[0] - sample_out[use_vad][:, :nb]).abs().max())
+        log(f"  gsc_block vs gsc_sample on the same operands: max abs "
+            f"{vs_sample:.3e}; the plain block version in float64 took "
+            f"{p64_ms:.1f} ms")
         del ref64
 
     # the main shape: one stream of 30 s, zero state, the launch preset
     p = make_params("gsc", preset("gsc", write_mu=False))
     pl = make_params("gsc", preset("gsc", write_mu=False, solver="blocklms"))
+    pb = make_params("gsc", preset("gsc", write_mu=False, solver="block"))
     a1 = full["noise"][None].contiguous()
     s = a1.shape[-1]
     calls = (("gsc_sample", lambda: kg.gsc_sample(a1, *gsc_zero(1), p)),
              ("gsc_xmu", lambda: kg.gsc_xmu(a1, *gsc_zero(1), p)),
-             ("gsc_blocklms", lambda: kb.gsc_blocklms(a1, *gsc_zero(1), pl)))
+             ("gsc_blocklms", lambda: kb.gsc_blocklms(a1, *gsc_zero(1), pl)),
+             ("gsc_block", lambda: kbk.gsc_block(
+                 a1, *gsc_zero(1, lookahead=True), pb)))
     results = {}
     for name, fn in calls:
         ms = cuda_ms(fn, reps=3)
+        hops = GSC_BLOCK_CHECK_HOPS if name == "gsc_block" else GSC_CHECK_HOPS
         log(f"kernel {name} B=1 M=16 S={s} (30 s, noise): {ms:.4f} ms, "
             f"{ms * 1e6 / s:.1f} ns per sample of the chain, "
             f"{SECONDS / ms * 1e3:.1f}x real time on {card}; plain torch "
-            f"{plain_ms[name]:.4f} ms over B=2, {GSC_CHECK_HOPS} hops")
+            f"{plain_ms[name]:.4f} ms over B=2, {hops} hops")
         results[name] = dict(max_abs_err=errs[name], ms=ms,
                              plain_ms=plain_ms[name],
                              **gsc_bound(1, s, 46 if name == "gsc_xmu"
-                                         else 16), library_ms=None)
+                                         else 16, name == "gsc_block"),
+                             library_ms=None)
     # the xmu mode's packing outside the kernel, apart
     pk_ms = cuda_ms(lambda: kg.xmu_inputs(a1, gsc_zero(1)[0], p), reps=3)
     log(f"  xmu_inputs (plain torch, outside the kernel): {pk_ms:.4f} ms")
@@ -1694,7 +1738,9 @@ def phase_gsc_kernels(x: np.ndarray, xs: np.ndarray, card: str,
         :, 1000 * i:1000 * i + n10] for i in range(32)]).contiguous()
     batch32 = (("gsc_sample", lambda: kg.gsc_sample(a32, *gsc_zero(32), p)),
                ("gsc_blocklms", lambda: kb.gsc_blocklms(a32, *gsc_zero(32),
-                                                        pl)))
+                                                        pl)),
+               ("gsc_block", lambda: kbk.gsc_block(
+                   a32, *gsc_zero(32, lookahead=True), pb)))
     for name, fn in batch32:
         ms = cuda_ms(fn, reps=3)
         log(f"kernel {name} B=32 M=16 S={n10} (10 s each): {ms:.4f} ms, "
@@ -1706,19 +1752,20 @@ def phase_gsc_kernels(x: np.ndarray, xs: np.ndarray, card: str,
 def phase_gsc(x: np.ndarray, xs: np.ndarray, tmp: str, refs: dict) -> tuple:
     """The GSC node through run_offline under the launch preset without
     write_mu (bench.py's LAUNCH["gsc"]), for ``sample``, ``xmu``,
-    ``blocklms`` at l = 128 and 512, and with write_mu on (its trace under
-    ``tmp``), on noise and speech; each path's launches counted alone (one
-    analysis, one synthesis over the 16 mics, one adaptive-stage kernel).
+    ``blocklms`` at l = 128 and 512, ``block``, and with write_mu on (its
+    trace under ``tmp``), on noise and speech; each path's launches
+    counted alone (one analysis, one synthesis over the 16 mics, one
+    adaptive-stage kernel).
     Against the float64 CPU path (``refs``: {(input, path): the pending
-    gsc_reference}): the per-sample paths over their first GSC_REF_HOPS
-    hops (one float64 run per input serves the three, the trace too),
-    block LMS over the full 30 s. Returns (the sample path's output on
-    noise, {path: its launch counts})."""
+    gsc_reference}): the per-sample paths (``block`` is the same
+    function) over their first GSC_REF_HOPS hops (one float64 run per
+    input serves the four, the trace too), block LMS over the full 30 s.
+    Returns ({(input, path): output}, {path: its launch counts})."""
     t = -(-x.shape[1] // HOP)
     paths = {"sample": {}, "xmu": {"solver": "xmu"},
              "blocklms128": {"solver": "blocklms"},
              "blocklms512": {"solver": "blocklms", "block_samples": 512},
-             "write_mu": {"write_mu": True}}
+             "block": {"solver": "block"}, "write_mu": {"write_mu": True}}
     outs, launches, traces = {}, {}, {}
     for inp, sig in (("noise", x), ("speech", xs)):
         traces[inp] = os.path.join(tmp, f"mu_{inp}.txt")
@@ -1773,7 +1820,94 @@ def phase_gsc(x: np.ndarray, xs: np.ndarray, tmp: str, refs: dict) -> tuple:
         if len(got) != t or not dev <= bar:
             raise AssertionError(f"gsc {inp} mu trace: {len(got)} lines, "
                                  f"relative deviation {dev}")
-    return outs[("noise", "sample")], launches
+    return outs, launches
+
+
+# read's picks may differ from float64 only where the float64 energies of
+# the two mics are this close (relative): below float32's resolution of a
+# sum of 1024 terms
+READ_TIE_REL = 1e-6
+
+
+def read_picks(wins: np.ndarray, y: np.ndarray) -> np.ndarray:
+    """The mic each window of read's output (T * hop,) passes through,
+    found by exact equality with the input windows (M, T, hop); raises
+    where a window is no mic's input."""
+    t = wins.shape[1]
+    eq = (wins == y.reshape(t, -1)[None]).all(axis=-1)       # (M, T)
+    if not eq.any(axis=0).all():
+        raise AssertionError(f"read: {int((~eq.any(axis=0)).sum())} "
+                             "output windows are no mic's input")
+    return eq.argmax(axis=0)
+
+
+def phase_refread(node: str, x: np.ndarray):
+    """The ``ref`` or ``read`` node through run_offline on the card (no
+    kernel of the port: every count stays 0) against the float64 CPU
+    path. ``ref`` within DAS_ABS_TOL; ``read`` pick by pick: each output
+    window is exactly its pick's input, and a pick differs from float64
+    only where the two mics' float64 energies are within READ_TIE_REL.
+    Returns (output, launch counts)."""
+    from beamform_tpu_torch import run_offline
+    cfg = aira16()
+    reset_launches()
+    y = run_offline(node, x, engine=engine(), array_cfg=cfg, theta=THETA,
+                    device=DEVICE)
+    launches = read_launches()
+    log(f"{node} main path launches: {launches}")
+    if launches != FUSED_EXPECT:
+        raise AssertionError(f"{node} launched a kernel: {launches}")
+    n_out = -(-x.shape[1] // HOP) * HOP
+    if y.shape != (n_out,) or not np.isfinite(y).all():
+        raise AssertionError(f"{node} output shape {y.shape} / non-finite")
+    ref = run_offline(node, x, engine=engine("float64"), array_cfg=cfg,
+                      theta=THETA, device="cpu")
+    dev = float(np.abs(y - ref).max())
+    if node == "ref":
+        log(f"ref {DEVICE} float32 vs cpu float64: max sample deviation "
+            f"{dev:.3e} (bar {DAS_ABS_TOL:g}, peak {np.abs(ref).max():.3e})")
+        if not dev <= DAS_ABS_TOL:
+            raise AssertionError(f"ref deviation {dev}")
+        return y, launches
+    xp = np.pad(x, ((0, 0), (0, n_out - x.shape[1])))
+    wins = xp.reshape(x.shape[0], n_out // HOP, HOP)
+    p32 = read_picks(wins, y)
+    p64 = read_picks(wins.astype(np.float64), ref)
+    e64 = np.abs(wins.astype(np.float64) * 100.0).sum(axis=-1)   # (M, T)
+    cols = np.arange(wins.shape[1])
+    flips = np.nonzero(p32 != p64)[0]
+    rel = (np.abs(e64[p32, cols] - e64[p64, cols])
+           / np.maximum(e64[p64, cols], 1e-300))[flips]
+    log(f"read {DEVICE} float32 vs cpu float64: {len(flips)} of {len(cols)} "
+        f"picks differ (float64 energies within "
+        f"{float(rel.max()) if len(rel) else 0.0:.3e} relative at them, "
+        f"bar {READ_TIE_REL:g}); max sample deviation {dev:.3e}; every "
+        "output window is exactly its pick's input")
+    if len(rel) and not rel.max() <= READ_TIE_REL:
+        raise AssertionError(f"read flips a pick off a near-tie: {rel}")
+    if not (y[np.repeat(p32 == p64, HOP)]
+            == ref[np.repeat(p32 == p64, HOP)]).all():
+        raise AssertionError("read output differs where the picks agree")
+    return y, launches
+
+
+def phase_das_vs_ref(xsrc: np.ndarray):
+    """The flow of the evaluation: DAS steered at the source against the
+    ``ref`` node's sample-aligned mic 0, on the card (the steered source
+    input); off the source (-60 deg) for contrast."""
+    from beamform_tpu_torch import run_offline
+    cfg = aira16()
+    y_ref = run_offline("ref", xsrc, engine=engine(), array_cfg=cfg,
+                        device=DEVICE)
+    corr = {}
+    for th in (THETA, -60.0):
+        y = run_offline("das", xsrc, engine=engine(), array_cfg=cfg,
+                        theta=th, device=DEVICE)
+        corr[th] = float(np.corrcoef(y, y_ref)[0, 1])
+    log(f"das at the source ({THETA:g} deg) vs ref: correlation "
+        f"{corr[THETA]:.6f} (bar 0.95); at -60 deg {corr[-60.0]:.6f}")
+    if not corr[THETA] >= 0.95:
+        raise AssertionError(f"das vs ref correlation {corr}")
 
 
 def main() -> int:
@@ -1886,10 +2020,18 @@ def drive(pool, card: str, t_start: float) -> int:
                   ["--stream", "64"], seconds=4.0)
         phase(f"{node}_xrt", phase_xrt, x, card, node, preset(node), "noise")
     with tempfile.TemporaryDirectory(prefix=".chip_smoke_", dir=ROOT) as tmp:
-        y_gsc, gsc_launches = phase("gsc", phase_gsc, x, xs, tmp, gsc_refs)
+        gsc_outs, gsc_launches = phase("gsc", phase_gsc, x, xs, tmp,
+                                       gsc_refs)
         gsc_preset = preset("gsc", write_mu=False)
-        phase("gsc_streaming", phase_streaming, x, y_gsc, tmp, "gsc",
-              gsc_preset, tol=0.0)
+        block_preset = preset("gsc", write_mu=False, solver="block")
+        phase("gsc_streaming", phase_streaming, x,
+              gsc_outs[("noise", "sample")], tmp, "gsc", gsc_preset, tol=0.0)
+        phase("gsc_streaming", phase_streaming, x,
+              gsc_outs[("noise", "block")], tmp, "gsc", block_preset,
+              tol=0.0)
+        phase("gsc_cli", phase_cli, x, tmp, "gsc", block_preset,
+              ["--stream", "64", "--param", "write_mu=false", "--param",
+               "solver=block"], seconds=4.0, tol=0.0)
         # the CLI runs the preset, write_mu on: its trace to --mu-file
         mu_file = os.path.join(tmp, "cli_mu.txt")
         phase("gsc_cli", phase_cli, x, tmp, "gsc", gsc_preset,
@@ -1905,6 +2047,18 @@ def drive(pool, card: str, t_start: float) -> int:
     phase("gsc_xrt", phase_xrt, x, card, "gsc",
           preset("gsc", write_mu=False, solver="blocklms"),
           "noise, blocklms l=128", reps=3, warmups=1)
+    phase("gsc_xrt", phase_xrt, x, card, "gsc", block_preset, "noise, block",
+          reps=3, warmups=1)
+    for node in ("ref", "read"):
+        y_node, _ = phase(node, phase_refread, node, x)
+        with tempfile.TemporaryDirectory(prefix=".chip_smoke_",
+                                         dir=ROOT) as tmp:
+            phase(f"{node}_streaming", phase_streaming, x, y_node, tmp, node,
+                  tol=0.0)
+            phase(f"{node}_cli", phase_cli, x, tmp, node, None,
+                  ["--stream", "64"], seconds=4.0, tol=0.0)
+        phase(f"{node}_xrt", phase_xrt, x, card, node, None, "noise")
+    phase("das_vs_ref", phase_das_vs_ref, xsrc)
 
     launches = {"wola_analysis": das_launches["wola_analysis"],
                 "wola_synthesis": das_launches["wola_synthesis"],
@@ -1917,7 +2071,8 @@ def drive(pool, card: str, t_start: float) -> int:
                    for node, k in PHASE_KERNEL.items()},
                 "gsc_sample": gsc_launches["sample"]["gsc_sample"],
                 "gsc_xmu": gsc_launches["xmu"]["gsc_xmu"],
-                "gsc_blocklms": gsc_launches["blocklms128"]["gsc_blocklms"]}
+                "gsc_blocklms": gsc_launches["blocklms128"]["gsc_blocklms"],
+                "gsc_block": gsc_launches["block"]["gsc_block"]}
     csrc = "beamform_tpu_torch/csrc/"
     meta = {"wola_analysis": ("wola.cu",
                               "beamform_tpu/kernels/wola_pallas.py:120"),
@@ -1943,7 +2098,9 @@ def drive(pool, card: str, t_start: float) -> int:
             "gsc_xmu": ("gsc_sample.cu",
                         "beamform_tpu/kernels/gsc_pallas.py:193"),
             "gsc_blocklms": ("gsc_blocklms.cu",
-                             "beamform_tpu/kernels/gsc_blocklms.py:135")}
+                             "beamform_tpu/kernels/gsc_blocklms.py:135"),
+            "gsc_block": ("gsc_block.cu",
+                          "beamform_tpu/kernels/gsc_block.py:75")}
     log(f"chip_smoke wall time {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": csrc + meta[k][0],

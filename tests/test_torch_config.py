@@ -77,4 +77,4 @@ def test_engine_config_and_das_params_match():
         assert (t.hop, t.fft_win) == (j.hop, j.fft_win)
     assert tcfg.make_params("das", {"unknown": 1}) == tcfg.DasParams()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tcfg.make_params("ref")
+        tcfg.make_params("write")

@@ -1080,6 +1080,85 @@ def test_gsc_blocklms_kernel_matches_plain(cuda, l, m, use_vad):
     assert torch.equal(two[2], got[2])
 
 
+def _block_operands(b, m, s, seed, device):
+    """_gsc_operands plus the block kernel's gram (as gram_refresh writes
+    it) and uold, the 8 samples before the registers."""
+    from beamform_tpu_torch.models.gsc import gram_refresh
+    a, blk, flt, lo = _gsc_operands(b, m, s, seed, device)
+    rng = np.random.default_rng(seed + 100)
+    uold = torch.as_tensor(0.2 * rng.standard_normal((b, m - 1, 8)),
+                           dtype=torch.float32, device=device)
+    gram, _ = gram_refresh(uold[..., :0], uold, blk, 128)
+    return a, blk, flt, lo, gram.contiguous(), uold
+
+
+@pytest.mark.parametrize("m", [2, 4, 16])
+@pytest.mark.parametrize("use_vad", [False, True])
+def test_gsc_block_kernel_matches_plain(cuda, m, use_vad):
+    """Row 12 against its plain version from a carried state, two streams:
+    the JAX package's block-vs-scan tolerances (tests/test_gsc_block.py),
+    and the kernel no further from the plain version in float64 than twice
+    the plain float32 version plus the sample kernel's slack."""
+    from beamform_tpu_torch.kernels import gsc_block as kbk
+    ops = _block_operands(2, m, 1024, 3 * m + use_vad, cuda)
+    p = _gsc_params(use_vad=use_vad, solver="block")
+    before = kbk.gsc_block.launches
+    got = kbk.gsc_block(*ops, p)
+    torch.cuda.synchronize()
+    assert kbk.gsc_block.launches == before + 1
+    ref = kbk.gsc_block_plain(*ops, p)
+    ref64 = kbk.gsc_block_plain(*(o.double() for o in ops), p)
+    scale = float(ref64[0].abs().max())
+    for g, r in zip(got, ref):
+        assert g.shape == r.shape and torch.isfinite(g).all()
+    torch.testing.assert_close(got[0], ref[0], atol=3e-5 * scale, rtol=0)
+    torch.testing.assert_close(got[2], ref[2], atol=2e-5, rtol=1e-3)
+    torch.testing.assert_close(got[3], ref[3], atol=3e-5 * scale, rtol=0)
+    torch.testing.assert_close(got[4], ref[4], atol=2e-4, rtol=2e-3)
+    assert torch.equal(got[1], ref[1]) and torch.equal(got[5], ref[5])
+    assert _dev64(got[0], ref64[0]) <= 2 * _dev64(ref[0], ref64[0]) + 2e-5
+
+
+def test_gsc_block_kernel_chunks_equal_one_call(cuda):
+    """Fresh Grams and powers, groups and tiles at the same offsets: two
+    calls of 512 samples give one call of 1024 bit for bit, state too."""
+    from beamform_tpu_torch.kernels import gsc_block as kbk
+    a, *st = _block_operands(3, 16, 1024, 5, cuda)
+    p = _gsc_params(use_vad=True, solver="block")
+    full = kbk.gsc_block(a, *st, p)
+    one = kbk.gsc_block(a[..., :512].contiguous(), *st, p)
+    two = kbk.gsc_block(a[..., 512:].contiguous(), *one[1:], p)
+    assert torch.equal(torch.cat([one[0], two[0]], -1), full[0])
+    for x, y in zip(two[1:], full[1:]):
+        assert torch.equal(x, y)
+
+
+def test_gsc_block_kernel_cold_start_and_nan(cuda):
+    """From a zero state behind a silent lead-in (every power 0, every
+    step scrubbed to 0: zeros out, not NaN), then with a NaN sample
+    mid-stream: NaN outputs exactly where the plain version has them,
+    the taps scrubbed at the group's end."""
+    from beamform_tpu_torch.kernels import gsc_block as kbk
+    a, *st = _block_operands(1, 4, 512, 9, cuda)
+    a[..., :256] = 0.0
+    zero = [torch.zeros_like(t) for t in st]
+    p = _gsc_params(solver="block")
+    got = kbk.gsc_block(a, *zero, p)
+    ref = kbk.gsc_block_plain(a, *zero, p)
+    assert torch.equal(got[0][:, :256], torch.zeros_like(got[0][:, :256]))
+    torch.testing.assert_close(got[0], ref[0], atol=2e-5, rtol=1e-4)
+    bad = a.clone()
+    bad[0, 1, 300] = float("nan")
+    got = kbk.gsc_block(bad, *st, p)
+    ref = kbk.gsc_block_plain(bad, *st, p)
+    torch.cuda.synchronize()
+    assert not torch.isnan(got[2]).any()             # the taps scrubbed
+    nan = torch.isnan(got[0])
+    assert bool(nan[0, 300]) and torch.equal(nan, torch.isnan(ref[0]))
+    torch.testing.assert_close(got[0][~nan], ref[0][~nan], atol=2e-5,
+                               rtol=1e-4)
+
+
 def test_gsc_kernels_raise_on_what_they_do_not_take(cuda):
     from beamform_tpu_torch.kernels import gsc as kg
     from beamform_tpu_torch.kernels import gsc_blocklms as kb
@@ -1101,6 +1180,14 @@ def test_gsc_kernels_raise_on_what_they_do_not_take(cuda):
     with pytest.raises(ValueError, match="block_samples"):
         kb.gsc_blocklms(a, blk, flt, lo,
                         _gsc_params(solver="blocklms", block_samples=512))
+    from beamform_tpu_torch.kernels import gsc_block as kbk
+    ops = _block_operands(1, 4, 256, 0, cuda)
+    with pytest.raises(ValueError, match="float32"):
+        kbk.gsc_block(*(o.double() for o in ops), p)
+    with pytest.raises(ValueError, match="multiple of 128"):
+        kbk.gsc_block(ops[0][..., :200].contiguous(), *ops[1:], p)
+    with pytest.raises(ValueError, match="16 mics"):
+        kbk.gsc_block(*_block_operands(1, 17, 256, 0, cuda), p)
 
 
 def _gsc_model(cuda, dtype="float32", **kw):
@@ -1112,23 +1199,25 @@ def _gsc_model(cuda, dtype="float32", **kw):
 
 
 def test_gsc_model_raises_on_cuda(cuda):
-    """K != 128, float64 and solver='block' raise on the card, never a
+    """K != 128 and float64 raise on the card, for every solver, never a
     quiet plain loop."""
     x = np.zeros((16, 2048), np.float32)
-    for kw, err in (({"filter_size": 64}, ValueError),
-                    ({"solver": "block"}, NotImplementedError)):
-        with pytest.raises(err):
-            _gsc_model(cuda, **kw)[0].process(x, 20.0)
+    for solver in ("sample", "block"):
+        with pytest.raises(ValueError, match="filter_size"):
+            _gsc_model(cuda, filter_size=64, solver=solver)[0].process(
+                x, 20.0)
     with pytest.raises(ValueError, match="float32"):
         _gsc_model(cuda, dtype="float64")[0].process(x, 20.0)
 
 
-@pytest.mark.parametrize("solver", ["sample", "xmu", "blocklms", "write_mu"])
+@pytest.mark.parametrize("solver", ["sample", "xmu", "blocklms", "block",
+                                    "write_mu"])
 def test_gsc_on_cuda_matches_float64_cpu(cuda, solver, tmp_path):
     """16 mics, 1 s under the launch preset: the card's float32 output
     against the float64 CPU path within 1e-3, each path's own launches,
     and chunks equal to one offline call."""
     from beamform_tpu_torch.kernels import gsc as kg
+    from beamform_tpu_torch.kernels import gsc_block as kbk
     from beamform_tpu_torch.kernels import gsc_blocklms as kb
     over = ({"write_mu": True} if solver == "write_mu"
             else {"solver": solver})
@@ -1136,13 +1225,14 @@ def test_gsc_on_cuda_matches_float64_cpu(cuda, solver, tmp_path):
     model.mu_file_path = str(tmp_path / "mu.txt")
     rng = np.random.default_rng(4)
     x = (0.1 * rng.standard_normal((16, 48 * 1024))).astype(np.float32)
-    fns = (kg.gsc_sample, kg.gsc_xmu, kb.gsc_blocklms, kw.wola_analysis,
-           kw.wola_synthesis)
+    fns = (kg.gsc_sample, kg.gsc_xmu, kb.gsc_blocklms, kbk.gsc_block,
+           kw.wola_analysis, kw.wola_synthesis)
     before = [f.launches for f in fns]
     got = model.process(x, 20.0).cpu().numpy()
     ran = [f.launches - b for f, b in zip(fns, before)]
-    which = {"sample": 0, "write_mu": 0, "xmu": 1, "blocklms": 2}[solver]
-    assert ran == [int(i == which) for i in range(3)] + [1, 1]
+    which = {"sample": 0, "write_mu": 0, "xmu": 1, "blocklms": 2,
+             "block": 3}[solver]
+    assert ran == [int(i == which) for i in range(4)] + [1, 1]
     # the same solver without the trace file (write_mu leaves the output
     # as it is)
     ref = run_offline("gsc", x, engine=EngineConfig(dtype="float64"),

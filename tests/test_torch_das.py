@@ -170,8 +170,12 @@ def test_run_offline_matches_jax_float64():
                       device="cpu")
     assert isinstance(got, np.ndarray) and got.shape == ref.shape
     np.testing.assert_allclose(got, ref, rtol=0, atol=1e-12)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        run_offline("ref", x, engine=teng, array_cfg=cfg_t, device="cpu")
+    # the ref node, the evaluation signal every separation metric lines up
+    # against, through the same entry point
+    ref = np.asarray(jax_run_offline("ref", x, engine=jeng, array_cfg=cfg_j))
+    got = run_offline("ref", x, engine=teng, array_cfg=cfg_t, device="cpu")
+    assert got.shape == ref.shape
+    np.testing.assert_allclose(got, ref, rtol=0, atol=1e-12)
 
 
 # -------------------------------------------------------------- streaming
@@ -273,7 +277,7 @@ def test_cli_wav_roundtrip_equals_run_offline(tmp_path, capsys):
     np.testing.assert_array_equal(got[0], ref)
 
 
-@pytest.mark.parametrize("argv", [["ref"], ["das", "--live"]])
+@pytest.mark.parametrize("argv", [["write"], ["das", "--live"]])
 def test_cli_rejects_what_is_not_ported(argv, tmp_path, capsys):
     src = _write_scene(tmp_path, seconds=0.05)
     assert cli.main(argv + ["--in", src, "--device", "cpu"]) == 2
@@ -331,6 +335,8 @@ def test_import_loads_no_jax():
             " beamform_tpu_torch.models.phase,"
             " beamform_tpu_torch.models.mcra,"
             " beamform_tpu_torch.models.phasempf,"
+            " beamform_tpu_torch.kernels.gsc_block,"
+            " beamform_tpu_torch.models.refmic,"
             " beamform_tpu_torch.runtime.timeline, chip_smoke; "
             "assert 'jax' not in sys.modules, 'jax imported'; "
             "assert 'beamform_tpu' not in sys.modules")

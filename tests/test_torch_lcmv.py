@@ -447,8 +447,8 @@ def test_cli_lcmv_interf_control_matches_jax_cli(tmp_path):
     (["lcmv", "--interf-control", "x.txt", "--interference-events",
       "0.1:1:20", "--stream", "4"], "mutually exclusive"),
     (["lcmv", "--interf-control", "x.txt"], "needs --stream"),
-    (["ref", "--interference-events", "0.1:1:20"], "not ported"),
-    (["ref", "--interf-control", "x.txt", "--stream", "4"], "not ported"),
+    (["write", "--interference-events", "0.1:1:20"], "not ported"),
+    (["write", "--interf-control", "x.txt", "--stream", "4"], "not ported"),
     (["lcmv", "--theta-control", "t.txt"], "not ported")])
 def test_cli_interference_flag_errors(argv, message, tmp_path, capsys):
     src, cfg = _cli_inputs(tmp_path)
