@@ -37,7 +37,9 @@ raises. Each wrapper counts its launches in ``.launches``.
 from __future__ import annotations
 
 import ctypes
+from functools import lru_cache
 
+import numpy as np
 import torch
 
 from beamform_tpu_torch.kernels._build import (check, check_tensor,
@@ -145,12 +147,41 @@ def xmu_inputs(aligned, block, params) -> torch.Tensor:
     return torch.cat([aligned, cb, q], dim=1).contiguous()
 
 
+@lru_cache(maxsize=16)
+def vad_power_threshold(vad: float, k: int = K) -> float:
+    """The least float32 y >= 0 with sqrt(y * (1/k)) >= vad in float32
+    arithmetic, found by bisection over the bit patterns of [0, inf]: for
+    every float32 osq, ``osq < threshold`` decides as
+    ``sqrtf(max(osq, 0) / k) < vad`` does (a NaN compares false in both),
+    so the kernel takes no square root. -inf when no y qualifies (a NaN
+    ``vad``: no sample updates)."""
+    v = np.float32(vad)
+    kinv = np.float32(1.0 / k)
+
+    def reaches(bits: int) -> bool:
+        y = np.array(bits, dtype=np.uint32).view(np.float32)
+        return bool(np.sqrt(y * kinv) >= v)
+
+    lo, hi = 0, 0x7F800000                    # +0.0 .. +inf
+    if not reaches(hi):
+        return float("-inf")
+    while lo < hi:
+        mid = (lo + hi) // 2
+        if reaches(mid):
+            hi = mid
+        else:
+            lo = mid + 1
+    return float(np.array(lo, dtype=np.uint32).view(np.float32))
+
+
 def coef_array(params, m: int):
     """The GSC kernels' float coefficients: 1/K, mu0^2/K, mu_max^2/K, mu0,
-    vad_threshold, 1/M."""
+    vad_threshold, 1/M, and the per-sample kernel's VAD threshold on osq
+    (:func:`vad_power_threshold`)."""
     vals = (1.0 / K, params.mu0 * params.mu0 / K,
             params.mu_max * params.mu_max / K, params.mu0,
-            params.vad_threshold, 1.0 / m)
+            params.vad_threshold, 1.0 / m,
+            vad_power_threshold(params.vad_threshold))
     return (ctypes.c_float * len(vals))(*vals)
 
 
@@ -180,6 +211,8 @@ def _launch(inp, aligned_shape, block, filt, last_out, params, xmu: bool,
     check_tensor(block, "block", torch.float32, (b, c, K), dev)
     check_tensor(filt, "filt", torch.float32, (b, c, K), dev)
     check_tensor(last_out, "last_out", torch.float32, (b, K), dev)
+    if inp.data_ptr() % 16:
+        inp = inp.clone()            # the kernel copies 16-byte rows
     out = torch.empty((b, s), dtype=torch.float32, device=dev)
     blk_o, flt_o = torch.empty_like(block), torch.empty_like(filt)
     lo_o = torch.empty_like(last_out)
@@ -210,7 +243,7 @@ def gsc_sample(aligned, block, filt, last_out, params,
                with_mu: bool = False):
     """The faithful per-sample adaptive stage; see :func:`gsc_sample_plain`
     for the contract. On CUDA: float32, contiguous, K = 128, 2 to 16 mics,
-    S a multiple of 128; one launch, eight warps per stream."""
+    S a multiple of 128; one launch, four warps per stream."""
     if not aligned.is_cuda:
         return gsc_sample_plain(aligned, block, filt, last_out, params,
                                 with_mu)

@@ -97,6 +97,31 @@ def _check_nfft(nfft: int):
             "CPU only (see ROADMAP.md §1)")
 
 
+def analysis_plan(nfft: int):
+    """The analysis kernel's FFT plan (csrc/reg_fft.cuh): its Stockham
+    passes as (R, Ns) pairs, (16, 1), (16, 16) and, above 256 points,
+    (nfft / 256, 256), and the twiddles of the passes with Ns > 1 as one
+    float32 (rows, 2) table, pass after pass, entry r * Ns + k holding
+    exp(-2 pi i k r / (Ns R)), computed in float64."""
+    passes = [(16, 1), (16, 16)] + ([(nfft // 256, 256)] if nfft > 256
+                                    else [])
+    parts = []
+    for r_, ns in passes[1:]:
+        r, k = np.meshgrid(np.arange(r_), np.arange(ns), indexing="ij")
+        ang = -2.0 * np.pi * (k * r).ravel() / (ns * r_)
+        parts.append(np.stack([np.cos(ang), np.sin(ang)], axis=-1))
+    return passes, np.concatenate(parts).astype(np.float32)
+
+
+@lru_cache(maxsize=8)
+def _analysis_tables(nfft: int, device: torch.device):
+    """(window (nfft,), the pass twiddles of :func:`analysis_plan`) as
+    float32 on ``device``."""
+    return (torch.as_tensor(sqrt_hann(nfft), dtype=torch.float32,
+                            device=device),
+            torch.as_tensor(analysis_plan(nfft)[1], device=device))
+
+
 @lru_cache(maxsize=8)
 def _tables(nfft: int, device: torch.device):
     """(window (nfft,), twiddles (nfft/2, 2)) as float32 on ``device``,
@@ -112,7 +137,7 @@ def wola_analysis(x: torch.Tensor, tail: torch.Tensor,
                   with_mag: bool = False):
     """Fused WOLA analysis; see :func:`wola_analysis_plain` for the
     contract. On CUDA: float32, contiguous, nfft = 2*hop a power of two in
-    [256, 4096]."""
+    [256, 4096]; one launch, with or without ``mag``."""
     if not x.is_cuda:
         return wola_analysis_plain(x, tail, with_mag)
     c, s = x.shape
@@ -125,7 +150,7 @@ def wola_analysis(x: torch.Tensor, tail: torch.Tensor,
     check_tensor(x, "x", torch.float32, (c, s), x.device)
     check_tensor(tail, "tail", torch.float32, (c, hop), x.device)
     nb = hop + 2
-    win, tw = _tables(2 * hop, x.device)
+    win, tw = _analysis_tables(2 * hop, x.device)
     spec = torch.empty((t, c, nb), dtype=torch.complex64, device=x.device)
     mag = (torch.empty((t, nb), dtype=torch.float32, device=x.device)
            if with_mag else None)

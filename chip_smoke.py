@@ -11,9 +11,10 @@ LCMV streaming solves, the Gauss-Jordan inverse, the fused MVDR/LCMV
 kernel, the fused GSS kernel, the phase mask, the MPF beams and march, the
 MCRA march, and GSC's per-sample, xmu, block-LMS and lookahead-8 adaptive
 stages)
-against its plain-torch version at the main paths' shapes, with
-its time beside its bound (the least time the card could take for the
-same work) and, where one PyTorch call computes the same function,
+against its plain-torch version at the main paths' shapes (the analysis
+also at every nfft it takes, with and without its fused gate statistic),
+with its time beside its bound (the least time the card could take for
+the same work) and, where one PyTorch call computes the same function,
 that call's time. It drives the main paths at full width (16 mics of the
 aira16 array, 48 kHz, 30 s, hop 1024) through ``run_offline``,
 ``StreamingSession`` and the CLI: delay-and-sum; MVDR and LCMV under the
@@ -352,6 +353,36 @@ def cuda_ms(fn, reps=REPS) -> float:
     return float(np.median(times))
 
 
+class SmClocks:
+    """nvidia-smi's clocks.sm (MHz) every 50 ms while open, beside a
+    timed call, of the card that torch's current device is."""
+
+    def __enter__(self):
+        import torch
+        uuid = str(torch.cuda.get_device_properties(
+            torch.cuda.current_device()).uuid)
+        gpu = uuid if uuid.startswith("GPU-") else f"GPU-{uuid}"
+        self.proc = subprocess.Popen(
+            ["nvidia-smi", "-i", gpu, "--query-gpu=clocks.sm",
+             "--format=csv,noheader,nounits", "-lms", "50"],
+            stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+        return self
+
+    def __exit__(self, *exc):
+        self.proc.terminate()
+        out = self.proc.communicate(timeout=30)[0]
+        self.mhz = [float(v) for v in out.split() if v.replace(".", "", 1)
+                    .isdigit()]
+        return False
+
+    def summary(self) -> str:
+        if not self.mhz:
+            return "clocks.sm not read"
+        return (f"clocks.sm median {np.median(self.mhz):.0f} MHz (min "
+                f"{min(self.mhz):.0f}, max {max(self.mhz):.0f}, "
+                f"{len(self.mhz)} samples)")
+
+
 def _err(got, ref):
     """(max abs error, max abs error / max |ref|) over paired tensors."""
     abs_err = max(float((g - r).abs().max()) for g, r in zip(got, ref))
@@ -405,9 +436,41 @@ def phase_kernels(t_main: int) -> dict:
     dev = torch.device(DEVICE)
     results = {}
 
-    cases = [("analysis", 16, t_main, False), ("analysis", 16, 256, False),
-             ("analysis", 16, 256, True), ("synthesis", 1, t_main, None),
-             ("synthesis", 1, 256, None), ("synthesis", 8, 256, None)]
+    # the analysis at every nfft it takes (each its own pass plan), odd and
+    # even channel counts, one frame to a streaming chunk, with and without
+    # the fused gate statistic: one launch each, checked, not timed
+    worst, n_cases = 0.0, 0
+    for hop in (128, 256, 512, 1024, 2048):
+        for c in (1, 5, 16):
+            for t in (1, 7, 64):
+                for with_mag in (False, True):
+                    x = torch.as_tensor(
+                        0.1 * rng.standard_normal((c, t * hop)),
+                        dtype=torch.float32, device=dev)
+                    tail = torch.as_tensor(
+                        0.1 * rng.standard_normal((c, hop)),
+                        dtype=torch.float32, device=dev)
+                    before = kw.wola_analysis.launches
+                    got = kw.wola_analysis(x, tail, with_mag)
+                    ref = kw.wola_analysis_plain(x, tail, with_mag)
+                    pairs = [(got[0], ref[0]), (got[2], ref[2])]
+                    if with_mag:
+                        pairs.append((got[1], ref[1]))
+                    rel = _err(*zip(*pairs))[1]
+                    worst, n_cases = max(worst, rel), n_cases + 1
+                    if not (rel <= KERNEL_REL_TOL and
+                            kw.wola_analysis.launches == before + 1):
+                        raise AssertionError(
+                            f"analysis nfft={2 * hop} C={c} T={t} "
+                            f"mag={with_mag}: rel err {rel}")
+    log(f"kernel analysis at nfft 256..4096, C 1/5/16, T 1/7/64, with and "
+        f"without mag ({n_cases} cases): worst rel err {worst:.3e} (bar "
+        f"{KERNEL_REL_TOL:g}), one launch each")
+
+    cases = [("analysis", 16, t_main, False), ("analysis", 16, t_main, True),
+             ("analysis", 16, 256, False), ("analysis", 16, 256, True),
+             ("synthesis", 1, t_main, None), ("synthesis", 1, 256, None),
+             ("synthesis", 8, 256, None)]
     for kind, c, t, with_mag in cases:
         if kind == "analysis":
             x = torch.as_tensor(0.1 * rng.standard_normal((c, t * HOP)),
@@ -1717,8 +1780,10 @@ def phase_gsc_kernels(x: np.ndarray, xs: np.ndarray, card: str,
                  a1, *gsc_zero(1, lookahead=True), pb)))
     results = {}
     for name, fn in calls:
-        ms = cuda_ms(fn, reps=3)
+        with SmClocks() as clk:
+            ms = cuda_ms(fn, reps=3)
         hops = GSC_BLOCK_CHECK_HOPS if name == "gsc_block" else GSC_CHECK_HOPS
+        log(f"  clocks during {name}'s calls: {clk.summary()}")
         log(f"kernel {name} B=1 M=16 S={s} (30 s, noise): {ms:.4f} ms, "
             f"{ms * 1e6 / s:.1f} ns per sample of the chain, "
             f"{SECONDS / ms * 1e3:.1f}x real time on {card}; plain torch "
@@ -1728,6 +1793,17 @@ def phase_gsc_kernels(x: np.ndarray, xs: np.ndarray, card: str,
                              **gsc_bound(1, s, 46 if name == "gsc_xmu"
                                          else 16, name == "gsc_block"),
                              library_ms=None)
+    # the per-sample kernel with the VAD gate at GSC_VAD, and with the
+    # write_mu trace
+    pv = make_params("gsc", preset("gsc", write_mu=False, use_vad=True,
+                                   vad_threshold=GSC_VAD))
+    for label, fn in (
+            (f"vad={GSC_VAD}", lambda: kg.gsc_sample(a1, *gsc_zero(1), pv)),
+            ("with the mu trace", lambda: kg.gsc_sample(a1, *gsc_zero(1), p,
+                                                        with_mu=True))):
+        ms = cuda_ms(fn, reps=3)
+        log(f"kernel gsc_sample B=1 M=16 S={s} {label}: {ms:.4f} ms, "
+            f"{ms * 1e6 / s:.1f} ns per sample on {card}")
     # the xmu mode's packing outside the kernel, apart
     pk_ms = cuda_ms(lambda: kg.xmu_inputs(a1, gsc_zero(1)[0], p), reps=3)
     log(f"  xmu_inputs (plain torch, outside the kernel): {pk_ms:.4f} ms")

@@ -49,23 +49,31 @@ def _rel(got, ref):
     return float((got - ref).abs().max() / ref.abs().max())
 
 
-@pytest.mark.parametrize("hop", [128, 1024, 2048])
+@pytest.mark.parametrize("hop", [128, 256, 512, 1024, 2048])
+@pytest.mark.parametrize("c", [1, 5, 16])
+@pytest.mark.parametrize("t", [1, 7, 64])
 @pytest.mark.parametrize("with_mag", [False, True])
-def test_analysis_kernel_matches_plain(cuda, hop, with_mag):
-    rng = np.random.default_rng(hop)
-    x = torch.as_tensor(rng.standard_normal((5, 7 * hop)),
+def test_analysis_kernel_matches_plain(cuda, hop, c, t, with_mag):
+    """Every nfft the kernel takes (each its own pass plan), odd and even
+    channel counts (an odd last channel pairs with zeros; 16 channels are
+    more pairs than a block holds at once), one frame to a streaming
+    chunk, with and without the fused gate statistic: one launch."""
+    rng = np.random.default_rng(hop + 10 * c + t)
+    x = torch.as_tensor(rng.standard_normal((c, t * hop)),
                         dtype=torch.float32, device=cuda)
-    tail = torch.as_tensor(rng.standard_normal((5, hop)),
+    tail = torch.as_tensor(rng.standard_normal((c, hop)),
                            dtype=torch.float32, device=cuda)
     before = kw.wola_analysis.launches
     spec, mag, new_tail = kw.wola_analysis(x, tail, with_mag)
     torch.cuda.synchronize()
     assert kw.wola_analysis.launches == before + 1
     ref_spec, ref_mag, ref_tail = kw.wola_analysis_plain(x, tail, with_mag)
-    assert spec.shape == (7, 5, hop + 2) and spec.dtype == torch.complex64
+    assert spec.shape == (t, c, hop + 2) and spec.dtype == torch.complex64
     assert _rel(spec, ref_spec) < REL
     assert torch.equal(new_tail, ref_tail)
+    assert (mag is not None) == with_mag
     if with_mag:
+        assert mag.shape == (t, hop + 2)
         assert _rel(mag, ref_mag) < REL
 
 
@@ -1011,6 +1019,30 @@ def test_gsc_sample_kernel_chunks_equal_one_call(cuda):
     assert torch.equal(torch.cat([one[4][1], two[4][1]], -1), full[4][1])
 
 
+@pytest.mark.parametrize("xmu", [False, True])
+def test_gsc_sample_kernel_30s_equals_chunks(cuda, xmu):
+    """30 s at 48 kHz (1,407 hops of 1,024, one stream, 16 mics) in one
+    call equals the same input in chunks of uneven multiples of 128
+    samples, bit for bit, state and trace included."""
+    from beamform_tpu_torch.kernels import gsc as kg
+    a, blk, flt, lo = _gsc_operands(1, 16, 1407 * 1024, 11, cuda)
+    p = _gsc_params(use_vad=True)
+    fn = kg.gsc_xmu if xmu else kg.gsc_sample
+    full = fn(a, blk, flt, lo, p, with_mu=True)
+    outs, mus, st = [], [], (blk, flt, lo)
+    edges = [0, 128, 128 * 1001, 128 * 1038, 128 * 7000, a.shape[-1]]
+    for e0, e1 in zip(edges[:-1], edges[1:]):
+        res = fn(a[..., e0:e1].contiguous(), *st, p, with_mu=True)
+        outs.append(res[0])
+        mus.append(res[4][0])
+        st = res[1:4]
+    torch.cuda.synchronize()
+    assert torch.equal(torch.cat(outs, -1), full[0])
+    assert torch.equal(torch.cat(mus, -1), full[4][0])
+    for x, y in zip(st, full[1:4]):
+        assert torch.equal(x, y)
+
+
 @pytest.mark.parametrize("use_vad", [False, True])
 def test_gsc_sample_kernel_mu_trace(cuda, use_vad):
     """The mu trace (channel 0's step, the update flag) against the plain
@@ -1051,6 +1083,38 @@ def test_gsc_sample_kernel_cold_start_and_nan(cuda):
     torch.testing.assert_close(got[0][:, :300], ref[0][:, :300], atol=2e-5,
                                rtol=1e-4)
     assert torch.isnan(got[0][0, 300])
+
+
+def test_gsc_sample_kernel_silent_lead_in_and_nan(cuda):
+    """The counterpart of test_gsc_block_kernel_cold_start_and_nan for the
+    per-sample kernel and its xmu mode: from a zero state behind a silent
+    lead-in every power is exactly 0 and every step scrubbed to 0, so the
+    output is zeros, not NaN; then a NaN sample mid-stream gives NaN
+    outputs exactly where the plain version has them, and the taps are
+    scrubbed."""
+    from beamform_tpu_torch.kernels import gsc as kg
+    a, blk, flt, lo = _gsc_operands(1, 4, 512, 9, cuda)
+    a[..., :256] = 0.0
+    zero = [torch.zeros_like(t) for t in (blk, flt, lo)]
+    p = _gsc_params()
+    ref = kg.gsc_sample_plain(a, *zero, p, with_mu=True)
+    for fn in (kg.gsc_sample, kg.gsc_xmu):
+        got = fn(a, *zero, p, with_mu=True)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0][:, :256], torch.zeros_like(got[0][:, :256]))
+        assert torch.equal(got[4][0][:, :256], ref[4][0][:, :256])
+        torch.testing.assert_close(got[0], ref[0], atol=2e-5, rtol=1e-4)
+    bad = a.clone()
+    bad[0, 1, 300] = float("nan")
+    ref = kg.gsc_sample_plain(bad, blk, flt, lo, p)
+    for fn in (kg.gsc_sample, kg.gsc_xmu):
+        got = fn(bad, blk, flt, lo, p)
+        torch.cuda.synchronize()
+        assert not torch.isnan(got[2]).any()         # the taps scrubbed
+        nan = torch.isnan(got[0])
+        assert bool(nan[0, 300]) and torch.equal(nan, torch.isnan(ref[0]))
+        torch.testing.assert_close(got[0][~nan], ref[0][~nan], atol=2e-5,
+                                   rtol=1e-4)
 
 
 @pytest.mark.parametrize("l", [128, 256, 512, 1024])

@@ -256,6 +256,45 @@ def test_wrappers_take_plain_on_cpu():
             tb.gsc_blocklms.launches) == before
 
 
+def _vad_decisions_agree(vad: float):
+    """The per-sample kernel's VAD test (osq < vad_power_threshold) against
+    the reference's sqrt(osq / K) < vad in float32, on every float32
+    within 64 ulps of the threshold, and on 0, inf and NaN."""
+    thr = np.float32(tk.vad_power_threshold(vad))
+    kinv, v = np.float32(1.0 / tk.K), np.float32(vad)
+    base = int(np.array(thr).view(np.uint32)) if thr > 0 else 0
+    bits = np.arange(max(base - 64, 0), base + 65, dtype=np.int64)
+    y = np.concatenate([bits.astype(np.uint32).view(np.float32),
+                        np.float32([0.0, np.inf, np.nan])])
+    with np.errstate(invalid="ignore"):
+        want = np.sqrt(y * kinv) < v
+        got = np.maximum(y, np.float32(0)) < thr
+    assert np.array_equal(got, want)
+    return want
+
+
+@pytest.mark.parametrize("vad", [0.1, 0.05, 0.025])
+def test_vad_power_threshold_decides_as_the_sqrt(vad):
+    """At the launch preset's vad_threshold (0.1), the tests' (0.05) and
+    chip_smoke.py's (0.025): both decisions occur around the threshold."""
+    want = _vad_decisions_agree(vad)
+    assert want.any() and not want.all()
+
+
+def test_vad_power_threshold_random():
+    """25 float32 vad_threshold values drawn by hypothesis."""
+    hypothesis = pytest.importorskip("hypothesis")
+    hst = pytest.importorskip("hypothesis.strategies")
+
+    @hypothesis.settings(max_examples=25, deadline=None)
+    @hypothesis.given(hst.floats(min_value=2.0 ** -40, max_value=1024.0,
+                                 width=32))
+    def agree(vad):
+        _vad_decisions_agree(vad)
+
+    agree()
+
+
 def test_gsc_write_mu_trace_matches_jax(tmp_path):
     """The mu trace file, line for line, with the VAD gate overwriting the
     running sum (the reference's accumulate-or-overwrite fold), over two
