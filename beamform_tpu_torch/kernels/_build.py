@@ -141,7 +141,7 @@ def _declare(lib):
     lib.bf_mcra_march.restype = i
     lib.bf_gsc_sample.argtypes = [p] * 10 + [i] * 5 + [fp, p]
     lib.bf_gsc_sample.restype = i
-    lib.bf_gsc_blocklms.argtypes = [p] * 8 + [i] * 5 + [fp, p]
+    lib.bf_gsc_blocklms.argtypes = [p] * 8 + [i] * 8 + [fp, p]
     lib.bf_gsc_blocklms.restype = i
     lib.bf_gsc_block.argtypes = [p] * 11 + [i] * 4 + [fp, p]
     lib.bf_gsc_block.restype = i

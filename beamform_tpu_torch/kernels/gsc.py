@@ -176,7 +176,7 @@ def vad_power_threshold(vad: float, k: int = K) -> float:
 
 def coef_array(params, m: int):
     """The GSC kernels' float coefficients: 1/K, mu0^2/K, mu_max^2/K, mu0,
-    vad_threshold, 1/M, and the per-sample kernel's VAD threshold on osq
+    vad_threshold, 1/M, and the VAD threshold on osq that the kernels test
     (:func:`vad_power_threshold`)."""
     vals = (1.0 / K, params.mu0 * params.mu0 / K,
             params.mu_max * params.mu_max / K, params.mu0,

@@ -138,7 +138,7 @@ def gsc_block_plain(aligned, block, filt, last_out, gram, uold, params):
 def gsc_block(aligned, block, filt, last_out, gram, uold, params):
     """The lookahead-8 adaptive stage; see :func:`gsc_block_plain` for the
     contract. On CUDA: float32, contiguous, K = 128, 2 to 16 mics, S a
-    multiple of 128; one launch, eight warps per stream."""
+    multiple of 128; one launch, four warps per stream."""
     if not aligned.is_cuda:
         return gsc_block_plain(aligned, block, filt, last_out, gram, uold,
                                params)
@@ -152,6 +152,8 @@ def gsc_block(aligned, block, filt, last_out, gram, uold, params):
     check_tensor(last_out, "last_out", torch.float32, (b, K), dev)
     check_tensor(gram, "gram", torch.float32, (b, c, L), dev)
     check_tensor(uold, "uold", torch.float32, (b, c, L), dev)
+    if aligned.data_ptr() % 16:
+        aligned = aligned.clone()    # the kernel copies 16-byte rows
     out = torch.empty((b, s), dtype=torch.float32, device=dev)
     blk_o, flt_o = torch.empty_like(block), torch.empty_like(filt)
     lo_o = torch.empty_like(last_out)

@@ -30,6 +30,30 @@ K = 128          # filter taps (reference default, gsc.cpp:219)
 L = 128          # default block length
 VALID_BLOCKS = (128, 256, 512, 1024)   # GscParams.block_samples choices
 MAX_MICS = 16
+MAX_CLUSTER = 8  # CTAs a stream: the portable thread-block cluster size
+
+
+def cluster_plan(m: int) -> tuple[int, int]:
+    """(CTAs a stream, channels a CTA) of the CUDA kernel for M mics: one
+    channel a CTA up to MAX_CLUSTER channels, two beyond, so no cluster
+    passes the portable 8 CTAs. CTA r owns channels [r cpc, min(C, (r+1)
+    cpc)), C = M - 1: every channel once, every CTA at least one."""
+    c = m - 1
+    cpc = 1 if c <= MAX_CLUSTER else 2
+    return -(-c // cpc), cpc
+
+
+def smem_bytes(l: int, cpc: int) -> int:
+    """Shared memory a CTA of the CUDA kernel takes at block length l with
+    cpc channels (``Layout`` in ``csrc/gsc_blocklms.cu``, which refuses any
+    other figure): its ucat rows (3 words of pad and 1 behind) and their
+    prefix of squares, the outputs and their prefix, the filters, mu out,
+    its part of the beam, two published shares, 8 cpc l partials of the
+    correlations, cpc + 1 mic rows, 32 of scan scratch."""
+    n = K + l
+    floats = (cpc * (n + 4) + cpc * n + 2 * n + cpc * K + cpc * l + l
+              + 2 * l + 8 * cpc * l + (cpc + 1) * l + 32)
+    return 4 * floats
 
 
 def block_len(params) -> int:
@@ -105,7 +129,7 @@ def gsc_blocklms_scan(aligned, block, filt, last_out, params):
 def gsc_blocklms(aligned, block, filt, last_out, params):
     """Block LMS; see :func:`gsc_blocklms_plain` for the contract. On CUDA:
     float32, contiguous, K = 128, 2 to 16 mics, S a positive multiple of
-    l; one launch, one thread block per stream."""
+    l; one launch, a thread-block cluster per stream (:func:`cluster_plan`)."""
     if not aligned.is_cuda:
         return gsc_blocklms_plain(aligned, block, filt, last_out, params)
     l = block_len(params)
@@ -125,6 +149,9 @@ def gsc_blocklms(aligned, block, filt, last_out, params):
     check_tensor(block, "block", torch.float32, (b, c, K), dev)
     check_tensor(filt, "filt", torch.float32, (b, c, K), dev)
     check_tensor(last_out, "last_out", torch.float32, (b, K), dev)
+    if aligned.data_ptr() % 16:
+        aligned = aligned.clone()    # the kernel copies 16-byte rows
+    cs, cpc = cluster_plan(m)
     out = torch.empty((b, s), dtype=torch.float32, device=dev)
     blk_o, flt_o = torch.empty_like(block), torch.empty_like(filt)
     lo_o = torch.empty_like(last_out)
@@ -134,7 +161,8 @@ def gsc_blocklms(aligned, block, filt, last_out, params):
             aligned.data_ptr(), block.data_ptr(), filt.data_ptr(),
             last_out.data_ptr(), out.data_ptr(), blk_o.data_ptr(),
             flt_o.data_ptr(), lo_o.data_ptr(), b, m, s, l,
-            int(params.use_vad), coef_array(params, m), stream)
+            int(params.use_vad), cs, cpc, smem_bytes(l, cpc),
+            coef_array(params, m), stream)
     check(lib, code, "gsc_blocklms")
     gsc_blocklms.launches += 1
     return out, blk_o, flt_o, lo_o

@@ -1691,10 +1691,11 @@ def phase_gsc_kernels(x: np.ndarray, xs: np.ndarray, card: str,
     the per-sample kernel's output, the same function up to round-off and
     the NaN scrub's timing, logged). The per-sample recurrence's float64
     reference runs on the CPU in ``pool`` meanwhile. Then each kernel's
-    time by CUDA events at the main shape (one stream, 30 s), and the
-    per-sample, block-LMS and lookahead-8 kernels' aggregate rate at
-    bench.py's batch of 32 streams over 10 s. Returns the main shape's
-    numbers per kernel."""
+    time by CUDA events at the main shape (one stream, 30 s; block LMS also
+    at l = 512, and the lookahead-8 kernel's time against the per-sample
+    kernel's), and the per-sample, block-LMS and lookahead-8 kernels'
+    aggregate rate at bench.py's batch of 32 streams over 10 s. Returns the
+    main shape's numbers per kernel."""
     import torch
     from beamform_tpu_torch.config import make_params
     from beamform_tpu_torch.kernels import gsc as kg
@@ -1793,6 +1794,16 @@ def phase_gsc_kernels(x: np.ndarray, xs: np.ndarray, card: str,
                              **gsc_bound(1, s, 46 if name == "gsc_xmu"
                                          else 16, name == "gsc_block"),
                              library_ms=None)
+    log(f"  gsc_block / gsc_sample at B=1 (30 s): "
+        f"{results['gsc_block']['ms'] / results['gsc_sample']['ms']:.3f}")
+    pl512 = make_params("gsc", preset("gsc", write_mu=False,
+                                      solver="blocklms", block_samples=512))
+    with SmClocks() as clk:
+        ms = cuda_ms(lambda: kb.gsc_blocklms(a1, *gsc_zero(1), pl512), reps=3)
+    log(f"  clocks during gsc_blocklms l=512's calls: {clk.summary()}")
+    log(f"kernel gsc_blocklms l=512 B=1 M=16 S={s} (30 s, noise): {ms:.4f} "
+        f"ms, {ms * 1e6 / s:.1f} ns per sample, {SECONDS / ms * 1e3:.1f}x "
+        f"real time on {card}")
     # the per-sample kernel with the VAD gate at GSC_VAD, and with the
     # write_mu trace
     pv = make_params("gsc", preset("gsc", write_mu=False, use_vad=True,
@@ -1817,11 +1828,17 @@ def phase_gsc_kernels(x: np.ndarray, xs: np.ndarray, card: str,
                                                         pl)),
                ("gsc_block", lambda: kbk.gsc_block(
                    a32, *gsc_zero(32, lookahead=True), pb)))
+    cs, cpc = kb.cluster_plan(16)
+    sms = torch.cuda.get_device_properties(a32.device).multi_processor_count
     for name, fn in batch32:
         ms = cuda_ms(fn, reps=3)
+        grid = (f"; {32 * cs} CTAs of {kb.smem_bytes(128, cpc)} B shared "
+                f"memory in clusters of {cs} on {sms} SMs"
+                if name == "gsc_blocklms" else "")
         log(f"kernel {name} B=32 M=16 S={n10} (10 s each): {ms:.4f} ms, "
             f"aggregate {32 * n10 / FS / ms * 1e3:.1f} audio-s per s, "
-            f"{ms * 1e6 / n10:.1f} ns per sample of each chain on {card}")
+            f"{ms * 1e6 / n10:.1f} ns per sample of each chain on {card}"
+            f"{grid}")
     return results
 
 

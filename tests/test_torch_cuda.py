@@ -1118,14 +1118,16 @@ def test_gsc_sample_kernel_silent_lead_in_and_nan(cuda):
 
 
 @pytest.mark.parametrize("l", [128, 256, 512, 1024])
-@pytest.mark.parametrize("m", [3, 16])
+@pytest.mark.parametrize("m", [2, 5, 16])
+@pytest.mark.parametrize("b", [1, 3])
 @pytest.mark.parametrize("use_vad", [False, True])
-def test_gsc_blocklms_kernel_matches_plain(cuda, l, m, use_vad):
-    """Row 11 against its plain version from a carried state, two
-    streams, at the JAX package's kernel-vs-scan tolerance
-    (tests/test_gsc_blocklms.py)."""
+def test_gsc_blocklms_kernel_matches_plain(cuda, l, m, b, use_vad):
+    """Row 11 against its plain version from a carried state, at the JAX
+    package's kernel-vs-scan tolerance (tests/test_gsc_blocklms.py): every
+    block length, one and two channels a CTA (clusters of 1, 4 and 8 CTAs,
+    kernels/gsc_blocklms.py cluster_plan), one and three streams."""
     from beamform_tpu_torch.kernels import gsc_blocklms as kb
-    ops = _gsc_operands(2, m, 2048, l + m, cuda)
+    ops = _gsc_operands(b, m, 2048, l + m + 100 * b, cuda)
     p = _gsc_params(use_vad=use_vad, mu_max=0.01, solver="blocklms",
                     block_samples=l)
     before = kb.gsc_blocklms.launches
@@ -1142,6 +1144,73 @@ def test_gsc_blocklms_kernel_matches_plain(cuda, l, m, use_vad):
     two = kb.gsc_blocklms(ops[0][..., 1024:].contiguous(), *one[1:], p)
     assert torch.equal(torch.cat([one[0], two[0]], -1), got[0])
     assert torch.equal(two[2], got[2])
+
+
+def _vad_boundary_operands(b, m, s, seed, device):
+    """Operands whose osq is exactly 32 at every sample while the filters
+    stay 0: every mic is +-0.5 (one sign a sample) plus dyadic offsets
+    that cancel in the mic sum, so the fixed beam is exactly +-0.5 for M a
+    power of two, and the last outputs are +-0.5 too; with zero filters
+    each output is the beam, so each window's 128 squares sum to 32 in any
+    order. sqrt(32 / 128) = 0.5 is where the VAD test flips."""
+    rng = np.random.default_rng(seed)
+    sign = rng.choice([-0.5, 0.5], size=(b, 1, s))
+    off = np.zeros((b, m, s))
+    delta = rng.choice([-0.25, -0.125, 0.125, 0.25], size=(b, m // 2, s))
+    off[:, 0:2 * (m // 2):2] = delta
+    off[:, 1:2 * (m // 2):2] = -delta
+    a = torch.as_tensor(sign + off, dtype=torch.float32, device=device)
+    blk = torch.as_tensor(0.2 * rng.standard_normal((b, m - 1, 128)),
+                          dtype=torch.float32, device=device)
+    lo = torch.as_tensor(rng.choice([-0.5, 0.5], size=(b, 128)),
+                         dtype=torch.float32, device=device)
+    return a, blk, torch.zeros_like(blk), lo
+
+
+@pytest.mark.parametrize("kernel", ["sample", "blocklms", "block"])
+@pytest.mark.parametrize("m", [4, 16])
+def test_gsc_kernels_vad_threshold_on_a_float32_boundary(cuda, kernel, m):
+    """The kernels test osq against a host threshold
+    (kernels/gsc.py vad_power_threshold) where the plain versions take
+    sqrt(osq / K) < vad_threshold. With osq exactly 32 everywhere and the
+    threshold exactly sqrt(32 / 128) = 0.5, the gate holds at every
+    sample: the output is the beam bit for bit and the filters stay 0.
+    One float32 above 0.5, the gate opens in both the kernel and its plain
+    version, which then agree as in the *_matches_plain tests: the large
+    step moves osq off the boundary once the filters adapt (on these
+    operands at least 6e-4 from it afterwards, where float32 round-off is
+    ~1e-5), so no later decision rests on round-off."""
+    from beamform_tpu_torch.kernels import gsc as kg
+    from beamform_tpu_torch.kernels import gsc_block as kbk
+    from beamform_tpu_torch.kernels import gsc_blocklms as kb
+    from beamform_tpu_torch.models.gsc import gram_refresh
+    a, blk, flt, lo = _vad_boundary_operands(2, m, 1024, m, cuda)
+    if kernel == "block":
+        uold = torch.zeros_like(blk[..., :8])
+        gram, _ = gram_refresh(uold[..., :0], uold, blk, 128)
+        st = (blk, flt, lo, gram.contiguous(), uold)
+        fn, plain = kbk.gsc_block, kbk.gsc_block_plain
+    else:
+        st = (blk, flt, lo)
+        fn, plain = {"sample": (kg.gsc_sample, kg.gsc_sample_plain),
+                     "blocklms": (kb.gsc_blocklms,
+                                  kb.gsc_blocklms_plain)}[kernel]
+    beam = a.mean(dim=1)
+    edge = float(np.sqrt(np.float32(32.0) / np.float32(128.0)))
+    assert edge == 0.5
+    above = float(np.nextafter(np.float32(edge), np.float32(1.0)))
+    for vad, holds in ((edge, True), (above, False)):
+        p = _gsc_params(use_vad=True, vad_threshold=vad, solver=kernel,
+                        mu0=0.02)
+        got = fn(a, *st, p)
+        ref = plain(a, *st, p)
+        torch.cuda.synchronize()
+        assert torch.equal(ref[0], beam) == holds
+        assert torch.equal(got[0], beam) == holds
+        assert torch.equal(got[2], flt) == holds
+        if not holds:
+            torch.testing.assert_close(got[0], ref[0], atol=3e-5, rtol=1e-4)
+            torch.testing.assert_close(got[2], ref[2], atol=2e-5, rtol=1e-3)
 
 
 def _block_operands(b, m, s, seed, device):

@@ -295,6 +295,52 @@ def test_vad_power_threshold_random():
     agree()
 
 
+@pytest.mark.parametrize("form", ["block", "blocklms"])
+@pytest.mark.parametrize("vad", [0.1, 0.05, 0.025])
+def test_vad_power_threshold_decides_as_the_block_versions(form, vad):
+    """The block kernels test max(osq, 0) < vad_power_threshold where
+    their plain versions take sqrt(max(osq, 0) / K) (lookahead-8) or
+    sqrt(max(osq / K, 0)) (block LMS, whose osq is a difference of prefix
+    sums and may come out slightly negative) < vad_threshold: the same
+    decision on every float32 within 64 ulps of the threshold, on negative
+    values, 0, inf and NaN."""
+    thr = np.float32(tk.vad_power_threshold(vad))
+    kinv, v = np.float32(1.0 / tk.K), np.float32(vad)
+    base = int(np.array(thr).view(np.uint32))
+    bits = np.arange(base - 64, base + 65, dtype=np.int64)
+    y = np.concatenate([bits.astype(np.uint32).view(np.float32),
+                        np.float32([0.0, -0.0, -1e-30, -1e-7, -3.0,
+                                    np.inf, -np.inf, np.nan])])
+    z = np.float32(0)
+    with np.errstate(invalid="ignore"):
+        want = (np.sqrt(np.maximum(y, z) * kinv) < v if form == "block"
+                else np.sqrt(np.maximum(y * kinv, z)) < v)
+        # NaN-keeping clamp, as the kernels' clamp0: x < 0 ? 0 : x
+        got = np.where(y < z, z, y) < thr
+    assert np.array_equal(got, want)
+    assert want.any() and not want.all()
+
+
+@pytest.mark.parametrize("m", range(2, 17))
+@pytest.mark.parametrize("l", tb.VALID_BLOCKS)
+def test_blocklms_cluster_plan_and_shared_memory(m, l):
+    """What the block-LMS kernel launches with (``cluster_plan``,
+    ``smem_bytes``): every channel of M mics owned by exactly one CTA of
+    the stream's cluster, each CTA owning one or two, at most the
+    portable 8 CTAs, and no CTA's shared memory past the H100's 227 KB."""
+    cs, cpc = tb.cluster_plan(m)
+    assert 1 <= cs <= tb.MAX_CLUSTER and cpc in (1, 2)
+    owned = [c for r in range(cs)
+             for c in range(r * cpc, min(m - 1, (r + 1) * cpc))]
+    assert owned == list(range(m - 1))
+    assert all(r * cpc < m - 1 for r in range(cs))
+    smem = tb.smem_bytes(l, cpc)
+    assert smem <= 227 * 1024      # a CTA's shared memory on an H100
+    # the layout's fixed parts: two ucat rows a channel (one with 4 words
+    # of pad) and the partials of the correlations, 8 cpc l floats
+    assert smem > 4 * (2 * cpc * (128 + l) + 8 * cpc * l)
+
+
 def test_gsc_write_mu_trace_matches_jax(tmp_path):
     """The mu trace file, line for line, with the VAD gate overwriting the
     running sum (the reference's accumulate-or-overwrite fold), over two

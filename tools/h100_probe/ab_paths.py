@@ -10,8 +10,9 @@ their own, N pairs (default 10) in the order parent, change, change,
 parent, ... Each process drives, on chip_smoke.py's noise input (aira16's
 16 mics, 48 kHz, 30 s), the device-resident call ``model.process`` of DAS,
 MVDR ``auto`` and LCMV ``auto`` (one slot), phase, phasempf and mcra under
-the launch presets, and GSC ``sample``: the time of one call is CUDA
-events around it, median of 10 after 3 warm-ups (GSC: of 3 after 1). It
+the launch presets, and GSC ``sample``, ``block`` and ``blocklms`` (l =
+128): the time of one call is CUDA events around it, median of 10 after 3
+warm-ups (GSC: of 3 after 1). It
 also times ``kernels.wola.wola_analysis`` (C = 16, T = 1407 and T = 64,
 with and without the gate statistic, seeded noise) and ``torch.stft``
 on the same frames as chip_smoke.py's ``cuda_ms`` does (one call between
@@ -31,8 +32,14 @@ import sys
 import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-PATHS = (("das", 10), ("mvdr", 10), ("lcmv", 10), ("phase", 10),
-         ("phasempf", 10), ("mcra", 10), ("gsc", 3))
+# (label, node, parameters over the launch preset, timed calls)
+PATHS = (("das", "das", None, 10), ("mvdr", "mvdr", {}, 10),
+         ("lcmv", "lcmv", {}, 10), ("phase", "phase", {}, 10),
+         ("phasempf", "phasempf", {}, 10), ("mcra", "mcra", {}, 10),
+         ("gsc", "gsc", {"write_mu": False}, 3),
+         ("gsc block", "gsc", {"write_mu": False, "solver": "block"}, 3),
+         ("gsc blocklms", "gsc", {"write_mu": False, "solver": "blocklms"},
+          3))
 ANALYSIS_T = (1407, 64)
 
 
@@ -48,9 +55,8 @@ def worker(root: str) -> dict:
     from beamform_tpu_torch.models import get_model
     x = torch.as_tensor(cs.make_input(16, cs.SECONDS), device="cuda")
     out = {}
-    for node, reps in PATHS:
-        params = (cs.preset("gsc", write_mu=False) if node == "gsc"
-                  else None if node == "das" else cs.preset(node))
+    for label, node, over, reps in PATHS:
+        params = None if over is None else cs.preset(node, **over)
         model = get_model(node, cs.engine(), cs.aira16(), params,
                           device="cuda")
         for _ in range(3 if reps > 3 else 1):
@@ -64,7 +70,7 @@ def worker(root: str) -> dict:
             b.record()
             b.synchronize()
             times.append(a.elapsed_time(b))
-        out[node] = float(np.median(times))
+        out[label] = float(np.median(times))
         del model
     hop = cs.HOP
     win = torch.as_tensor(sqrt_hann(2 * hop), dtype=torch.float32,
