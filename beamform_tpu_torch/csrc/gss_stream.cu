@@ -5,8 +5,8 @@
 // through gss_mega): raw audio hops in, separated audio out, in one launch.
 // Per frame t of the call and in-band bin (gss.cpp:90-156):
 //
-//   analysis   as mega_stream.cu (band_wola.cuh): sqrt-Hann, nfft-point DFT,
-//              the band's bins only, gate statistic sum_m |X_m| / (M nfft)
+//   analysis   band_wola.cuh: sqrt-Hann, nfft-point DFT, the band's bins
+//              only, gate statistic sum_m |X_m| / (M nfft)
 //   reset      W <- A^H on the frame's reset flag (update_weights)
 //   output     y = W x with the pre-update W; source 0 where the gate
 //              passes, else 0.01 * x[mic 0]; 0 outside the band

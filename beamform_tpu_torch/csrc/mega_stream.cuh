@@ -1,0 +1,332 @@
+// The fused MVDR/LCMV kernel's template and its launch code (mega_stream.cu
+// has the design): mega_stream.cu instantiates it for problem sizes MP 4
+// and 8, mega_stream_16.cu for 16 and mega_stream_32.cu for 32, so that the
+// package's build compiles the sizes in parallel.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "band_wola.cuh"
+#include "reg_fft.cuh"
+#include "tri_solve.cuh"
+
+namespace bf_mega {
+
+using namespace bf_tri;
+
+struct MegaArgs {
+  const float* x;         // (M, T * hop) audio
+  const float* tail;      // (M, hop) analysis carry
+  const float* out_prev;  // (hop,) overlap-add carry
+  const float2* hist;     // (W, M, NIB) in-band history, oldest first
+  const float2* ctrl;     // (U, S, M, NIB) steering (S = 1) or constraints
+  const int64_t* idx;     // (T,) control row per frame
+  const int64_t* ib;      // (NIB,) in-band bins
+  const float* win;       // (nfft,) sqrt-Hann
+  const float2* tw;       // (nfft / 2,) exp(-2 pi i j / nfft): synthesis
+  const float2* ptw;      // the analysis FFT's pass twiddles
+                          // (kernels/wola.py analysis_plan)
+  float* out;             // (T * hop,) zero on entry
+  float* new_prev;        // (hop,)
+  float2* hist_out;       // (W, M, NIB)
+  float2* ring;           // scratch (SEG + W, M, NIB): extended frame e at
+                          // slot e % (SEG + W); e < W the history
+  float2* ys;             // scratch (SEG, NIB): the segment's gated output
+  float* dc;              // scratch (2, SEG): mic 0's bin 0 per frame
+  int M, T, hop, log2n, NIB, W, U, S, SEG;
+  float thr;
+  int refine;
+};
+
+// launch_lanes<16> and <32>, each in its own source
+cudaError_t launch_16(const MegaArgs& a, bool lcmv, cudaStream_t st);
+cudaError_t launch_32(const MegaArgs& a, bool lcmv, cudaStream_t st);
+
+namespace {
+
+
+// Channel pairs a stage-A block transforms at once: one group of n / 16
+// threads each, for n = 256 R3.
+template <int R3>
+__host__ __device__ constexpr int analysis_pairs() {
+  return kThreads / (16 * R3);
+}
+
+// Stage A's analysis of frame t (of the call) for the channel pairs q0 ..
+// q0 + G - 1, G = analysis_pairs<R3>(): frame t of [tail | x] under the
+// window, one complex FFT per pair (reg_fft.cuh), the band's bins split
+// into the ring's frame plane dst ((M, NIB)); X_0[0] into *dc when q0 is 0.
+// A bin outside [1, n / 2) gives NaN. Every thread of the block calls it
+// (the FFT synchronises the block).
+template <int R3>
+__device__ __noinline__ void analyze_pairs(
+    float2* sh, const float* __restrict__ x, const float* __restrict__ tail,
+    const float* __restrict__ win, const float2* __restrict__ ptw,
+    const int64_t* __restrict__ ib, float2* __restrict__ dst,
+    float* __restrict__ dc, int M, int T, int NIB, int t, int q0) {
+  constexpr int n = 256 * R3;
+  constexpr int hop = n / 2;
+  constexpr int tpf = n / bf_fft::kPts;     // threads per pair
+  constexpr int G = analysis_pairs<R3>();
+  constexpr int ld = bf_fft::padded(n);
+  const int g = threadIdx.x / tpf;
+  const int j = threadIdx.x - g * tpf;
+  const int P = (M + 1) / 2;
+  const int pr = q0 + g;
+  const size_t S = (size_t)T * hop;
+  float2 v[bf_fft::kPts];
+  if (pr < P) {
+    // points j + s n / 16: the first half from hop t of [tail | x], the
+    // second from hop t + 1
+    const int c0 = 2 * pr;
+    const bool pair = c0 + 1 < M;
+    const float* lo0 = t == 0 ? tail + (size_t)c0 * hop
+                              : x + c0 * S + (size_t)(t - 1) * hop;
+    const float* hi0 = x + c0 * S + (size_t)t * hop;
+    const size_t dlo = t == 0 ? hop : S;        // to the pair's second row
+#pragma unroll
+    for (int s = 0; s < bf_fft::kPts; ++s) {
+      const int i = j + s * tpf;
+      const float* src = s < bf_fft::kPts / 2 ? lo0 + i : hi0 + i - hop;
+      const size_t d = s < bf_fft::kPts / 2 ? dlo : S;
+      const float w = __ldg(win + i);
+      const float a = __ldg(src);
+      const float b = pair ? __ldg(src + d) : 0.f;
+      v[s] = make_float2(a * w, b * w);
+    }
+  } else {
+#pragma unroll
+    for (int s = 0; s < bf_fft::kPts; ++s) v[s] = make_float2(0.f, 0.f);
+  }
+  bf_fft::fft<R3>(v, sh + g * ld, ptw, j);
+  // X_c0[k] = (Z[k] + conj(Z[n-k])) / 2, X_c0+1[k] = (Z[k] - conj(Z[n-k])) / 2i
+  const float nan = __int_as_float(0x7fc00000);
+  for (int q = threadIdx.x; q < G * NIB; q += kThreads) {
+    const int gq = q / NIB, jb = q - gq * NIB;
+    const int c0 = 2 * (q0 + gq);
+    if (c0 >= M) continue;
+    const int64_t k = ib[jb];
+    float2 a = make_float2(nan, nan), b = a;
+    if (k >= 1 && k < hop) {
+      const float2 z = sh[gq * ld + bf_fft::pad((int)k)];
+      const float2 m = sh[gq * ld + bf_fft::pad(n - (int)k)];
+      a = make_float2(0.5f * (z.x + m.x), 0.5f * (z.y - m.y));
+      b = make_float2(0.5f * (z.y + m.y), -0.5f * (z.x - m.x));
+    }
+    dst[(size_t)c0 * NIB + jb] = a;
+    if (c0 + 1 < M) dst[(size_t)(c0 + 1) * NIB + jb] = b;
+  }
+  if (q0 == 0 && threadIdx.x == 0) *dc = sh[0].x;     // X_0[0], real
+  __syncthreads();                                    // sh is reused
+}
+
+// Stage B of segment ``sg`` (frames t0 .. t0 + F - 1) for one tile: bins
+// b0 .. b0 + kBins - 1, segment frames f0 .. f0 + kFrames - 1.
+template <int MP, int SP, bool kLcmv>
+__device__ __forceinline__ void solve_tile(const MegaArgs& p, float2* smem,
+                                           int t0, int F, int b0, int f0) {
+  using Sh = Shape<MP>;
+  const int W = p.W, M = p.M, NIB = p.NIB;
+  const int R = p.SEG + W;
+  const size_t plane = (size_t)M * NIB;
+  float2* xs = smem;                        // [kFrames + W][kBins][LD]
+  const int ne = kFrames + W;
+  for (int q = threadIdx.x; q < ne * MP * kBins; q += kThreads) {
+    const int bb = q % kBins;
+    const int m = (q / kBins) % MP;
+    const int el = q / (kBins * MP);          // staged row: frame f0+el-W
+    float2 v = make_float2(0.f, 0.f);
+    if (m < M && b0 + bb < NIB && f0 + el - W < F) {
+      const int e = t0 + f0 + el;             // extended frame index
+      v = p.ring[(size_t)(e % R) * plane + (size_t)m * NIB + b0 + bb];
+    }
+    xs[(el * kBins + bb) * Sh::LD + m] = v;
+  }
+  __syncthreads();
+
+  const int slot = threadIdx.x / Sh::H;
+  const int l = threadIdx.x % Sh::H;        // rows l and MP - 1 - l
+  const int rh = MP - 1 - l;
+  float2* cb = smem + tile_elems<MP>(W) + slot * Sh::CB;
+  float2* xp = smem + tile_elems<MP>(W) + cbuf_elems<MP>() + slot * SP * MP;
+  const unsigned grp = group_mask<MP>();
+  const float scale = 1.f / (float)(M * 2 * p.hop);
+  const float nan = __int_as_float(0x7fc00000);
+  for (int it = 0; it < kBins * kFrames / Sh::kSlots; ++it) {
+    const int q = slot + it * Sh::kSlots;
+    const int bb = q % kBins;
+    const int lt = q / kBins;
+    const int f = f0 + lt;
+    const int bin = b0 + bb;
+    const bool valid = f < F && bin < NIB;
+    const float2* xrow = frame<MP>(xs, lt + W, bb);
+    const float2 xl = xrow[l], xh = xrow[rh];
+    // gate statistic: every lane of the warp takes part
+    const float mag =
+        group_sum<Sh::H>(0xffffffffu,
+                         make_float2(sqrtf(xl.x * xl.x + xl.y * xl.y) +
+                                         sqrtf(xh.x * xh.x + xh.y * xh.y),
+                                     0.f)).x * scale;
+    const bool act = valid && mag > p.thr;
+    const unsigned mask = __ballot_sync(0xffffffffu, act) & grp;
+    float2* yo = p.ys + (size_t)f * NIB + bin;
+    if (!act) {
+      if (valid && l == 0) *yo = make_float2(0.01f * xl.x, 0.01f * xl.y);
+      continue;
+    }
+    Factor<MP> fc;
+    covariance_factor<MP>(mask, xs, cb, lt, bb, l, M, W, fc);
+    const int64_t u = p.idx[t0 + f];
+    const bool bad = u < 0 || u >= p.U;
+    const float2* cu = p.ctrl + (size_t)(bad ? 0 : u) * p.S * plane + bin;
+    float2 yv;
+    if constexpr (kLcmv) {
+      yv = lcmv_apply<MP, SP>(mask, xs, lt, bb, l, M, W, p.S, fc, cu, NIB,
+                              bad, xl, xh, xp, p.refine != 0);
+    } else {
+      float2 dl = make_float2(0.f, 0.f), dh = dl;
+      if (bad) {
+        dl = dh = make_float2(nan, nan);
+      } else {
+        if (l < M) dl = cu[(size_t)l * NIB];
+        if (rh < M) dh = cu[(size_t)rh * NIB];
+      }
+      yv = mvdr_apply<MP>(mask, xs, lt, bb, l, W, fc, dl, dh, xl, xh,
+                          p.refine != 0);
+    }
+    if (l == 0) *yo = yv;
+  }
+  __syncthreads();                          // xs is restaged
+}
+
+// Stage A's analysis of item ``item``: frame item / groups of the segment,
+// the item % groups-th group of channel pairs.
+__device__ __forceinline__ void analyze_item(const MegaArgs& p, float2* smem,
+                                             int t0, int sg, int groups,
+                                             int item) {
+  const int f = item / groups;
+  const int q0 = (item - f * groups) * (kThreads * 16 / (2 * p.hop));
+  const int t = t0 + f;
+  float2* dst = p.ring + (size_t)((p.W + t) % (p.SEG + p.W)) *
+                             ((size_t)p.M * p.NIB);
+  float* dc = p.dc + (sg & 1) * p.SEG + f;
+#define BF_ANALYZE(R3)                                                     \
+  analyze_pairs<R3>(smem, p.x, p.tail, p.win, p.ptw, p.ib, dst, dc, p.M,   \
+                    p.T, p.NIB, t, q0)
+  switch (p.hop) {
+    case 128: BF_ANALYZE(1); break;
+    case 256: BF_ANALYZE(2); break;
+    case 512: BF_ANALYZE(4); break;
+    case 1024: BF_ANALYZE(8); break;
+    default: BF_ANALYZE(16); break;
+  }
+#undef BF_ANALYZE
+}
+
+// two blocks of 256 threads an SM (128 registers a thread) up to 16 rows
+// and 8 slots; past that the X scratch's shared memory or the factor's
+// size leaves room for one, with 255 registers
+template <int MP, int SP, bool kLcmv>
+__global__ void __launch_bounds__(kThreads, (MP <= 16 && SP <= 8) ? 2 : 1)
+    mega_kernel(MegaArgs p) {
+  extern __shared__ float4 smem4[];
+  float2* smem = reinterpret_cast<float2*>(smem4);
+  const int n = 2 * p.hop;
+  const int W = p.W, M = p.M, NIB = p.NIB;
+  const int R = p.SEG + W;
+  const size_t plane = (size_t)M * NIB;
+  const size_t gtid = (size_t)blockIdx.x * kThreads + threadIdx.x;
+  const size_t gstride = (size_t)gridDim.x * kThreads;
+
+  // the carried history: extended frames 0 .. W-1, ring slots 0 .. W-1
+  for (size_t q = gtid; q < (size_t)W * plane; q += gstride)
+    p.ring[q] = p.hist[q];
+
+  const int nseg = (p.T + p.SEG - 1) / p.SEG;
+  const int gp = kThreads * 16 / n;                 // pairs a block at once
+  const int groups = ((M + 1) / 2 + gp - 1) / gp;  // of a frame
+  for (int sg = 0; sg <= nseg; ++sg) {
+    // A: analysis of segment sg, synthesis of segment sg - 1
+    const int t0 = sg * p.SEG;
+    const int F = sg < nseg ? min(p.SEG, p.T - t0) : 0;
+    const int tp = t0 - p.SEG;
+    const int Fp = sg > 0 ? min(p.SEG, p.T - tp) : 0;
+    for (int item = blockIdx.x; item < F * groups + Fp; item += gridDim.x) {
+      if (item < F * groups) {
+        analyze_item(p, smem, t0, sg, groups, item);
+      } else {
+        const int f = item - F * groups;
+        bf_band::load_half_spectrum(smem, n, p.log2n,
+                                    p.dc[((sg - 1) & 1) * p.SEG + f],
+                                    p.ys + (size_t)f * NIB, p.ib, NIB);
+        bf_band::synthesize_frame(smem, p.tw, p.win, p.out_prev, p.out,
+                                  p.new_prev, p.T, p.hop, p.log2n, tp + f);
+      }
+    }
+    if (sg == nseg) break;
+    bf_band::grid_sync();
+
+    // B: the solves of segment sg
+    const int ntb = (NIB + kBins - 1) / kBins;
+    const int ntf = (F + kFrames - 1) / kFrames;
+    for (int tile = blockIdx.x; tile < ntb * ntf; tile += gridDim.x)
+      solve_tile<MP, SP, kLcmv>(p, smem, t0, F, (tile % ntb) * kBins,
+                                (tile / ntb) * kFrames);
+    bf_band::grid_sync();
+  }
+
+  // the last W extended frames, oldest first
+  for (size_t q = gtid; q < (size_t)W * plane; q += gstride) {
+    const size_t w = q / plane;
+    p.hist_out[q] = p.ring[(size_t)((p.T + w) % R) * plane + q % plane];
+  }
+}
+
+// float2 elements of the dynamic shared memory of mega_kernel<MP, SP,
+// kLcmv>: the larger of stage A's (the analysis FFT's padded frames, 17 x
+// 256 for every nfft, or one nfft-point frame of the synthesis) and stage
+// B's (the staged tile, the column buffers and LCMV's X scratch)
+template <int MP, int SP, bool kLcmv>
+size_t smem_elems(int W, int hop) {
+  const size_t tile = (size_t)tile_elems<MP>(W) + cbuf_elems<MP>() +
+                      (kLcmv ? (size_t)Shape<MP>::kSlots * SP * MP : 0);
+  size_t e = (size_t)bf_fft::padded(kThreads * 16);
+  if (e < (size_t)2 * hop) e = 2 * hop;
+  return tile > e ? tile : e;
+}
+
+template <int MP, int SP, bool kLcmv>
+cudaError_t launch_mega(const MegaArgs& a, cudaStream_t st) {
+  const size_t smem = smem_elems<MP, SP, kLcmv>(a.W, a.hop) * sizeof(float2);
+  cudaError_t err = cudaSuccess;
+  const int grid = bf_band::resident_grid(mega_kernel<MP, SP, kLcmv>, smem,
+                                          err);
+  if (grid == 0) return err;
+  MegaArgs args = a;
+  void* params[] = {&args};
+  err = cudaLaunchCooperativeKernel((const void*)mega_kernel<MP, SP, kLcmv>,
+                                    dim3(grid), dim3(kThreads), params, smem,
+                                    st);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+template <int MP>
+cudaError_t launch_lanes(const MegaArgs& a, bool lcmv, cudaStream_t st) {
+  if (!lcmv || a.S == 1) return launch_mega<MP, 1, false>(a, st);
+#define BF_MEGA_SP(SPV)                                                    \
+  if (a.S <= SPV && SPV <= MP)                                             \
+    return launch_mega<MP, (SPV <= MP ? SPV : MP), true>(a, st);
+  BF_MEGA_SP(2)
+  BF_MEGA_SP(4)
+  BF_MEGA_SP(8)
+  BF_MEGA_SP(16)
+#undef BF_MEGA_SP
+  return cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+}  // namespace bf_mega

@@ -40,8 +40,7 @@
 // Rows beyond M are an identity block (zero spectra, unit diagonal, zero
 // steering), so the M x M solve is unchanged. Pivots use 1.f / sqrtf(),
 // not rsqrtf(); no fast-math intrinsics. The staging, the window
-// covariance with its factor and the refined solve are in stream_solve.cuh,
-// shared with the LCMV kernel (lcmv_stream.cu).
+// covariance with its factor and the refined solve are in stream_solve.cuh.
 //
 // The index tensors are checked here, not on the host (which would cost a
 // synchronisation per call). Neither is dereferenced out of range: a bin

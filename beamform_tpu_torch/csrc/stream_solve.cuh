@@ -1,7 +1,8 @@
-// Device code shared by the streaming solve kernels (mvdr_stream.cu,
-// lcmv_stream.cu) and the fused MVDR/LCMV kernel (mega_stream.cu): the
-// staged frame tile, the per-(frame, bin) window covariance with its
-// Cholesky factor, and the (optionally refined) triangular solves.
+// Device code of the streaming MVDR solve kernel (mvdr_stream.cu; GSS's
+// kernel takes its complex helpers): the staged frame tile, the
+// per-(frame, bin) window covariance with its Cholesky factor, and the
+// (optionally refined) triangular solves. The LCMV stream kernel and the
+// fused MVDR/LCMV kernel solve on tri_solve.cuh's layout, two rows a lane.
 //
 // Every (frame, bin) pair is an independent problem. A block takes kBins
 // bins x kFrames frames and stages those frames plus their W-frame history
@@ -181,15 +182,6 @@ __device__ __forceinline__ float2 refined_solve(unsigned mask,
       mask, a, linv, i,
       fwd_solve<MP>(mask, a, linv, i, make_float2(b.x - ru.x, b.y - ru.y)));
   return make_float2(u.x + c.x, u.y + c.y);
-}
-
-// u = R^-1 b by the factor, refined once when ``refine``; returns u_i.
-template <int MP>
-__device__ __forceinline__ float2 solve(unsigned mask, const float2 (&a)[MP],
-                                        const float2 (&r)[MP], float linv,
-                                        int i, float2 b, bool refine) {
-  if (refine) return refined_solve<MP>(mask, a, r, linv, i, b);
-  return bwd_solve<MP>(mask, a, linv, i, fwd_solve<MP>(mask, a, linv, i, b));
 }
 
 }  // namespace bf_stream

@@ -128,7 +128,7 @@ def _declare(lib):
                                    p]
     lib.bf_lcmv_stream.restype = i
     f = ctypes.c_float
-    lib.bf_mega_stream.argtypes = [p] * 15 + [i] * 8 + [f, i, i, p]
+    lib.bf_mega_stream.argtypes = [p] * 16 + [i] * 8 + [f, i, i, p]
     lib.bf_mega_stream.restype = i
     lib.bf_gss_stream.argtypes = [p] * 16 + [i] * 7 + [f, f, f, p]
     lib.bf_gss_stream.restype = i

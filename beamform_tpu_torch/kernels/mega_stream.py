@@ -38,16 +38,19 @@ from beamform_tpu_torch.kernels._build import (check, check_tensor,
                                                launch_context)
 from beamform_tpu_torch.kernels.lcmv_stream import lcmv_stream_plain
 from beamform_tpu_torch.kernels.mvdr_stream import (MAX_MICS, MAX_SLOTS,
-                                                    MAX_SMEM, _lanes)
-from beamform_tpu_torch.kernels.wola import (MAX_NFFT, MIN_NFFT, _tables,
+                                                    MAX_SMEM, _lanes,
+                                                    solve_smem_elems)
+from beamform_tpu_torch.kernels.wola import (MAX_NFFT, MIN_NFFT,
+                                             _analysis_tables, _tables,
                                              wola_analysis_plain)
 
 #: frames per segment of the kernel's march: the segment's spectra ring
 #: (SEG_FRAMES + W frames of in-band bins) stays in L2, as the TPU kernel's
 #: launches covered at most 96 frames
 SEG_FRAMES = 96
-#: the solve stage's tile: 32 frames x 8 bins, 256 threads per block
-_TILE_FRAMES, _TILE_BINS, _THREADS = 32, 8, 256
+#: stage A's analysis holds 256 / (nfft / 16) channel pairs of one frame a
+#: block, each in nfft + nfft / 16 padded points: 17 x 256 for every nfft
+_ANALYSIS_ELEMS = 17 * 256
 
 
 def band_fits(ib, nfft: int) -> bool:
@@ -60,16 +63,15 @@ def band_fits(ib, nfft: int) -> bool:
 
 
 def smem_bytes(m: int, w_hist: int, s_cap: int, nfft: int) -> int:
-    """Dynamic shared memory of one block: the larger of one nfft-point
-    frame and the solve tile ((32 + W) frames x 8 bins on the problem's
-    lanes, plus LCMV's X scratch when ``s_cap`` > 1)."""
-    if s_cap > 1:
-        lp = _lanes(max(m, s_cap))
-        sp = 1 << (s_cap - 1).bit_length()
-        tile = (_TILE_FRAMES + w_hist) * lp * _TILE_BINS + _THREADS * sp
-    else:
-        tile = (_TILE_FRAMES + w_hist) * _lanes(m) * _TILE_BINS
-    return max(tile, nfft) * 8
+    """Dynamic shared memory of one block: the largest of stage A's
+    analysis frames, one nfft-point synthesis frame and stage B's solve
+    (``mvdr_stream.solve_smem_elems``: the staged tile and column buffers
+    on MP = max(M, S) rounded up to a power of two, plus LCMV's X scratch
+    when ``s_cap`` > 1; one slot takes the MVDR form)."""
+    lcmv = s_cap > 1
+    mp = _lanes(max(m, s_cap) if lcmv else m)
+    solve = solve_smem_elems(mp, w_hist, s_cap if lcmv else 0)
+    return max(solve, _ANALYSIS_ELEMS, nfft) * 8
 
 
 def mega_fits(m: int, ib, nfft: int, s_cap: int = 0,
@@ -77,7 +79,7 @@ def mega_fits(m: int, ib, nfft: int, s_cap: int = 0,
     """The CUDA kernel's capacity rule (``s_cap``: 0 for MVDR, else LCMV's
     constraint slot count): :func:`band_fits`, a power-of-two nfft in
     [256, 4096], M <= 32, S <= 16, and the block's shared memory within
-    the card's (MVDR at 16 mics: W <= 195)."""
+    the card's (MVDR at 16 mics: W <= 162)."""
     return band_fits(ib, nfft) and _kernel_fits(m, nfft, s_cap, w_hist)
 
 
@@ -179,6 +181,7 @@ def mega_stream(x: torch.Tensor, tail: torch.Tensor, out_prev: torch.Tensor,
     check_tensor(ib, "ib", torch.int64, (nib,), dev)
     seg = min(SEG_FRAMES, t)
     win, tw = _tables(2 * hop, dev)
+    ptw = _analysis_tables(2 * hop, dev)[1]
     out = torch.empty((t * hop,), dtype=torch.float32, device=dev)
     new_prev = torch.empty((hop,), dtype=torch.float32, device=dev)
     new_hist = torch.empty_like(hist)
@@ -190,7 +193,7 @@ def mega_stream(x: torch.Tensor, tail: torch.Tensor, out_prev: torch.Tensor,
         code = lib.bf_mega_stream(
             x.data_ptr(), tail.data_ptr(), out_prev.data_ptr(),
             hist.data_ptr(), ctrl.data_ptr(), idx.data_ptr(), ib.data_ptr(),
-            win.data_ptr(), tw.data_ptr(), out.data_ptr(),
+            win.data_ptr(), tw.data_ptr(), ptw.data_ptr(), out.data_ptr(),
             new_prev.data_ptr(), new_hist.data_ptr(), ring.data_ptr(),
             ys.data_ptr(), dc.data_ptr(), m, t, hop, nib, w, u, s_cap, seg,
             float(mag_threshold), int(refine), int(lcmv), stream)

@@ -44,24 +44,36 @@ def _lanes(n: int) -> int:
     return max(4, 1 << (n - 1).bit_length())
 
 
+def solve_smem_elems(mp: int, w_hist: int, s_cap: int = 0) -> int:
+    """complex64 elements of the shared memory of one block of a solve on
+    csrc/tri_solve.cuh (the LCMV stream kernel, the fused kernel's stage B)
+    for problems of size ``mp``: the staged tile ((32 + W) frames x 8 bins
+    x (MP + 2)), two column buffers of MP + 1 pairs per problem in flight
+    (512 / MP of them), and with ``s_cap`` slots each problem's X scratch
+    (SP x MP, SP the slots rounded up to a power of two)."""
+    slots = 2 * _THREADS // mp
+    elems = (_TILE_FRAMES + w_hist) * _TILE_BINS * (mp + 2) + slots * (2 * mp
+                                                                       + 2)
+    if s_cap:
+        elems += slots * (1 << (s_cap - 1).bit_length()) * mp
+    return elems
+
+
 def smem_bytes(m: int, w_hist: int, s_cap: int = 0) -> int:
-    """Shared memory of one block of the MVDR kernel (``s_cap`` 0) or of
-    the LCMV kernel with ``s_cap`` constraint slots: the staged tile, and
-    for LCMV each problem's X scratch (SP x lanes, SP the slots rounded up
-    to a power of two, the lanes those of max(M, S))."""
+    """Shared memory of one block of the MVDR kernel (``s_cap`` 0: the
+    staged tile, on M's lanes) or of the LCMV kernel with ``s_cap``
+    constraint slots (:func:`solve_smem_elems` for MP = max(M, S) rounded
+    up to a power of two)."""
     if not s_cap:
         return (_TILE_FRAMES + w_hist) * _lanes(m) * _TILE_BINS * 8
-    sp = 1 << (s_cap - 1).bit_length()
-    lp = _lanes(max(m, s_cap))
-    return ((_TILE_FRAMES + w_hist) * lp * _TILE_BINS
-            + _THREADS // lp * sp * lp) * 8
+    return solve_smem_elems(_lanes(max(m, s_cap)), w_hist, s_cap) * 8
 
 
 def stream_fits(m: int, w_hist: int, s_cap: int = 0) -> bool:
     """The streaming kernels' capacity rule: M <= 32, at most 16 slots
     (LCMV), and the block's shared memory within the card's (MVDR: W <= 195
-    at 16 mics, W <= 81 at 32; LCMV at 16 slots: W <= 163 at 16 mics,
-    W <= 65 at 32)."""
+    at 16 mics, W <= 81 at 32; LCMV at one slot: W <= 158 at 16 mics,
+    W <= 69 at 32; at 16 slots: W <= 105 at 16 mics, W <= 40 at 32)."""
     return (1 <= m <= MAX_MICS and 0 <= s_cap <= MAX_SLOTS
             and smem_bytes(m, w_hist, s_cap) <= MAX_SMEM)
 

@@ -289,21 +289,24 @@ def test_mvdr_stream_chunks_equal_offline_on_cuda(cuda):
 
 
 def _constraints(rng, u, s, m, nib, device):
-    """Random constraint sets: row 0 with min(S, 3) active slots, row 1
-    with min(S, 2) and the row-0 quirk (mic 0's row zero); the other slots
-    inactive (zero columns)."""
+    """Random constraint sets: row 0 with min(S, 3, M) active slots, row 1
+    with min(S, 2, M - 1) and the row-0 quirk (mic 0's row zero); the other
+    slots inactive (zero columns). On M >= 3 mics that is 3 and 2; fewer
+    mics keep no more active slots than the rows that can hold them, or the
+    inner system is singular."""
     c = _cplx(rng, (u, s, m, nib), "cpu")
-    c[0, 3:] = 0
-    c[1, 2:] = 0
+    c[0, min(3, m):] = 0
+    c[1, min(2, m - 1):] = 0
     c[1, :, 0] = 0
     return c.to(device)
 
 
-@pytest.mark.parametrize("m", [3, 16, 32])
+@pytest.mark.parametrize("m", [1, 2, 3, 5, 12, 16, 17, 32])
 @pytest.mark.parametrize("s", [1, 3, 16])
 def test_lcmv_stream_kernel_matches_plain(cuda, m, s):
     """Inactive slots, the row-0 quirk, two control rows, a band that is
-    not contiguous, ragged tiles and a random gate."""
+    not contiguous, ragged tiles and a random gate; odd and
+    non-power-of-two mic counts, one lane pair (M <= 4) and S > M."""
     rng = np.random.default_rng(m * 10 + s)
     t, nib, w, u = 45, 19, 10, 2
     nb = 2 * nib + 5
@@ -327,6 +330,90 @@ def test_lcmv_stream_kernel_matches_plain(cuda, m, s):
     assert _rel(got, ref) < MVDR_REL
     assert _rel(got.cdouble(), f64) <= max(2 * _rel(ref.cdouble(), f64),
                                            1e-6)
+
+
+@pytest.mark.parametrize("w", [1, 10])
+@pytest.mark.parametrize("gate_kind", ["all", "none"])
+@pytest.mark.parametrize("m,s", [(16, 1), (16, 3), (5, 3)])
+def test_lcmv_stream_kernel_window_and_gate_edges(cuda, w, gate_kind, m, s):
+    """A one-frame window (R = x x^H loaded by 0.001 on its diagonal, the
+    worst conditioned R the kernel takes) and a gate all on or all off.
+    With W = 1 the plain float32 version is itself far from float64, so
+    the kernel is held to twice its error against float64 and to three
+    times it (or MVDR_REL) against it; gated-off outputs exactly."""
+    rng = np.random.default_rng(m * 100 + s * 10 + w)
+    t, nib, u = 45, 19, 2
+    nb = 2 * nib + 5
+    x = _cplx(rng, (t, m, nb), cuda)
+    hist = _cplx(rng, (w, m, nib), cuda)
+    c = _constraints(rng, u, s, m, nib, cuda)
+    ib = torch.as_tensor(np.sort(rng.choice(np.arange(1, nb), nib,
+                                            replace=False)), device=cuda)
+    idx = torch.as_tensor(rng.integers(0, u, t), device=cuda)
+    gate = torch.full((t, nib), gate_kind == "all", dtype=torch.bool,
+                      device=cuda)
+    got = klc.lcmv_stream(x, hist, c, idx, gate, ib)
+    ref = klc.lcmv_stream_plain(x, hist, c, idx, gate, ib)
+    f64 = klc.lcmv_stream_plain(x.cdouble(), hist.cdouble(), c.cdouble(),
+                                idx, gate, ib)
+    assert torch.isfinite(torch.view_as_real(got)).all()
+    assert torch.equal(got[~gate], ref[~gate])      # 0.01 * x0, exactly
+    if gate_kind == "all":
+        plain_err = _rel(ref.cdouble(), f64)
+        assert _rel(got, ref) < max(MVDR_REL, 3 * plain_err)
+        assert _rel(got.cdouble(), f64) <= max(2 * plain_err, 1e-6)
+
+
+def _many_constraints(rng, s, m, nib, active, device):
+    """One constraint set of s slots with ``active`` nonzero columns: slot
+    2 zero and the last s - active - 1 slots zero, so that the inner system
+    runs on slots that are not contiguous."""
+    c = _cplx(rng, (1, s, m, nib), "cpu")
+    c[0, 2] = 0
+    c[0, active + 1:] = 0
+    return c.to(device)
+
+
+@pytest.mark.parametrize("m,s,active", [(8, 8, 6), (16, 8, 7),
+                                        (16, 16, 12), (32, 16, 15)])
+def test_lcmv_kernels_with_many_active_slots(cuda, m, s, active):
+    """More than four nonzero constraint columns (the inner system without
+    G^-1 in registers on 16 mics and fewer), with a zero slot between them:
+    the stream kernel and the fused kernel against their plain versions,
+    and the fused kernel's refinement off (as the TPU kernel) against
+    float64 too."""
+    rng = np.random.default_rng(500 + m + s + active)
+    t, nib, w = 40, 19, 24
+    nb = 2 * nib + 5
+    x = _cplx(rng, (t, m, nb), cuda)
+    hist = _cplx(rng, (w, m, nib), cuda)
+    c = _many_constraints(rng, s, m, nib, active, cuda)
+    ib = torch.as_tensor(np.sort(rng.choice(np.arange(1, nb), nib,
+                                            replace=False)), device=cuda)
+    idx = torch.zeros(t, dtype=torch.int64, device=cuda)
+    gate = torch.as_tensor(rng.random((t, nib)) < 0.7, device=cuda)
+    got = klc.lcmv_stream(x, hist, c, idx, gate, ib)
+    ref = klc.lcmv_stream_plain(x, hist, c, idx, gate, ib)
+    f64 = klc.lcmv_stream_plain(x.cdouble(), hist.cdouble(), c.cdouble(),
+                                idx, gate, ib)
+    assert torch.isfinite(torch.view_as_real(got)).all()
+    assert _rel(got, ref) < MVDR_REL
+    assert _rel(got.cdouble(), f64) <= max(2 * _rel(ref.cdouble(), f64),
+                                           1e-6)
+    hop, tf = 128, 60
+    xa, tail, prev, ibf, thr = _fused_inputs(rng, m, tf, hop, nib, cuda)
+    hf = _cplx(rng, (w, m, nib), cuda)
+    idf = torch.zeros(tf, dtype=torch.int64, device=cuda)
+    got = kmega.lcmv_mega(xa, tail, prev, hf, c, idf, ibf, 2 * hop, w, thr)
+    ref = kmega.lcmv_mega(*(a.cpu() for a in (xa, tail, prev, hf, c, idf,
+                                              ibf)), 2 * hop, w, thr)
+    f64 = kmega.lcmv_mega(*(a.cpu().double() for a in (xa, tail, prev)),
+                          *(a.cpu().cdouble() for a in (hf, c)), idf.cpu(),
+                          ibf.cpu(), 2 * hop, w, thr)
+    plain_err = _rel(ref[0].double(), f64[0])
+    assert torch.isfinite(got[0]).all()
+    assert _rel(got[0].cpu(), ref[0]) < max(MVDR_REL, 3 * plain_err)
+    assert _rel(got[0].cpu().double(), f64[0]) <= max(2 * plain_err, 1e-6)
 
 
 def test_lcmv_stream_s1_equals_mvdr_stream(cuda):
@@ -483,7 +570,7 @@ def _fused_inputs(rng, m, t, hop, nib, device):
     return x, tail, prev, ib, float((v[k] + v[k + 1]) / 2)
 
 
-@pytest.mark.parametrize("m", [3, 16, 32])
+@pytest.mark.parametrize("m", [1, 2, 3, 5, 12, 16, 17, 32])
 @pytest.mark.parametrize("s", [0, 1, 3, 16])
 def test_mega_kernel_matches_plain(cuda, m, s):
     """MVDR (s = 0) and LCMV with s slots (inactive slots and the row-0
@@ -522,6 +609,45 @@ def test_mega_kernel_matches_plain(cuda, m, s):
     plain_err = _rel(ref[0].double(), f64[0])
     assert _rel(audio, ref[0]) < max(MVDR_REL, 3 * plain_err)
     assert _rel(audio.double(), f64[0]) <= max(2 * plain_err, 1e-6)
+    assert _rel(new_hist, ref[1]) < REL
+    assert _rel(new_prev, ref[2]) < MVDR_REL
+
+
+@pytest.mark.parametrize("w", [1, 6])
+@pytest.mark.parametrize("gate_kind", ["all", "none"])
+@pytest.mark.parametrize("s", [0, 3])
+def test_mega_kernel_window_and_gate_edges(cuda, w, gate_kind, s):
+    """A one-frame window and a gate all on (threshold -1) or all off (a
+    threshold above every statistic): audio, history and carry against the
+    plain version, the audio also against float64 (all on: twice the plain
+    float32 version's error; all off: the passthrough, 1e-5 of peak as the
+    synthesis)."""
+    rng = np.random.default_rng(300 + w * 10 + s)
+    m, hop, t, nib, u = 16, 128, 120, 37, 2
+    x, tail, prev, ib, _ = _fused_inputs(rng, m, t, hop, nib, cuda)
+    thr = -1.0 if gate_kind == "all" else 1e30
+    hist = _cplx(rng, (w, m, nib), cuda)
+    idx = torch.as_tensor(rng.integers(0, u, t), device=cuda)
+    if s == 0:
+        ctrl = _cplx(rng, (u, m, nib), cuda)
+        fused = kmega.mvdr_mega
+    else:
+        ctrl = _constraints(rng, u, s, m, nib, cuda)
+        fused = kmega.lcmv_mega
+    got = fused(x, tail, prev, hist, ctrl, idx, ib, 2 * hop, w, thr)
+    ref = fused(*(a.cpu() for a in (x, tail, prev, hist, ctrl, idx, ib)),
+                2 * hop, w, thr)
+    f64 = fused(*(a.cpu().double() for a in (x, tail, prev)),
+                *(a.cpu().cdouble() for a in (hist, ctrl)), idx.cpu(),
+                ib.cpu(), 2 * hop, w, thr)
+    audio, new_hist, new_prev = (a.cpu() for a in got)
+    assert torch.isfinite(audio).all()
+    plain_err = _rel(ref[0].double(), f64[0])
+    if gate_kind == "all":
+        assert _rel(audio, ref[0]) < max(MVDR_REL, 3 * plain_err)
+        assert _rel(audio.double(), f64[0]) <= max(2 * plain_err, 1e-6)
+    else:
+        assert _rel(audio, ref[0]) < REL
     assert _rel(new_hist, ref[1]) < REL
     assert _rel(new_prev, ref[2]) < MVDR_REL
 

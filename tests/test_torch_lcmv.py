@@ -48,6 +48,7 @@ from beamform_tpu_torch.config import load_array_config
 from beamform_tpu_torch.convert import constants_from_jax, state_from_jax
 from beamform_tpu_torch.kernels.lcmv_stream import (lcmv_stream,
                                                     lcmv_stream_plain)
+from beamform_tpu_torch.kernels.mvdr_stream import smem_bytes, stream_fits
 from beamform_tpu_torch.models import get_model
 from beamform_tpu_torch.models.batching import trim_inactive_slots
 from beamform_tpu_torch.models.lcmv import (LcmvModel,
@@ -475,6 +476,27 @@ def test_run_offline_takes_interference():
 
 
 # ----------------------------------------------------------------- policy
+
+
+def test_lcmv_stream_smem_bytes_follow_the_kernel_layout():
+    """The LCMV stream kernel's shared memory (mvdr_stream.smem_bytes with
+    slots): the staged tile ((32 + W) x 8 bins x (MP + 2)), two column
+    buffers of MP + 1 pairs for each of the 512 / MP problems in flight, and
+    each one's X scratch (SP x MP), MP = max(M, S) rounded up to a power of
+    two, at least 4; the MVDR kernel's rule is unchanged. And the W each
+    rule admits."""
+    nb = 8                                     # bytes of a complex64
+    assert smem_bytes(16, 10) == nb * 42 * 16 * 8
+    assert smem_bytes(16, 10, 1) == nb * (42 * 8 * 18 + 32 * 34 + 32 * 16)
+    assert smem_bytes(16, 10, 3) == nb * (42 * 8 * 18 + 32 * 34 + 32 * 64)
+    assert smem_bytes(16, 10, 16) == nb * (42 * 8 * 18 + 32 * 34 + 32 * 256)
+    assert smem_bytes(3, 10, 3) == nb * (42 * 8 * 6 + 128 * 10 + 128 * 16)
+    assert smem_bytes(2, 10, 16) == smem_bytes(16, 10, 16)
+    assert smem_bytes(32, 10, 1) == nb * (42 * 8 * 34 + 16 * 66 + 16 * 32)
+    for m, s_cap, w_max in ((16, 0, 195), (16, 1, 158), (16, 16, 105),
+                            (32, 1, 69), (32, 16, 40)):
+        assert stream_fits(m, w_max, s_cap)
+        assert not stream_fits(m, w_max + 1, s_cap)
 
 
 def test_solver_policy_with_slots():

@@ -405,6 +405,58 @@ def test_mega_fits_refusals():
     assert not tmega.band_fits(np.array([1, 128]), 256)
 
 
+def test_mega_smem_bytes_follow_the_kernel_layout():
+    """smem_bytes is the largest of stage A's analysis frames (17 x 256
+    complex for every nfft), one synthesis frame and stage B's solve: the
+    staged tile ((32 + W) x 8 bins x (MP + 2)), two column buffers of MP + 1
+    pairs for each of the 512 / MP problems in flight, and LCMV's X scratch
+    (SP x MP each), MP = max(M, S) rounded up to a power of two (at least
+    4; one slot takes the MVDR form on M)."""
+    nb = 8                                     # bytes of a complex64
+    assert tmega.smem_bytes(16, 10, 0, 2048) == nb * (42 * 8 * 18 + 32 * 34)
+    assert tmega.smem_bytes(16, 10, 1, 2048) == tmega.smem_bytes(16, 10, 0,
+                                                                 2048)
+    assert tmega.smem_bytes(16, 10, 3, 2048) == nb * (42 * 8 * 18 + 32 * 34
+                                                      + 32 * 4 * 16)
+    assert tmega.smem_bytes(16, 10, 16, 2048) == nb * (42 * 8 * 18 + 32 * 34
+                                                       + 32 * 16 * 16)
+    assert tmega.smem_bytes(3, 10, 16, 2048) == tmega.smem_bytes(16, 10, 16,
+                                                                 2048)
+    assert tmega.smem_bytes(32, 10, 16, 2048) == nb * (42 * 8 * 34 + 16 * 66
+                                                       + 16 * 16 * 32)
+    # small problems: stage A's analysis frames, or a 4096-point frame
+    assert tmega.smem_bytes(1, 10, 0, 256) == nb * 17 * 256
+    assert tmega.smem_bytes(1, 1, 0, 4096) == nb * 17 * 256
+    # the capacity the rule gives at 16 mics
+    ib = np.arange(5, 683)
+    assert tmega.mega_fits(16, ib, 2048, 0, 162)
+    assert not tmega.mega_fits(16, ib, 2048, 0, 163)
+    assert tmega.mega_fits(16, ib, 2048, 16, 105)
+    assert not tmega.mega_fits(16, ib, 2048, 16, 106)
+
+
+@pytest.mark.parametrize("cfg_name", ["aira3.yaml", "aira16.yaml"])
+def test_solver_choice_under_the_launch_presets(cfg_name):
+    """For aira3 and aira16 under the MVDR and LCMV launch presets (W 10,
+    nfft 2048, the preset's band), a CUDA float32 engine takes the stream
+    kernel under ``auto`` and the fused kernel under ``mega``, for MVDR and
+    for LCMV at 1, 3 and 16 slots (the CLI's capacity 15 plus the look
+    direction), as before the solves' shared-memory rules changed."""
+    cuda = torch.device("cuda")
+    for node, caps in (("mvdr", (0,)), ("lcmv", (1, 3, 16))):
+        model = get_model(node, EngineConfig(), load_array_config(
+            _cfg(cfg_name)), cli.load_launch_params(node), device="cpu")
+        m = model.geom.num_mics
+        w, nfft = model.params.past_windows, model.engine.fft_win
+        assert (w, nfft) == (10, 2048)
+        for s_cap in caps:
+            for solver, want in (("auto", "stream"), ("mega", "mega")):
+                got = select_solver_strategy(solver, torch.complex64, m, w,
+                                             cuda, s_cap=s_cap,
+                                             ib=model.ib_host, nfft=nfft)
+                assert got == want, (node, m, s_cap, solver)
+
+
 def test_mega_solver_policy():
     """``mega`` runs the fused path on both devices, float32 on CUDA only,
     within the kernel's capacity; ``auto`` keeps its choice (stream on a

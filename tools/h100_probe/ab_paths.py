@@ -9,16 +9,20 @@ side. Then each checkout's package and chip_smoke.py run in processes of
 their own, N pairs (default 10) in the order parent, change, change,
 parent, ... Each process drives, on chip_smoke.py's noise input (aira16's
 16 mics, 48 kHz, 30 s), the device-resident call ``model.process`` of DAS,
-MVDR ``auto`` and LCMV ``auto`` (one slot), phase, phasempf and mcra under
-the launch presets, and GSC ``sample``, ``block`` and ``blocklms`` (l =
-128): the time of one call is CUDA events around it, median of 10 after 3
-warm-ups (GSC: of 3 after 1). It
-also times ``kernels.wola.wola_analysis`` (C = 16, T = 1407 and T = 64,
-with and without the gate statistic, seeded noise) and ``torch.stft``
-on the same frames as chip_smoke.py's ``cuda_ms`` does (one call between
-two events, median of 20). CHANGE_ROOT defaults to this checkout. Prints
-one line per process, then per metric both sides' medians and ranges;
-imports no JAX.
+MVDR ``auto`` and ``mega``, LCMV ``auto`` (one slot, and chip_smoke.py's
+two static interferers: three) and ``mega`` (one slot and three), phase,
+phasempf and mcra under the launch presets, and GSC ``sample``, ``block``
+and ``blocklms`` (l = 128): the time of one call is CUDA events around
+it, median of 10 after 3 warm-ups (GSC: of 3 after 1). It also times, as
+chip_smoke.py's ``cuda_ms`` does (one call through the wrapper between
+two events, median of 20), ``kernels.wola.wola_analysis`` (C = 16, T =
+1407 and T = 64, with and without the gate statistic, seeded noise) and
+``torch.stft`` on the same frames, ``kernels.lcmv_stream.lcmv_stream`` on
+chip_smoke.py's operands (the analysis of the noise input under the LCMV
+preset; S = 1, 3 and 16 with 13 slots inactive) and
+``kernels.mega_stream.mega_stream`` (MVDR, and LCMV at S = 3).
+CHANGE_ROOT defaults to this checkout. Prints one line per process, then
+per metric both sides' medians and ranges; imports no JAX.
 """
 
 from __future__ import annotations
@@ -32,14 +36,22 @@ import sys
 import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-# (label, node, parameters over the launch preset, timed calls)
-PATHS = (("das", "das", None, 10), ("mvdr", "mvdr", {}, 10),
-         ("lcmv", "lcmv", {}, 10), ("phase", "phase", {}, 10),
-         ("phasempf", "phasempf", {}, 10), ("mcra", "mcra", {}, 10),
-         ("gsc", "gsc", {"write_mu": False}, 3),
-         ("gsc block", "gsc", {"write_mu": False, "solver": "block"}, 3),
+# (label, node, parameters over the launch preset, timed calls, whether
+# the array carries chip_smoke.py's two static interferers)
+PATHS = (("das", "das", None, 10, False), ("mvdr", "mvdr", {}, 10, False),
+         ("mvdr mega", "mvdr", {"solver": "mega"}, 10, False),
+         ("lcmv", "lcmv", {}, 10, False),
+         ("lcmv S=3", "lcmv", {}, 10, True),
+         ("lcmv mega", "lcmv", {"solver": "mega"}, 10, False),
+         ("lcmv mega S=3", "lcmv", {"solver": "mega"}, 10, True),
+         ("phase", "phase", {}, 10, False),
+         ("phasempf", "phasempf", {}, 10, False),
+         ("mcra", "mcra", {}, 10, False),
+         ("gsc", "gsc", {"write_mu": False}, 3, False),
+         ("gsc block", "gsc", {"write_mu": False, "solver": "block"}, 3,
+          False),
          ("gsc blocklms", "gsc", {"write_mu": False, "solver": "blocklms"},
-          3))
+          3, False))
 ANALYSIS_T = (1407, 64)
 
 
@@ -55,10 +67,10 @@ def worker(root: str) -> dict:
     from beamform_tpu_torch.models import get_model
     x = torch.as_tensor(cs.make_input(16, cs.SECONDS), device="cuda")
     out = {}
-    for label, node, over, reps in PATHS:
+    for label, node, over, reps, interf in PATHS:
         params = None if over is None else cs.preset(node, **over)
-        model = get_model(node, cs.engine(), cs.aira16(), params,
-                          device="cuda")
+        cfg = cs.aira16(cs.INTERFERERS if interf else ())
+        model = get_model(node, cs.engine(), cfg, params, device="cuda")
         for _ in range(3 if reps > 3 else 1):
             model.process(x, cs.THETA)
         times = []
@@ -89,6 +101,48 @@ def worker(root: str) -> dict:
             lambda: torch.stft(ext, n_fft=2 * hop, hop_length=hop,
                                window=win, center=False,
                                return_complex=True))
+    out.update(solve_kernels(cs, x))
+    return out
+
+
+def solve_kernels(cs, x) -> dict:
+    """One call of the LCMV stream kernel and of the fused kernel through
+    their wrappers (ms), on chip_smoke.py's operands: the analysis of ``x``
+    under the LCMV preset (678 in-band bins, 1407 frames, W = 10, zero
+    history), S = 1, 3 and 16 (two interferers, 13 slots inactive); the
+    fused kernel on ``x`` with zero carries, MVDR and LCMV at S = 3."""
+    import torch
+    from beamform_tpu_torch.kernels import lcmv_stream as kl
+    from beamform_tpu_torch.kernels import mega_stream as kmega
+    from beamform_tpu_torch.kernels.wola import wola_analysis
+    from beamform_tpu_torch.models import common, get_model
+    dev = torch.device("cuda")
+    params = cs.preset("lcmv")
+    model = get_model("lcmv", cs.engine(), cs.aira16(), params, device=dev)
+    xp = common.prepare_input(x, cs.engine(), torch.float32, dev)
+    spec, mag, _ = wola_analysis(xp, torch.zeros((16, cs.HOP), device=dev),
+                                 with_mag=True)
+    t, m, _ = spec.shape
+    ib, w = model.ib, params["past_windows"]
+    thr = params["freq_mag_threshold"]
+    gate = mag.index_select(1, ib) > thr
+    hist = torch.zeros((w, m, len(ib)), dtype=torch.complex64, device=dev)
+    idx = torch.zeros(t, dtype=torch.int64, device=dev)
+    out = {}
+    for n_interf, capacity in ((0, 0), (2, 2), (2, 15)):
+        c = cs.lcmv_constraints(model, n_interf, capacity)
+        out[f"lcmv_stream S={c.shape[1]}"] = cs.cuda_ms(
+            lambda: kl.lcmv_stream(spec, hist, c, idx, gate, ib))
+    xm, tail, prev, _ = cs.fused_inputs(x)
+    d = common.weights_for_thetas(model.geom, model.freqs,
+                                  torch.full((1,), cs.THETA, device=dev),
+                                  torch.float32, torch.complex64)
+    for label, ctrl, lcmv in (
+            ("MVDR", d.index_select(2, ib)[:, None].contiguous(), False),
+            ("LCMV S=3", cs.lcmv_constraints(model, 2, 2), True)):
+        out[f"mega_stream {label}"] = cs.cuda_ms(
+            lambda: kmega.mega_stream(xm, tail, prev, hist, ctrl, idx, ib,
+                                      thr, lcmv=lcmv))
     return out
 
 
