@@ -1,14 +1,13 @@
 // Device code shared by the WOLA kernels (wola.cu) and the two fused
-// audio-to-audio kernels (mega_stream.cu, gss_stream.cu): the radix-2 FFT of
-// one frame held in shared memory, the band-limited analysis of two real
-// channels per complex FFT with the energy-gate statistic, the half-spectrum
-// synthesis of one frame, and the grid barrier and grid size of the
-// persistent fused kernels.
+// audio-to-audio kernels (mega_stream.cu, gss_stream.cu): the fused kernels'
+// band-limited analysis on the register FFT (reg_fft.cuh) with its gate
+// statistic's inputs, the radix-2 FFT of one frame held in shared memory,
+// the half-spectrum synthesis of one frame on it, and the grid barrier and
+// grid size of the persistent fused kernels.
 //
 // Analysis (beamform_tpu/kernels/mega_stream.py:121-158): frame t of
-// [tail | x] under the periodic sqrt-Hann window, nfft-point DFT; the fused
-// kernels keep only the band's bins and the gate statistic
-// sum_m |X_m| / (M * nfft) per kept bin.
+// [tail | x] under the periodic sqrt-Hann window, nfft-point DFT of two real
+// channels per complex FFT; the fused kernels keep only the band's bins.
 //
 // Half-spectrum synthesis (mega_stream.py:104-118, 161-184): y[0] once and
 // 2 * y[k] for 0 < k < nfft / 2, inverse DFT, real part, x 1 / nfft, the
@@ -28,6 +27,8 @@
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "reg_fft.cuh"
 
 namespace bf_band {
 
@@ -108,41 +109,111 @@ __device__ inline void fft_inplace(float2* s, const float2* __restrict__ tw,
   }
 }
 
-// Windowed frame t of the channel pair (c0, c0 + 1) of [tail | x] (x is
-// (C, T * hop), tail (C, hop)) as one complex signal z = x_c0 + i x_c0+1,
-// transformed into s (natural order, n = 2 * hop points). An odd last
-// channel pairs with zeros. Ends with a barrier.
-__device__ inline void analyze_pair(float2* s, const float* __restrict__ x,
-                                    const float* __restrict__ tail,
-                                    const float* __restrict__ win,
-                                    const float2* __restrict__ tw, int C,
-                                    int T, int hop, int log2n, int t,
-                                    int c0) {
-  const int n = 2 * hop;
-  const bool pair = c0 + 1 < C;
-  const float* x0 = x + (size_t)c0 * T * hop;
-  const float* x1 = x0 + (size_t)T * hop;
-  const float* t0 = tail + (size_t)c0 * hop;
-  const float* t1 = t0 + hop;
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    const int e = t * hop + i;               // index into [tail | x]
-    const float w = win[i];
-    const float v0 = (e < hop) ? t0[e] : x0[e - hop];
-    const float v1 = !pair ? 0.0f : (e < hop) ? t1[e] : x1[e - hop];
-    s[bitrev(i, log2n)] = make_float2(v0 * w, v1 * w);
-  }
-  __syncthreads();
-  fft_inplace(s, tw, n, log2n, false);
+// Channel pairs a block of kThreads threads transforms at once in
+// analyze_pairs: one group of n / 16 threads each, for n = 256 R3.
+template <int R3>
+__host__ __device__ constexpr int analysis_pairs() {
+  return kThreads / (16 * R3);
 }
 
-// Bin k of the pair's two spectra from Z = FFT(x_c0 + i x_c0+1):
-// X_c0[k] = (Z[k] + conj(Z[n-k])) / 2, X_c0+1[k] = (Z[k] - conj(Z[n-k])) / 2i.
-__device__ __forceinline__ void split_bin(const float2* s, int n, int k,
-                                          float2& a, float2& b) {
-  const float2 z = s[k];
-  const float2 m = s[(n - k) & (n - 1)];
-  a = make_float2(0.5f * (z.x + m.x), 0.5f * (z.y - m.y));
-  b = make_float2(0.5f * (z.y + m.y), -0.5f * (z.x - m.x));
+// The band analysis of frame t (of the call) for the channel pairs q0 ..
+// q0 + G - 1, G = analysis_pairs<R3>(): frame t of [tail | x] (x is
+// (M, T * hop), tail (M, hop)) under the window, one complex FFT per pair
+// (reg_fft.cuh, ptw its pass twiddles), the band's bins ib split into the
+// frame plane dst: mic c, in-band bin jb at c * NIB + jb (kBinMajor false)
+// or jb * M + c (true); X_0[0] into *dc when q0 is 0 and dc is not null. A
+// bin outside [1, n / 2) gives NaN. Every thread of the block calls it (the
+// FFT synchronises the block); sh holds G padded frames.
+template <int R3, bool kBinMajor>
+__device__ __noinline__ void analyze_pairs(
+    float2* sh, const float* __restrict__ x, const float* __restrict__ tail,
+    const float* __restrict__ win, const float2* __restrict__ ptw,
+    const int64_t* __restrict__ ib, float2* __restrict__ dst,
+    float* __restrict__ dc, int M, int T, int NIB, int t, int q0) {
+  constexpr int n = 256 * R3;
+  constexpr int hop = n / 2;
+  constexpr int tpf = n / bf_fft::kPts;     // threads per pair
+  constexpr int G = analysis_pairs<R3>();
+  constexpr int ld = bf_fft::padded(n);
+  const int g = threadIdx.x / tpf;
+  const int j = threadIdx.x - g * tpf;
+  const int P = (M + 1) / 2;
+  const int pr = q0 + g;
+  const size_t S = (size_t)T * hop;
+  float2 v[bf_fft::kPts];
+  if (pr < P) {
+    // points j + s n / 16: the first half from hop t of [tail | x], the
+    // second from hop t + 1
+    const int c0 = 2 * pr;
+    const bool pair = c0 + 1 < M;
+    const float* lo0 = t == 0 ? tail + (size_t)c0 * hop
+                              : x + c0 * S + (size_t)(t - 1) * hop;
+    const float* hi0 = x + c0 * S + (size_t)t * hop;
+    const size_t dlo = t == 0 ? hop : S;        // to the pair's second row
+#pragma unroll
+    for (int s = 0; s < bf_fft::kPts; ++s) {
+      const int i = j + s * tpf;
+      const float* src = s < bf_fft::kPts / 2 ? lo0 + i : hi0 + i - hop;
+      const size_t d = s < bf_fft::kPts / 2 ? dlo : S;
+      const float w = __ldg(win + i);
+      const float a = __ldg(src);
+      const float b = pair ? __ldg(src + d) : 0.f;
+      v[s] = make_float2(a * w, b * w);
+    }
+  } else {
+#pragma unroll
+    for (int s = 0; s < bf_fft::kPts; ++s) v[s] = make_float2(0.f, 0.f);
+  }
+  bf_fft::fft<R3>(v, sh + g * ld, ptw, j);
+  // X_c0[k] = (Z[k] + conj(Z[n-k])) / 2, X_c0+1[k] = (Z[k] - conj(Z[n-k])) / 2i
+  const float nan = __int_as_float(0x7fc00000);
+  for (int q = threadIdx.x; q < G * NIB; q += kThreads) {
+    // bin-major: the pairs of one bin in neighbouring threads, so that a
+    // warp writes whole rows of mics
+    const int gq = kBinMajor ? q % G : q / NIB;
+    const int jb = kBinMajor ? q / G : q - gq * NIB;
+    const int c0 = 2 * (q0 + gq);
+    if (c0 >= M) continue;
+    const int64_t k = ib[jb];
+    float2 a = make_float2(nan, nan), b = a;
+    if (k >= 1 && k < hop) {
+      const float2 z = sh[gq * ld + bf_fft::pad((int)k)];
+      const float2 m = sh[gq * ld + bf_fft::pad(n - (int)k)];
+      a = make_float2(0.5f * (z.x + m.x), 0.5f * (z.y - m.y));
+      b = make_float2(0.5f * (z.y + m.y), -0.5f * (z.x - m.x));
+    }
+    if (kBinMajor) {
+      dst[(size_t)jb * M + c0] = a;
+      if (c0 + 1 < M) dst[(size_t)jb * M + c0 + 1] = b;
+    } else {
+      dst[(size_t)c0 * NIB + jb] = a;
+      if (c0 + 1 < M) dst[(size_t)(c0 + 1) * NIB + jb] = b;
+    }
+  }
+  if (dc != nullptr && q0 == 0 && threadIdx.x == 0) *dc = sh[0].x;  // X_0[0]
+  __syncthreads();                                    // sh is reused
+}
+
+// analyze_pairs at the FFT length 2 * hop (256 .. 4096); q0 is a multiple
+// of the pairs a block holds at once, kThreads * 16 / (2 * hop).
+template <bool kBinMajor>
+__device__ __forceinline__ void analyze_band(
+    int hop, float2* sh, const float* __restrict__ x,
+    const float* __restrict__ tail, const float* __restrict__ win,
+    const float2* __restrict__ ptw, const int64_t* __restrict__ ib,
+    float2* __restrict__ dst, float* __restrict__ dc, int M, int T, int NIB,
+    int t, int q0) {
+#define BF_ANALYZE(R3)                                                     \
+  analyze_pairs<R3, kBinMajor>(sh, x, tail, win, ptw, ib, dst, dc, M, T,   \
+                               NIB, t, q0)
+  switch (hop) {
+    case 128: BF_ANALYZE(1); break;
+    case 256: BF_ANALYZE(2); break;
+    case 512: BF_ANALYZE(4); break;
+    case 1024: BF_ANALYZE(8); break;
+    default: BF_ANALYZE(16); break;
+  }
+#undef BF_ANALYZE
 }
 
 // The half spectrum of one output frame into s in bit-reversed order:

@@ -9,7 +9,6 @@
 #include <stdint.h>
 
 #include "band_wola.cuh"
-#include "reg_fft.cuh"
 #include "tri_solve.cuh"
 
 namespace bf_mega {
@@ -45,82 +44,6 @@ cudaError_t launch_16(const MegaArgs& a, bool lcmv, cudaStream_t st);
 cudaError_t launch_32(const MegaArgs& a, bool lcmv, cudaStream_t st);
 
 namespace {
-
-
-// Channel pairs a stage-A block transforms at once: one group of n / 16
-// threads each, for n = 256 R3.
-template <int R3>
-__host__ __device__ constexpr int analysis_pairs() {
-  return kThreads / (16 * R3);
-}
-
-// Stage A's analysis of frame t (of the call) for the channel pairs q0 ..
-// q0 + G - 1, G = analysis_pairs<R3>(): frame t of [tail | x] under the
-// window, one complex FFT per pair (reg_fft.cuh), the band's bins split
-// into the ring's frame plane dst ((M, NIB)); X_0[0] into *dc when q0 is 0.
-// A bin outside [1, n / 2) gives NaN. Every thread of the block calls it
-// (the FFT synchronises the block).
-template <int R3>
-__device__ __noinline__ void analyze_pairs(
-    float2* sh, const float* __restrict__ x, const float* __restrict__ tail,
-    const float* __restrict__ win, const float2* __restrict__ ptw,
-    const int64_t* __restrict__ ib, float2* __restrict__ dst,
-    float* __restrict__ dc, int M, int T, int NIB, int t, int q0) {
-  constexpr int n = 256 * R3;
-  constexpr int hop = n / 2;
-  constexpr int tpf = n / bf_fft::kPts;     // threads per pair
-  constexpr int G = analysis_pairs<R3>();
-  constexpr int ld = bf_fft::padded(n);
-  const int g = threadIdx.x / tpf;
-  const int j = threadIdx.x - g * tpf;
-  const int P = (M + 1) / 2;
-  const int pr = q0 + g;
-  const size_t S = (size_t)T * hop;
-  float2 v[bf_fft::kPts];
-  if (pr < P) {
-    // points j + s n / 16: the first half from hop t of [tail | x], the
-    // second from hop t + 1
-    const int c0 = 2 * pr;
-    const bool pair = c0 + 1 < M;
-    const float* lo0 = t == 0 ? tail + (size_t)c0 * hop
-                              : x + c0 * S + (size_t)(t - 1) * hop;
-    const float* hi0 = x + c0 * S + (size_t)t * hop;
-    const size_t dlo = t == 0 ? hop : S;        // to the pair's second row
-#pragma unroll
-    for (int s = 0; s < bf_fft::kPts; ++s) {
-      const int i = j + s * tpf;
-      const float* src = s < bf_fft::kPts / 2 ? lo0 + i : hi0 + i - hop;
-      const size_t d = s < bf_fft::kPts / 2 ? dlo : S;
-      const float w = __ldg(win + i);
-      const float a = __ldg(src);
-      const float b = pair ? __ldg(src + d) : 0.f;
-      v[s] = make_float2(a * w, b * w);
-    }
-  } else {
-#pragma unroll
-    for (int s = 0; s < bf_fft::kPts; ++s) v[s] = make_float2(0.f, 0.f);
-  }
-  bf_fft::fft<R3>(v, sh + g * ld, ptw, j);
-  // X_c0[k] = (Z[k] + conj(Z[n-k])) / 2, X_c0+1[k] = (Z[k] - conj(Z[n-k])) / 2i
-  const float nan = __int_as_float(0x7fc00000);
-  for (int q = threadIdx.x; q < G * NIB; q += kThreads) {
-    const int gq = q / NIB, jb = q - gq * NIB;
-    const int c0 = 2 * (q0 + gq);
-    if (c0 >= M) continue;
-    const int64_t k = ib[jb];
-    float2 a = make_float2(nan, nan), b = a;
-    if (k >= 1 && k < hop) {
-      const float2 z = sh[gq * ld + bf_fft::pad((int)k)];
-      const float2 m = sh[gq * ld + bf_fft::pad(n - (int)k)];
-      a = make_float2(0.5f * (z.x + m.x), 0.5f * (z.y - m.y));
-      b = make_float2(0.5f * (z.y + m.y), -0.5f * (z.x - m.x));
-    }
-    dst[(size_t)c0 * NIB + jb] = a;
-    if (c0 + 1 < M) dst[(size_t)(c0 + 1) * NIB + jb] = b;
-  }
-  if (q0 == 0 && threadIdx.x == 0) *dc = sh[0].x;     // X_0[0], real
-  __syncthreads();                                    // sh is reused
-}
 
 // Stage B of segment ``sg`` (frames t0 .. t0 + F - 1) for one tile: bins
 // b0 .. b0 + kBins - 1, segment frames f0 .. f0 + kFrames - 1.
@@ -212,17 +135,8 @@ __device__ __forceinline__ void analyze_item(const MegaArgs& p, float2* smem,
   float2* dst = p.ring + (size_t)((p.W + t) % (p.SEG + p.W)) *
                              ((size_t)p.M * p.NIB);
   float* dc = p.dc + (sg & 1) * p.SEG + f;
-#define BF_ANALYZE(R3)                                                     \
-  analyze_pairs<R3>(smem, p.x, p.tail, p.win, p.ptw, p.ib, dst, dc, p.M,   \
-                    p.T, p.NIB, t, q0)
-  switch (p.hop) {
-    case 128: BF_ANALYZE(1); break;
-    case 256: BF_ANALYZE(2); break;
-    case 512: BF_ANALYZE(4); break;
-    case 1024: BF_ANALYZE(8); break;
-    default: BF_ANALYZE(16); break;
-  }
-#undef BF_ANALYZE
+  bf_band::analyze_band<false>(p.hop, smem, p.x, p.tail, p.win, p.ptw, p.ib,
+                               dst, dc, p.M, p.T, p.NIB, t, q0);
 }
 
 // two blocks of 256 threads an SM (128 registers a thread) up to 16 rows

@@ -19,28 +19,34 @@
 // in-band bins, 1407 frames, W = 10) it is 1417 dependent frames over 678
 // bins. But R_t depends on nothing except the W frames before t, so every
 // (frame, bin) pair is an independent problem: 954 k 16 x 16 Hermitian
-// solves. Each block takes 8 bins x 32 frames, stages those frames and
-// their W-frame history once into shared memory (coalesced along bins,
-// read straight from the analysis output's (T, M, NB) layout at the band's
-// bin indices, so no gathered copy of the spectra is made), and recomputes
-// each window sum directly. A problem is solved by MP lanes (M rounded up
-// to a power of two, at most 32): lane i owns row i of R in registers, the
-// right-looking Cholesky keeps the trailing block Hermitian so lane i also
-// holds column entry A[i][k], and the factor, the two triangular solves and
-// the dot products exchange values by warp shuffles within the MP lanes.
-// No sum depends on where a chunk starts, so chunked output equals offline
-// output bit for bit. The result agrees with the TPU kernel's sliding and
-// epoch sums at float32 round-off, not bit for bit.
+// solves. The kernel is the LCMV stream kernel (lcmv_stream.cuh) at one
+// constraint, less its inner system and its X scratch: a block takes 8 bins
+// x 32 frames and stages those frames and their W-frame history once into
+// shared memory (read straight from the analysis output's (T, M, NB)
+// layout at the band's bin indices, so no gathered copy of the spectra is
+// made), and MP / 2 lanes solve one problem, lane l holding rows l and
+// MP - 1 - l of R's lower triangle and of its Cholesky factor
+// (tri_solve.cuh; MP = M rounded up to a power of two, at least 4), so at
+// 16 mics a warp solves four problems. The refined solve and the two sums
+// over lanes are tri_solve.cuh's mvdr_terms, as in the fused kernel's
+// refined MVDR form. Each window sum is recomputed from the frames it
+// covers, so chunked output equals offline output bit for bit. The result
+// agrees with the TPU kernel's sliding and epoch sums at float32
+// round-off, not bit for bit.
 //
-// What bounds it: arithmetic and shuffle latency, not bytes. Each problem
-// costs about 40 k flop (window sum, factor, four triangular solves, one
-// residual) against 1.3 KB of spectra read once per block; the per-lane
-// chains of dependent shuffles are what the card waits on.
+// What bounds it: instruction issue, not bytes. A problem at 16 mics costs
+// about 40 k flop (window sum, factor, four triangular solves, one
+// residual) against 1.3 KB of spectra read once per block; the factor's
+// column broadcasts serve four problems a warp, and the backward solves'
+// sums over lanes and the refinement's residual are the shuffles left. On
+// an NVIDIA H100 80GB HBM3 at 700 W, at 16 mics, 678 bins, 1,407 frames and
+// W = 10 (97.85% of the pairs solved), a call takes 1.74–1.83 ms, 486–511
+// SM-cycles a solved problem (3.54 ms with two problems a warp and a full
+// row of R a lane; PERF.md section 6).
 //
 // Rows beyond M are an identity block (zero spectra, unit diagonal, zero
 // steering), so the M x M solve is unchanged. Pivots use 1.f / sqrtf(),
-// not rsqrtf(); no fast-math intrinsics. The staging, the window
-// covariance with its factor and the refined solve are in stream_solve.cuh.
+// not rsqrtf(); no fast-math intrinsics.
 //
 // The index tensors are checked here, not on the host (which would cost a
 // synchronisation per call). Neither is dereferenced out of range: a bin
@@ -50,14 +56,15 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "stream_solve.cuh"
+#include "tri_solve.cuh"
 
 namespace {
 
-using namespace bf_stream;
+using namespace bf_tri;
 
+// two blocks of 256 threads an SM (128 registers a thread) up to 16 rows
 template <int MP>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, MP <= 16 ? 2 : 1)
     mvdr_stream_kernel(const float2* __restrict__ spec,
                        const int64_t* __restrict__ ib,
                        const float2* __restrict__ hist,
@@ -66,18 +73,25 @@ __global__ void __launch_bounds__(kThreads)
                        const uint8_t* __restrict__ gate,
                        float2* __restrict__ y, int T, int M, int NB, int NIB,
                        int W, int U) {
-  extern __shared__ float2 xs[];  // [kFrames + W][MP][kBins]
+  using Sh = Shape<MP>;
+  extern __shared__ float4 smem4[];
+  float2* smem = reinterpret_cast<float2*>(smem4);
+  float2* xs = smem;                        // [kFrames + W][kBins][LD]
   const int b0 = blockIdx.x * kBins;
   const int t0 = blockIdx.y * kFrames;
   const float nan = __int_as_float(0x7fc00000);
-  stage_frames<MP>(xs, spec, ib, hist, T, M, NB, NIB, W, b0, t0);
+  stage_spec<MP>(xs, spec, ib, hist, T, M, NB, NIB, W, b0, t0);
   __syncthreads();
 
-  constexpr int kSlots = kThreads / MP;
-  const int slot = threadIdx.x / MP;
-  const int i = threadIdx.x % MP;                   // row of R
-  for (int it = 0; it < kBins * kFrames / kSlots; ++it) {
-    const int p = slot + it * kSlots;
+  const int slot = threadIdx.x / Sh::H;
+  const int l = threadIdx.x % Sh::H;                // rows l, MP - 1 - l
+  const int rh = MP - 1 - l;
+  float2* cb = smem + tile_elems<MP>(W) + slot * Sh::CB;
+  // this problem's lanes within the warp: its shuffles and warp barriers
+  // name only them, so the problems sharing a warp may branch apart
+  const unsigned grp = group_mask<MP>();
+  for (int it = 0; it < kBins * kFrames / Sh::kSlots; ++it) {
+    const int p = slot + it * Sh::kSlots;
     const int bb = p % kBins;
     const int lt = p / kBins;
     const int t = t0 + lt;
@@ -85,28 +99,27 @@ __global__ void __launch_bounds__(kThreads)
     const bool valid = t < T && bin < NIB;
     const size_t out = (size_t)t * NIB + bin;
     const bool act = valid && gate[out];
-    const unsigned mask = __ballot_sync(0xffffffffu, act);
-    const float2 xt = xs[((lt + W) * MP + i) * kBins + bb];
+    const unsigned mask = __ballot_sync(0xffffffffu, act) & grp;
+    const float2* xrow = frame<MP>(xs, lt + W, bb);
+    const float2 xl = xrow[l], xh = xrow[rh];
     if (!act) {
-      if (valid && i == 0) y[out] = make_float2(0.01f * xt.x, 0.01f * xt.y);
+      if (valid && l == 0) y[out] = make_float2(0.01f * xl.x, 0.01f * xl.y);
       continue;
     }
-
-    float2 a[MP], r[MP];
-    float linv;
-    covariance_cholesky<MP>(mask, xs, lt, bb, i, M, W, a, r, linv);
-
-    float2 di = make_float2(0.f, 0.f);
-    const int64_t ui = w_idx[t];
-    if (ui < 0 || ui >= U)
-      di = make_float2(nan, nan);
-    else if (i < M)
-      di = d[((size_t)ui * M + i) * NIB + bin];
-    const float2 u = refined_solve<MP>(mask, a, r, linv, i, di);
-
-    const float2 den = group_sum<MP>(mask, cmul_conj(u, di));   // d^H u
-    const float2 num = group_sum<MP>(mask, cmul_conj(xt, u));   // u^H x
-    if (i == 0) {
+    Factor<MP> f;
+    covariance_factor<MP>(mask, xs, cb, lt, bb, l, M, W, f);
+    const int64_t u = w_idx[t];
+    float2 dl = make_float2(0.f, 0.f), dh = dl;
+    if (u < 0 || u >= U) {
+      dl = dh = make_float2(nan, nan);
+    } else {
+      const float2* du = d + (size_t)u * M * NIB + bin;
+      if (l < M) dl = du[(size_t)l * NIB];
+      if (rh < M) dh = du[(size_t)rh * NIB];
+    }
+    float2 num, den;
+    mvdr_terms<MP>(mask, xs, lt, bb, l, W, f, dl, dh, xl, xh, num, den);
+    if (l == 0) {
       const float s = 1.f / (den.x * den.x + den.y * den.y);
       y[out] = make_float2((num.x * den.x - num.y * den.y) * s,
                            (num.y * den.x + num.x * den.y) * s);
@@ -120,7 +133,8 @@ cudaError_t launch_stream(const float2* spec, const int64_t* ib,
                           const int64_t* w_idx, const uint8_t* gate,
                           float2* y, int T, int M, int NB, int NIB, int W,
                           int U, cudaStream_t st) {
-  const size_t smem = (size_t)(kFrames + W) * MP * kBins * sizeof(float2);
+  const size_t smem =
+      ((size_t)tile_elems<MP>(W) + cbuf_elems<MP>()) * sizeof(float2);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         mvdr_stream_kernel<MP>, cudaFuncAttributeMaxDynamicSharedMemorySize,

@@ -1,6 +1,6 @@
-// The per-(frame, bin) covariance solve of the streaming LCMV kernel
-// (lcmv_stream.cu) and the fused MVDR/LCMV kernel (mega_stream.cu), laid out
-// so that a warp solves several problems at once.
+// The per-(frame, bin) covariance solve of the streaming MVDR and LCMV
+// kernels (mvdr_stream.cu, lcmv_stream.cu) and the fused MVDR/LCMV kernel
+// (mega_stream.cu), laid out so that a warp solves several problems at once.
 //
 // Every (frame, bin) pair is an independent problem: R = (sum of x x^H over
 // the W frames before t) .* (ones + 0.001 I), its Cholesky factor L, and
@@ -451,6 +451,22 @@ __device__ __forceinline__ void solve(unsigned mask, const float2* xs, int lt,
   }
 }
 
+// The refined MVDR terms num = u^H x and den = d^H u with u = R^-1 d
+// (refined once), d and x at the lane's two rows; in every lane of the
+// problem.
+template <int MP>
+__device__ __forceinline__ void mvdr_terms(unsigned mask, const float2* xs,
+                                           int lt, int bb, int l, int W,
+                                           const Factor<MP>& f, float2 dl,
+                                           float2 dh, float2 xl, float2 xh,
+                                           float2& num, float2& den) {
+  constexpr int H = Shape<MP>::H;
+  float2 ul[1] = {dl}, uh[1] = {dh};
+  solve<MP, 1>(mask, xs, lt, bb, l, W, f, ul, uh, true);
+  den = group_sum<H>(mask, cadd(cmul_conj(ul[0], dl), cmul_conj(uh[0], dh)));
+  num = group_sum<H>(mask, cadd(cmul_conj(xl, ul[0]), cmul_conj(xh, uh[0])));
+}
+
 // The MVDR form: y = (u^H x) / conj(d^H u) with u = R^-1 d, 0 where
 // d^H u == 0 (an all-zero constraint column, mega_stream.py:206-213). d and
 // x at the lane's two rows; returns y in every lane of the problem.
@@ -477,12 +493,8 @@ __device__ __forceinline__ float2 mvdr_apply(unsigned mask, const float2* xs,
     const float s = den > 0.f ? 1.f / den : 0.f;
     return cscale(num, s);
   }
-  float2 ul[1] = {dl}, uh[1] = {dh};
-  solve<MP, 1>(mask, xs, lt, bb, l, W, f, ul, uh, true);
-  const float2 den = group_sum<H>(
-      mask, cadd(cmul_conj(ul[0], dl), cmul_conj(uh[0], dh)));   // d^H u
-  const float2 num = group_sum<H>(
-      mask, cadd(cmul_conj(xl, ul[0]), cmul_conj(xh, uh[0])));   // u^H x
+  float2 num, den;
+  mvdr_terms<MP>(mask, xs, lt, bb, l, W, f, dl, dh, xl, xh, num, den);
   const float d2 = den.x * den.x + den.y * den.y;
   const float s = d2 > 0.f ? 1.f / fmaxf(d2, 1e-38f) : 0.f;
   return make_float2((num.x * den.x - num.y * den.y) * s,

@@ -130,7 +130,7 @@ def _declare(lib):
     f = ctypes.c_float
     lib.bf_mega_stream.argtypes = [p] * 16 + [i] * 8 + [f, i, i, p]
     lib.bf_mega_stream.restype = i
-    lib.bf_gss_stream.argtypes = [p] * 16 + [i] * 7 + [f, f, f, p]
+    lib.bf_gss_stream.argtypes = [p] * 17 + [i] * 7 + [f, f, f, p]
     lib.bf_gss_stream.restype = i
     fp = ctypes.POINTER(ctypes.c_float)        # a host array of constants
     lib.bf_phase_mask.argtypes = [p] * 4 + [i] * 4 + [fp, p]

@@ -10,7 +10,8 @@ with the new state and carry: analysis with the gate statistic, per frame
 the reset W <- A^H on the frame's flag, y = W x with the pre-update W and
 the update of :func:`gss_update` where the gate passes (gss.cpp:90-156),
 and the half-spectrum synthesis, all in one launch
-(``csrc/gss_stream.cu``; the spectra stay in L2, W in registers).
+(``csrc/gss_stream.cu``; the spectra stay in L2, the active slots' W in
+registers).
 
 A slot is active when its row of A^H is nonzero (over the in-band bins and
 mics, per control row); S_act, the number of active slots, scales the
@@ -34,7 +35,8 @@ from beamform_tpu_torch.kernels._build import (check, check_tensor,
 from beamform_tpu_torch.kernels.mega_stream import (SEG_FRAMES, band_fits,
                                                     half_spectrum_synthesis)
 from beamform_tpu_torch.kernels.mvdr_stream import MAX_MICS, MAX_SLOTS
-from beamform_tpu_torch.kernels.wola import (MAX_NFFT, MIN_NFFT, _tables,
+from beamform_tpu_torch.kernels.wola import (MAX_NFFT, MIN_NFFT,
+                                             _analysis_tables, _tables,
                                              wola_analysis_plain)
 
 
@@ -192,20 +194,22 @@ def gss_mega(x, tail, out_prev, w0, ah_ib, idx, reset, ib, nfft: int,
     check_tensor(act, "act_bits", torch.int32, (u,), dev)
     seg = min(SEG_FRAMES, t)
     win, tw = _tables(nfft, dev)
+    ptw = _analysis_tables(nfft, dev)[1]
     out = torch.empty((t * hop,), dtype=torch.float32, device=dev)
     new_prev = torch.empty((hop,), dtype=torch.float32, device=dev)
     w_out = torch.empty_like(w0)
-    xsc = torch.empty((seg, m, nib), dtype=torch.complex64, device=dev)
-    ys = torch.empty((seg, nib), dtype=torch.complex64, device=dev)
+    xsc = torch.empty((2, seg, nib, m), dtype=torch.complex64, device=dev)
+    ys = torch.empty((2, seg, nib), dtype=torch.complex64, device=dev)
     with torch.cuda.device(dev):
         lib, stream = launch_context(dev)
         code = lib.bf_gss_stream(
             x.data_ptr(), tail.data_ptr(), out_prev.data_ptr(),
             w0.data_ptr(), ah_ib.data_ptr(), act.data_ptr(), idx.data_ptr(),
             reset.data_ptr(), ib.data_ptr(), win.data_ptr(), tw.data_ptr(),
-            out.data_ptr(), new_prev.data_ptr(), w_out.data_ptr(),
-            xsc.data_ptr(), ys.data_ptr(), m, t, hop, nib, u, s_cap, seg,
-            float(mag_threshold), float(mu), float(lam), stream)
+            ptw.data_ptr(), out.data_ptr(), new_prev.data_ptr(),
+            w_out.data_ptr(), xsc.data_ptr(), ys.data_ptr(), m, t, hop, nib,
+            u, s_cap, seg, float(mag_threshold), float(mu), float(lam),
+            stream)
     check(lib, code, "gss_stream")
     gss_mega.launches += 1
     return out, w_out, new_prev

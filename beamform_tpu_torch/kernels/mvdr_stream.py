@@ -33,8 +33,8 @@ from beamform_tpu_torch.kernels._build import (check, check_tensor,
 #: the LCMV kernel takes at most 16 constraint slots
 MAX_MICS, MAX_SLOTS = 32, 16
 #: a block stages 32 frames plus their W-frame history, 8 bins wide, for
-#: the lanes of a problem (a power of two), in at most the card's 227 KB
-#: of shared memory per block; 256 threads
+#: problems of a power-of-two size, in at most the card's 227 KB of shared
+#: memory per block; 256 threads
 _TILE_FRAMES, _TILE_BINS, MAX_SMEM, _THREADS = 32, 8, 232448, 256
 #: problems per plain-version batch (bounds its memory on the card)
 _PLAIN_CHUNK = 1 << 16
@@ -46,11 +46,12 @@ def _lanes(n: int) -> int:
 
 def solve_smem_elems(mp: int, w_hist: int, s_cap: int = 0) -> int:
     """complex64 elements of the shared memory of one block of a solve on
-    csrc/tri_solve.cuh (the LCMV stream kernel, the fused kernel's stage B)
-    for problems of size ``mp``: the staged tile ((32 + W) frames x 8 bins
-    x (MP + 2)), two column buffers of MP + 1 pairs per problem in flight
-    (512 / MP of them), and with ``s_cap`` slots each problem's X scratch
-    (SP x MP, SP the slots rounded up to a power of two)."""
+    csrc/tri_solve.cuh (the MVDR and LCMV stream kernels, the fused
+    kernel's stage B) for problems of size ``mp``: the staged tile
+    ((32 + W) frames x 8 bins x (MP + 2)), two column buffers of MP + 1
+    pairs per problem in flight (512 / MP of them), and with ``s_cap``
+    slots each problem's X scratch (SP x MP, SP the slots rounded up to a
+    power of two)."""
     slots = 2 * _THREADS // mp
     elems = (_TILE_FRAMES + w_hist) * _TILE_BINS * (mp + 2) + slots * (2 * mp
                                                                        + 2)
@@ -60,19 +61,16 @@ def solve_smem_elems(mp: int, w_hist: int, s_cap: int = 0) -> int:
 
 
 def smem_bytes(m: int, w_hist: int, s_cap: int = 0) -> int:
-    """Shared memory of one block of the MVDR kernel (``s_cap`` 0: the
-    staged tile, on M's lanes) or of the LCMV kernel with ``s_cap``
-    constraint slots (:func:`solve_smem_elems` for MP = max(M, S) rounded
-    up to a power of two)."""
-    if not s_cap:
-        return (_TILE_FRAMES + w_hist) * _lanes(m) * _TILE_BINS * 8
+    """Shared memory of one block of the MVDR kernel (``s_cap`` 0) or of
+    the LCMV kernel with ``s_cap`` constraint slots: :func:`solve_smem_elems`
+    for MP = max(M, S) rounded up to a power of two."""
     return solve_smem_elems(_lanes(max(m, s_cap)), w_hist, s_cap) * 8
 
 
 def stream_fits(m: int, w_hist: int, s_cap: int = 0) -> bool:
     """The streaming kernels' capacity rule: M <= 32, at most 16 slots
-    (LCMV), and the block's shared memory within the card's (MVDR: W <= 195
-    at 16 mics, W <= 81 at 32; LCMV at one slot: W <= 158 at 16 mics,
+    (LCMV), and the block's shared memory within the card's (MVDR: W <= 162
+    at 16 mics, W <= 70 at 32; LCMV at one slot: W <= 158 at 16 mics,
     W <= 69 at 32; at 16 slots: W <= 105 at 16 mics, W <= 40 at 32)."""
     return (1 <= m <= MAX_MICS and 0 <= s_cap <= MAX_SLOTS
             and smem_bytes(m, w_hist, s_cap) <= MAX_SMEM)

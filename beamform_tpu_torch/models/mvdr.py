@@ -64,7 +64,8 @@ def select_solver_strategy(solver: str, cdtype, m: int, w_hist: int,
     ``ib`` (host array) and ``nfft`` are the band and FFT length, which
     "mega" needs. "auto" runs the streaming solve kernel on a CUDA float32
     engine within its capacity (``kernels/mvdr_stream.stream_fits``:
-    M <= 32, S <= 16 and the staged tile within shared memory), and
+    M <= 32, S <= 16 and the staged tile within shared memory: at 16
+    mics W <= 162 for MVDR, W <= 158 for LCMV at one slot), and
     "dense" everywhere else; it does not pick "mega" until the two kernels
     have been timed against each other. "stream" on CUDA runs the kernel or
     raises past its capacity; on the CPU it runs the plain version in

@@ -72,11 +72,9 @@ LCMV_STREAM_REL_TOL = 3e-3
 F64_FACTOR = 2.0
 DAS_ABS_TOL = 1e-3       # float32 on the card vs float64 CPU (BASELINE.md)
 STREAM_TOL = 1e-5        # chunked vs offline, both on the card
-# LCMV with one constraint, float32 on the card, vs MVDR's float64 CPU path
-# on the same input, absolute (measured on an NVIDIA H100 80GB HBM3 at
-# 700 W: 3.1e-7 at a peak of 0.14). The card's MVDR solve (mvdr_stream.cu)
-# and LCMV solve (tri_solve.cuh) round differently, so LCMV is held to the
-# exact MVDR output rather than to the card's MVDR (9.8e-6 from float64)
+# LCMV with one constraint vs MVDR, both float32 on the card, on the same
+# input, absolute: the two stream kernels share tri_solve.cuh's refined
+# solve and differ only in the final division (LCMV's scalar inner system)
 LCMV_MVDR_TOL = 1e-6
 # the LCMV scenes: two static interferers, and an event timeline over one
 # (an add with the row-0 quirk at 10 s, a proximity removal at 20 s under
@@ -814,13 +812,16 @@ def phase_mvdr_kernels(x: np.ndarray) -> dict:
         f64 = km.mvdr_stream_plain(spec.cdouble(), hist.cdouble(),
                                    d.cdouble(), w_idx, gate, ib)
         torch.cuda.synchronize()
-        ms = cuda_ms(lambda: km.mvdr_stream(*args))
+        with SmClocks() as clk:
+            ms = cuda_ms(lambda: km.mvdr_stream(*args))
         plain_ms = cuda_ms(lambda: km.mvdr_stream_plain(*args), reps=3)
         abs_err = check_solve_kernel(
             f"mvdr_stream M={m} NIB={len(ib)} T={t} W={w} U={d.shape[0]} "
             f"({label}; gate passes {float(gate.float().mean()):.4f} of "
             "(frame, bin) pairs)", got, ref, f64, MVDR_STREAM_REL_TOL, ms,
             plain_ms)
+        log(f"  mvdr_stream ({label}): "
+            f"{solve_cycles(ms, clk, int(gate.sum()))}")
         del f64
         if "mvdr_stream" not in results:
             nib = len(ib)
@@ -1026,11 +1027,10 @@ def phase_lcmv(x: np.ndarray, xs: np.ndarray, y_mvdr: np.ndarray,
     path's launches counted alone, on noise (S = 1), on noise with two
     static interferers (S = 3), on the speech-like input (S = 1) and on
     noise under EVENTS' timeline; each checked against the float64 CPU
-    path, and S = 1 against MVDR's float64 CPU output (``y_mvdr64``; the
-    difference from MVDR ``auto`` on the card, ``y_mvdr``, is logged).
-    Returns ({(scene,
-    solver): output}, {scene: float64 CPU output}, {solver: that path's
-    own launch counts})."""
+    path, and S = 1 ``auto`` against MVDR ``auto`` on the card (``y_mvdr``;
+    the difference from MVDR's float64 CPU output, ``y_mvdr64``, is
+    logged). Returns ({(scene, solver): output}, {scene: float64 CPU
+    output}, {solver: that path's own launch counts})."""
     from beamform_tpu_torch import run_offline
     t = -(-x.shape[1] // HOP)
     timeline = event_timeline(t)
@@ -1081,10 +1081,11 @@ def phase_lcmv(x: np.ndarray, xs: np.ndarray, y_mvdr: np.ndarray,
         if not dev <= DAS_ABS_TOL:
             raise AssertionError(f"lcmv {scene} {solver} deviation {dev}")
     y1 = outs[("noise", "auto")]
-    diff = float(np.abs(y1 - y_mvdr64).max())
+    diff = float(np.abs(y1 - y_mvdr).max())
+    log(f"lcmv S=1 auto vs mvdr auto, both on the card (noise): max sample "
+        f"difference {diff:.3e} (bar {LCMV_MVDR_TOL:g})")
     log(f"lcmv S=1 auto on the card vs mvdr float64 on the cpu (noise): max "
-        f"sample difference {diff:.3e} (bar {LCMV_MVDR_TOL:g}); vs mvdr auto "
-        f"on the card {float(np.abs(y1 - y_mvdr).max()):.3e}")
+        f"sample difference {float(np.abs(y1 - y_mvdr64).max()):.3e}")
     if not diff <= LCMV_MVDR_TOL:
         raise AssertionError(f"lcmv S=1 vs mvdr {diff}")
     return outs, refs, launches

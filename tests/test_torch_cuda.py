@@ -524,6 +524,58 @@ def test_lcmv_on_cuda_matches_float64_cpu(cuda, solver, scene):
     assert np.abs(got - ref).max() <= 1e-3      # BASELINE budget
 
 
+@pytest.mark.parametrize("solver", ["auto", "mega"])
+@pytest.mark.parametrize("interf", [(70.0,), (70.0, -60.0, 120.0)])
+def test_lcmv_more_slots_than_mics_on_cuda(cuda, solver, interf):
+    """aira3 (3 mics) with 1 and 3 static interferers (S = 2 < M and
+    S = 4 > M) through the stream and fused kernels. With S < M the card
+    is held to the float64 CPU path (the BASELINE budget); with S > M the
+    inner matrix is singular and the output is round-off
+    (tests/test_torch_lcmv.py::
+    test_lcmv_more_slots_than_mics_against_the_jax_model), so the call is
+    held to its launches, its shape and the quiet lead-in's passthrough."""
+    import dataclasses
+    cfg = dataclasses.replace(
+        load_array_config(os.path.join(ROOT, "beamform_tpu_torch", "configs",
+                                       "aira3.yaml")),
+        interference_angles=interf)
+    rng = np.random.default_rng(23)
+    x = (0.1 * rng.standard_normal((3, 40 * 1024))).astype(np.float32)
+    x[:, :12 * 1024] *= 1e-4                  # quiet lead-in > past_windows
+    params = dict(load_launch_params("lcmv"), solver=solver)
+    kernel = klc.lcmv_stream if solver == "auto" else kmega.mega_stream
+    before = kernel.launches
+    got = run_offline("lcmv", x, engine=EngineConfig(), array_cfg=cfg,
+                      theta=20.0, params=params, device=cuda)
+    assert kernel.launches == before + 1
+    ref = run_offline("lcmv", x, engine=EngineConfig(dtype="float64"),
+                      array_cfg=cfg, theta=20.0, params=params, device="cpu")
+    assert got.shape == ref.shape
+    lead = 11 * 1024
+    assert np.abs(got[:lead] - ref[:lead]).max() <= 1e-9
+    if len(interf) + 1 < 3:
+        assert np.isfinite(got).all()
+        assert np.abs(got - ref).max() <= 1e-3      # BASELINE budget
+
+
+def test_lcmv_stream_s1_stream_equals_mvdr_stream_on_cuda(cuda):
+    """LCMV at one slot and MVDR, both ``stream`` on the card, on the same
+    16-mic input: the two kernels share tri_solve.cuh's refined solve and
+    differ only in LCMV's scalar inner system, so the audio agrees within
+    1e-6 (chip_smoke.py's LCMV_MVDR_TOL)."""
+    cfg = load_array_config(os.path.join(ROOT, "beamform_tpu_torch",
+                                         "configs", "aira16.yaml"))
+    x = _lcmv_scene(60, 8)
+    outs = {}
+    for node in ("lcmv", "mvdr"):
+        params = dict(load_launch_params(node), solver="stream")
+        outs[node] = run_offline(node, x, engine=EngineConfig(),
+                                 array_cfg=cfg, theta=20.0, params=params,
+                                 device=cuda)
+    assert np.isfinite(outs["mvdr"]).all()
+    assert np.abs(outs["lcmv"] - outs["mvdr"]).max() <= 1e-6
+
+
 def test_lcmv_stream_chunks_equal_offline_on_cuda(cuda):
     """Chunked LCMV with an interference timeline equals offline bit for
     bit, though each chunk trims its own unused slots."""
@@ -737,6 +789,52 @@ def test_gss_kernel_chunks_equal_one_call(cuda):
         state = (xc[:, -hop:].contiguous(), p, w_new)
     assert torch.equal(torch.cat(outs), whole[0])
     assert torch.equal(state[2], whole[1]) and torch.equal(state[1], whole[2])
+
+
+@pytest.mark.parametrize("resets", [(), (0, 25)])
+def test_gss_kernel_sixteen_slots_two_active(cuda, resets):
+    """The CLI's capacity, S = 16, with two active slots (0 and 5; the
+    other rows of A^H and of the starting W zero), with and without
+    resets: audio, W and the carry against the plain float32 version, the
+    audio against the plain float64 version, the inactive rows of W
+    exactly zero, and chunks equal to one call bit for bit."""
+    rng = np.random.default_rng(31)
+    hop, t, nib, m, s = 1024, 40, 60, 16, 16
+    mu, lam = 0.01, 0.5
+    x, tail, prev, ib, thr = _fused_inputs(rng, m, t, hop, nib, cuda)
+    ah = _cplx(rng, (1, s, m, nib), cuda)
+    ah = ah / ah.abs()                              # unit-modulus A^H
+    keep = torch.zeros(s, dtype=torch.bool, device=cuda)
+    keep[[0, 5]] = True
+    ah = (ah * keep[None, :, None, None]).contiguous()
+    w0 = (_cplx(rng, (nib, s, m), cuda) * 0.1
+          * keep[None, :, None]).contiguous()
+    idx = torch.zeros(t, dtype=torch.int64, device=cuda)
+    reset = torch.zeros(t, dtype=torch.bool, device=cuda)
+    reset[list(resets)] = True
+    args = (2 * hop, thr, mu, lam)
+    got = kgss.gss_mega(x, tail, prev, w0, ah, idx, reset, ib, *args)
+    cpu = [a.cpu() for a in (x, tail, prev, w0, ah, idx, reset, ib)]
+    ref = kgss.gss_mega(*cpu, *args)
+    f64 = kgss.gss_mega(*(a.double() for a in cpu[:3]),
+                        *(a.cdouble() for a in cpu[3:5]), *cpu[5:], *args)
+    audio, w_new, new_prev = (a.cpu() for a in got)
+    assert torch.isfinite(audio).all()
+    assert _rel(audio, ref[0]) < MVDR_REL
+    assert _rel(audio.double(), f64[0]) <= max(
+        2 * _rel(ref[0].double(), f64[0]), 1e-6)
+    assert _rel(w_new, ref[1]) < MVDR_REL
+    assert _rel(new_prev, ref[2]) < MVDR_REL
+    assert not w_new[:, ~keep.cpu()].any()
+    outs, state = [], (tail, prev, w0)
+    for f0, f1 in ((0, 1), (1, 26), (26, 40)):
+        xc = x[:, f0 * hop:f1 * hop].contiguous()
+        a, w_c, p = kgss.gss_mega(xc, state[0], state[1], state[2], ah,
+                                  idx[f0:f1], reset[f0:f1], ib, *args)
+        outs.append(a)
+        state = (xc[:, -hop:].contiguous(), p, w_c)
+    assert torch.equal(torch.cat(outs), got[0])
+    assert torch.equal(state[2], got[1]) and torch.equal(state[1], got[2])
 
 
 def test_fused_kernels_index_out_of_range_gives_nan(cuda):

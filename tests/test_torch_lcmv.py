@@ -316,6 +316,56 @@ def test_lcmv_float32_matches_jax_model(solver, scene):
     assert _rel(got, ref) < 3 * jax_err
 
 
+@pytest.mark.parametrize("interf", [(60.0, -75.0), (60.0, -75.0, 120.0),
+                                    (60.0, -75.0, 120.0, -30.0)])
+def test_lcmv_more_slots_than_mics_against_the_jax_model(interf):
+    """aira3 (3 mics) with 2, 3 and 4 static interferers: S = 3, 4 and 5
+    constraint slots, all active. The port's float64 ``dense``, ``stream``
+    and ``mega`` plain paths against the JAX model (float64, dense) on the
+    same numpy input.
+
+    With S <= M every path agrees with the JAX model within 1e-9 and is
+    finite. With S > M the constraint matrix C (M x S) has rank M, so the
+    inner matrix C^H R^-1 C is singular and w = R^-1 C (C^H R^-1 C)^-1 e0
+    is not defined: the JAX model's own float64 output moves by more than
+    its peak's 1e-3 when the input moves by one part in 1e15, so no other
+    implementation can be held to it within 1e-9 (and the port's paths,
+    which round differently, are not). What is defined still agrees: every
+    sample before the first gated-on frame (the quiet lead-in's 0.01 x0
+    passthrough), within 1e-12."""
+    cfg_j = dataclasses.replace(jload(_cfg("aira3.yaml")),
+                                interference_angles=interf)
+    cfg_t = dataclasses.replace(load_array_config(_cfg("aira3.yaml")),
+                                interference_angles=interf)
+    x = make_scene(AIRA3, seconds=0.2, theta_deg=THETA, hop=HOP, seed=9,
+                   quiet_hops=8)
+    jm = JLcmv(JEngine(sample_rate=FS, window_size=HOP, dtype="float64"),
+               jgeom.ArrayGeometry.from_config(cfg_j),
+               JLcmvParams(**PARAMS, solver="dense"),
+               interference_angles=interf)
+    ref = np.asarray(jm.process(x, THETA))
+    peak = np.abs(ref).max()
+    # the quiet lead-in: 8 hops, of which the output's first 7 depend on
+    # gated-off frames only
+    lead = 7 * HOP
+    well_posed = len(interf) + 1 <= len(AIRA3)
+    if not well_posed:
+        rng = np.random.default_rng(0)
+        moved = np.asarray(jm.process(
+            x * (1 + 1e-15 * rng.standard_normal(x.shape)), THETA))
+        assert np.abs(moved - ref).max() > 1e-3 * peak
+    for solver in ("dense", "stream", "mega"):
+        got = get_model("lcmv", _engine("float64"), cfg_t,
+                        dict(PARAMS, solver=solver), device="cpu").process(
+            x, THETA).numpy()
+        assert got.shape == ref.shape and got.dtype == np.float64
+        np.testing.assert_allclose(got[:lead], ref[:lead], rtol=0,
+                                   atol=1e-12)
+        if well_posed:
+            assert np.isfinite(got).all() and np.isfinite(ref).all()
+            assert np.abs(got - ref).max() <= 1e-9
+
+
 # ------------------------------------------------------------- streaming
 
 
@@ -479,22 +529,24 @@ def test_run_offline_takes_interference():
 
 
 def test_lcmv_stream_smem_bytes_follow_the_kernel_layout():
-    """The LCMV stream kernel's shared memory (mvdr_stream.smem_bytes with
-    slots): the staged tile ((32 + W) x 8 bins x (MP + 2)), two column
-    buffers of MP + 1 pairs for each of the 512 / MP problems in flight, and
+    """The stream kernels' shared memory (mvdr_stream.smem_bytes): the
+    staged tile ((32 + W) x 8 bins x (MP + 2)), two column buffers of
+    MP + 1 pairs for each of the 512 / MP problems in flight, and with slots
     each one's X scratch (SP x MP), MP = max(M, S) rounded up to a power of
-    two, at least 4; the MVDR kernel's rule is unchanged. And the W each
-    rule admits."""
+    two, at least 4; the MVDR kernel (no slots) is the same layout without
+    the scratch. And the W each rule admits."""
     nb = 8                                     # bytes of a complex64
-    assert smem_bytes(16, 10) == nb * 42 * 16 * 8
+    assert smem_bytes(16, 10) == nb * (42 * 8 * 18 + 32 * 34)
+    assert smem_bytes(3, 10) == nb * (42 * 8 * 6 + 128 * 10)
+    assert smem_bytes(32, 10) == nb * (42 * 8 * 34 + 16 * 66)
     assert smem_bytes(16, 10, 1) == nb * (42 * 8 * 18 + 32 * 34 + 32 * 16)
     assert smem_bytes(16, 10, 3) == nb * (42 * 8 * 18 + 32 * 34 + 32 * 64)
     assert smem_bytes(16, 10, 16) == nb * (42 * 8 * 18 + 32 * 34 + 32 * 256)
     assert smem_bytes(3, 10, 3) == nb * (42 * 8 * 6 + 128 * 10 + 128 * 16)
     assert smem_bytes(2, 10, 16) == smem_bytes(16, 10, 16)
     assert smem_bytes(32, 10, 1) == nb * (42 * 8 * 34 + 16 * 66 + 16 * 32)
-    for m, s_cap, w_max in ((16, 0, 195), (16, 1, 158), (16, 16, 105),
-                            (32, 1, 69), (32, 16, 40)):
+    for m, s_cap, w_max in ((16, 0, 162), (32, 0, 70), (16, 1, 158),
+                            (16, 16, 105), (32, 1, 69), (32, 16, 40)):
         assert stream_fits(m, w_max, s_cap)
         assert not stream_fits(m, w_max + 1, s_cap)
 

@@ -11,16 +11,20 @@ parent, ... Each process drives, on chip_smoke.py's noise input (aira16's
 16 mics, 48 kHz, 30 s), the device-resident call ``model.process`` of DAS,
 MVDR ``auto`` and ``mega``, LCMV ``auto`` (one slot, and chip_smoke.py's
 two static interferers: three) and ``mega`` (one slot and three), phase,
-phasempf and mcra under the launch presets, and GSC ``sample``, ``block``
-and ``blocklms`` (l = 128): the time of one call is CUDA events around
+phasempf and mcra under the launch presets, GSC ``sample``, ``block``
+and ``blocklms`` (l = 128), and GSS (one slot, and chip_smoke.py's two
+static interferers: three): the time of one call is CUDA events around
 it, median of 10 after 3 warm-ups (GSC: of 3 after 1). It also times, as
 chip_smoke.py's ``cuda_ms`` does (one call through the wrapper between
 two events, median of 20), ``kernels.wola.wola_analysis`` (C = 16, T =
 1407 and T = 64, with and without the gate statistic, seeded noise) and
-``torch.stft`` on the same frames, ``kernels.lcmv_stream.lcmv_stream`` on
-chip_smoke.py's operands (the analysis of the noise input under the LCMV
-preset; S = 1, 3 and 16 with 13 slots inactive) and
-``kernels.mega_stream.mega_stream`` (MVDR, and LCMV at S = 3).
+``torch.stft`` on the same frames, ``kernels.mvdr_stream.mvdr_stream``
+and ``kernels.lcmv_stream.lcmv_stream`` on chip_smoke.py's operands (the
+analysis of the noise input under the LCMV preset, whose solve settings
+are MVDR's; LCMV at S = 1, 3 and 16 with 13 slots inactive),
+``kernels.mega_stream.mega_stream`` (MVDR, and LCMV at S = 3) and
+``kernels.gss_stream.gss_mega`` (the gss preset, zero state, S = 1, 3
+and 16 with 13 slots inactive).
 CHANGE_ROOT defaults to this checkout. Prints one line per process, then
 per metric both sides' medians and ranges; imports no JAX.
 """
@@ -51,7 +55,9 @@ PATHS = (("das", "das", None, 10, False), ("mvdr", "mvdr", {}, 10, False),
          ("gsc block", "gsc", {"write_mu": False, "solver": "block"}, 3,
           False),
          ("gsc blocklms", "gsc", {"write_mu": False, "solver": "blocklms"},
-          3, False))
+          3, False),
+         ("gss", "gss", {}, 10, False),
+         ("gss S=3", "gss", {}, 10, True))
 ANALYSIS_T = (1407, 64)
 
 
@@ -106,16 +112,22 @@ def worker(root: str) -> dict:
 
 
 def solve_kernels(cs, x) -> dict:
-    """One call of the LCMV stream kernel and of the fused kernel through
-    their wrappers (ms), on chip_smoke.py's operands: the analysis of ``x``
-    under the LCMV preset (678 in-band bins, 1407 frames, W = 10, zero
-    history), S = 1, 3 and 16 (two interferers, 13 slots inactive); the
-    fused kernel on ``x`` with zero carries, MVDR and LCMV at S = 3."""
+    """One call of the MVDR and LCMV stream kernels, the fused MVDR/LCMV
+    kernel and the fused GSS kernel through their wrappers (ms), on
+    chip_smoke.py's operands: the analysis of ``x`` under the LCMV preset
+    (678 in-band bins, 1407 frames, W = 10, zero history), MVDR at one
+    steering and LCMV at S = 1, 3 and 16 (two interferers, 13 slots
+    inactive); the fused kernels on ``x`` with zero carries, MVDR and LCMV
+    at S = 3, and GSS under the gss preset (zero state, W <- A^H at frame
+    0) at S = 1, 3 and 16 (two interferers, 13 slots inactive)."""
     import torch
+    from beamform_tpu_torch.kernels import gss_stream as kgss
     from beamform_tpu_torch.kernels import lcmv_stream as kl
     from beamform_tpu_torch.kernels import mega_stream as kmega
+    from beamform_tpu_torch.kernels import mvdr_stream as km
     from beamform_tpu_torch.kernels.wola import wola_analysis
     from beamform_tpu_torch.models import common, get_model
+    from beamform_tpu_torch.runtime.timeline import static_interference
     dev = torch.device("cuda")
     params = cs.preset("lcmv")
     model = get_model("lcmv", cs.engine(), cs.aira16(), params, device=dev)
@@ -129,20 +141,39 @@ def solve_kernels(cs, x) -> dict:
     hist = torch.zeros((w, m, len(ib)), dtype=torch.complex64, device=dev)
     idx = torch.zeros(t, dtype=torch.int64, device=dev)
     out = {}
+    d = common.weights_for_thetas(model.geom, model.freqs,
+                                  torch.full((1,), cs.THETA, device=dev),
+                                  torch.float32, torch.complex64)
+    d_ib = d.index_select(2, ib).contiguous()
+    out["mvdr_stream"] = cs.cuda_ms(
+        lambda: km.mvdr_stream(spec, hist, d_ib, idx, gate, ib))
     for n_interf, capacity in ((0, 0), (2, 2), (2, 15)):
         c = cs.lcmv_constraints(model, n_interf, capacity)
         out[f"lcmv_stream S={c.shape[1]}"] = cs.cuda_ms(
             lambda: kl.lcmv_stream(spec, hist, c, idx, gate, ib))
     xm, tail, prev, _ = cs.fused_inputs(x)
-    d = common.weights_for_thetas(model.geom, model.freqs,
-                                  torch.full((1,), cs.THETA, device=dev),
-                                  torch.float32, torch.complex64)
     for label, ctrl, lcmv in (
-            ("MVDR", d.index_select(2, ib)[:, None].contiguous(), False),
+            ("MVDR", d_ib[:, None].contiguous(), False),
             ("LCMV S=3", cs.lcmv_constraints(model, 2, 2), True)):
         out[f"mega_stream {label}"] = cs.cuda_ms(
             lambda: kmega.mega_stream(xm, tail, prev, hist, ctrl, idx, ib,
                                       thr, lcmv=lcmv))
+    for interf, capacity in (((), 0), (cs.INTERFERERS, 2),
+                             (cs.INTERFERERS, 15)):
+        gss = get_model("gss", cs.engine(), cs.aira16(interf),
+                        cs.preset("gss"), device=dev)
+        gss.capacity = capacity
+        gp = gss.params
+        (ah, _, _, bits), gidx, _ = gss._interf_ctrl(
+            cs.THETA, t, static_interference(t, interf, capacity=capacity))
+        w0 = torch.zeros((len(gss.ib), ah.shape[1], m),
+                         dtype=torch.complex64, device=dev)
+        reset = torch.zeros(t, dtype=torch.bool, device=dev)
+        reset[0] = True
+        out[f"gss_mega S={ah.shape[1]}"] = cs.cuda_ms(
+            lambda: kgss.gss_mega(xm, tail, prev, w0, ah, gidx, reset,
+                                  gss.ib, 2 * cs.HOP, gp.freq_mag_threshold,
+                                  gp.mu, gp.lam, act_bits=bits))
     return out
 
 
