@@ -135,9 +135,9 @@ def _declare(lib):
     fp = ctypes.POINTER(ctypes.c_float)        # a host array of constants
     lib.bf_phase_mask.argtypes = [p] * 4 + [i] * 4 + [fp, p]
     lib.bf_phase_mask.restype = i
-    lib.bf_mpf_march.argtypes = [p] * 7 + [i] * 4 + [fp, i, p]
+    lib.bf_mpf_march.argtypes = [p] * 11 + [i] * 4 + [fp, i, p]
     lib.bf_mpf_march.restype = i
-    lib.bf_mcra_march.argtypes = [p] * 6 + [i] * 2 + [fp, i, p]
+    lib.bf_mcra_march.argtypes = [p] * 10 + [i] * 2 + [fp, i, p]
     lib.bf_mcra_march.restype = i
     lib.bf_gsc_sample.argtypes = [p] * 10 + [i] * 5 + [fp, p]
     lib.bf_gsc_sample.restype = i

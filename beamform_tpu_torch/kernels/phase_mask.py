@@ -17,7 +17,8 @@ Counterpart of ``beamform_tpu/kernels/phase_mask.py``:
   (bin 1 x 0.75, bin 0 = |X0[0]|, phasempf.cpp:144-153) and the per-frame
   MCRA + MPF march (phasempf.cpp:140-191, 255-295). On CUDA one call is two
   launches (``csrc/phase_mask.cu``): the front end over every (frame, bin),
-  then the march, one thread per bin over the dependent frames.
+  then the march (``csrc/march.cuh``), whose serial chain a frame is the
+  noise update alone.
 * :func:`mcra_march` replaces the MCRA node's ``lax.scan``
   (``beamform_tpu/models/mcra.py``), which has no Pallas kernel: the MCRA
   recurrence per bin over the frames and the spectral subtraction at the
@@ -26,9 +27,11 @@ Counterpart of ``beamform_tpu/kernels/phase_mask.py``:
 The recurrences are written once, here, on the models' states
 (:class:`McraState`, :class:`MpfState`: per-bin vectors, ``current_l`` a
 0-d int32 and ``first_l`` a 0-d bool, in the JAX package's field order).
-The CUDA kernels hold the state as float32 rows, one per field, with
-``current_l`` and ``first_l`` repeated in every bin as the TPU kernel keeps
-them; the wrappers convert.
+The CUDA marches read the state's float32 vectors and its ``current_l``
+and ``first_l`` in place and write a new state (its vectors rows of one
+buffer); ``csrc/march.cuh`` holds their algebra, each op rounded in the
+order ``_mcra_step`` takes it, so that no rounding depends on where a
+segment or a call starts.
 
 Numerics: the plain versions repeat the kernels' algebra (torch's atan2,
 the output phase as x0 / |x0|). The kernels use CUDA's ``atan2f`` and sum
@@ -267,20 +270,41 @@ def _floats(*vals):
     return (ctypes.c_float * len(vals))(*vals)
 
 
-def _state_rows(state) -> torch.Tensor:
-    """A typed state -> the kernels' (fields, NB) float32 rows,
-    ``current_l`` and ``first_l`` repeated in every bin."""
-    nb = state[0].shape[-1]
-    return torch.stack([v.to(torch.float32) for v in state[:-2]]
-                       + [s.to(torch.float32).expand(nb)
-                          for s in state[-2:]]).contiguous()
+def _state_in(state, nb: int, dev):
+    """A typed state -> (its vectors, float32 (NB,) each, current_l int32,
+    first_l bool), contiguous on ``dev``: the kernels read them in place
+    (a field of another type or layout is converted first)."""
+    vecs = [v.to(torch.float32).contiguous() for v in state[:-2]]
+    for name, v in zip(state._fields, vecs):
+        check_tensor(v, f"state.{name}", torch.float32, (nb,), dev)
+    cur = state.current_l.to(torch.int32)
+    first = state.first_l.to(torch.bool)
+    check_tensor(cur, "state.current_l", torch.int32, (), dev)
+    check_tensor(first, "state.first_l", torch.bool, (), dev)
+    return vecs, cur, first
 
 
-def _rows_state(cls, rows: torch.Tensor, rdtype):
-    """The kernels' rows -> a typed state (``current_l`` and ``first_l``
-    from bin 0)."""
-    return cls(*(r.to(rdtype) for r in rows[:-2]),
-               rows[-2, 0].to(torch.int32), rows[-1, 0] > 0.5)
+def _state_out(cls, nb: int, dev):
+    """The kernels' new state: (its vectors as rows of one float32 buffer,
+    current_l, first_l)."""
+    return (torch.empty((len(cls._fields) - 2, nb), dtype=torch.float32,
+                        device=dev),
+            torch.empty((), dtype=torch.int32, device=dev),
+            torch.empty((), dtype=torch.bool, device=dev))
+
+
+def _ptrs(tensors):
+    """A pointer to a host array of the tensors' device pointers (the
+    pointer holds the array)."""
+    return ctypes.cast((ctypes.c_void_p * len(tensors))(
+        *(t.data_ptr() for t in tensors)), ctypes.c_void_p)
+
+
+def _new_state(cls, out, rdtype):
+    """:func:`_state_out`'s tensors, filled -> a typed state of
+    ``rdtype`` vectors."""
+    vecs, cur, first = out
+    return cls(*(v.to(rdtype) for v in vecs.unbind(0)), cur, first)
 
 
 def _check_front(spec, w_uniq, w_idx, what: str):
@@ -343,13 +367,12 @@ def mpf_march(spec, w_uniq, w_idx, state: MpfState, p, bug_dc_zero: bool):
         return mpf_march_plain(spec, w_uniq, w_idx, state, p, bug_dc_zero)
     t, m, nb, u = _check_front(spec, w_uniq, w_idx, "MPF")
     dev = spec.device
-    rows = _state_rows(state)
-    check_tensor(rows, "state", torch.float32, (9, nb), dev)
+    vecs, cur, first = _state_in(state, nb, dev)
     if t == 0:
         return torch.empty((0, nb), dtype=torch.complex64, device=dev), state
     planes = torch.empty((4, t, nb), dtype=torch.float32, device=dev)
     y = torch.empty((t, nb), dtype=torch.complex64, device=dev)
-    rows_out = torch.empty_like(rows)
+    out = _state_out(MpfState, nb, dev)
     coef = _floats(
         p.min_phase * math.pi / 180.0, p.min_mag,
         *_mcra_coefs(p.MCRA_alphaS, p.MCRA_alphaD, p.MCRA_alphaD2,
@@ -363,11 +386,13 @@ def mpf_march(spec, w_uniq, w_idx, state: MpfState, p, bug_dc_zero: bool):
         lib, stream = launch_context(dev)
         code = lib.bf_mpf_march(
             spec.data_ptr(), w_uniq.data_ptr(), w_idx.data_ptr(),
-            rows.data_ptr(), planes.data_ptr(), y.data_ptr(),
-            rows_out.data_ptr(), m, t, nb, u, coef, flags, stream)
+            _ptrs(vecs), cur.data_ptr(), first.data_ptr(),
+            planes.data_ptr(), y.data_ptr(), _ptrs(out[0]),
+            out[1].data_ptr(), out[2].data_ptr(), m, t, nb, u, coef, flags,
+            stream)
     check(lib, code, "mpf_march")
     mpf_march.launches += 1
-    return y, _rows_state(MpfState, rows_out, state[0].dtype)
+    return y, _new_state(MpfState, out, state[0].dtype)
 
 
 def mcra_march(s_f, sq, x, state: McraState, p, bug_dc_zero: bool):
@@ -383,12 +408,11 @@ def mcra_march(s_f, sq, x, state: McraState, p, bug_dc_zero: bool):
     check_tensor(s_f, "s_f", torch.float32, (t, nb), dev)
     check_tensor(sq, "sq", torch.float32, (t, nb), dev)
     check_tensor(x, "x", torch.complex64, (t, nb), dev)
-    rows = _state_rows(state)
-    check_tensor(rows, "state", torch.float32, (6, nb), dev)
+    vecs, cur, first = _state_in(state, nb, dev)
     if t == 0:
         return torch.empty((0, nb), dtype=torch.complex64, device=dev), state
     y = torch.empty((t, nb), dtype=torch.complex64, device=dev)
-    rows_out = torch.empty_like(rows)
+    out = _state_out(McraState, nb, dev)
     coef = _floats(*_mcra_coefs(p.alphaS, p.alphaD, p.alphaD2, p.delta,
                                 p.L), p.out_amp)
     flags = ((_ONLY_NOISE if p.out_only_noise else 0)
@@ -396,11 +420,13 @@ def mcra_march(s_f, sq, x, state: McraState, p, bug_dc_zero: bool):
     with torch.cuda.device(dev):
         lib, stream = launch_context(dev)
         code = lib.bf_mcra_march(
-            s_f.data_ptr(), sq.data_ptr(), x.data_ptr(), rows.data_ptr(),
-            y.data_ptr(), rows_out.data_ptr(), t, nb, coef, flags, stream)
+            s_f.data_ptr(), sq.data_ptr(), x.data_ptr(), _ptrs(vecs),
+            cur.data_ptr(), first.data_ptr(), y.data_ptr(), _ptrs(out[0]),
+            out[1].data_ptr(), out[2].data_ptr(), t, nb, coef, flags,
+            stream)
     check(lib, code, "mcra_march")
     mcra_march.launches += 1
-    return y, _rows_state(McraState, rows_out, state[0].dtype)
+    return y, _new_state(McraState, out, state[0].dtype)
 
 
 phase_mask.launches = 0

@@ -156,6 +156,10 @@ REPS = 20
 # HBM bytes, and float32 operations outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+# the marches' serial chain, one frame of the noise update (csrc/march.cuh
+# lam_step): a multiply, an add and a select, each dependent on the last,
+# at ~4 cycles each
+CHAIN_CYCLES = 12
 KERNEL_KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                "library_ms")
 
@@ -1380,11 +1384,11 @@ def fmt_flips(stats) -> str:
             f"{stats[1]:.2e}, max {stats[2]:.3e} of peak")
 
 
-def log_launch_split(fn, prefix: str, calls: int = 5):
-    """The device time of each kernel whose name holds ``prefix`` in one
-    call of ``fn``: torch.profiler over ``calls`` calls after one warm-up,
-    the mean per call (a profile that lost a kernel shows as a count below
-    ``calls``)."""
+def log_launch_split(fn, prefix, calls: int = 5):
+    """The device time of each kernel whose name holds ``prefix`` (a
+    string, or a tuple of them) in one call of ``fn``: torch.profiler over
+    ``calls`` calls after one warm-up, the mean per call (a profile that
+    lost a kernel shows as a count below ``calls``)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -1394,11 +1398,23 @@ def log_launch_split(fn, prefix: str, calls: int = 5):
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
+    prefixes = (prefix,) if isinstance(prefix, str) else prefix
     for e in prof.key_averages():
-        if prefix in e.key and not e.key.startswith("aten::"):
+        if (any(p in e.key for p in prefixes)
+                and not e.key.startswith("aten::")):
             log(f"  launch {e.key[:70]}: "
                 f"{getattr(e, 'device_time_total', 0.0) / 1e3 / calls:.4f} "
                 f"ms per call (x{e.count} in {calls} calls, profiler)")
+
+
+def serial_floor(frames: int, clk: "SmClocks") -> str:
+    """A march's serial floor: ``frames`` x CHAIN_CYCLES at clocks.sm (the
+    median nvidia-smi read during the timed calls)."""
+    if not clk.mhz:
+        return "serial floor not measured (clocks.sm not read)"
+    mhz = float(np.median(clk.mhz))
+    return (f"serial floor {frames * CHAIN_CYCLES / mhz / 1e3:.4f} ms "
+            f"({frames} frames x {CHAIN_CYCLES} cycles at {mhz:.0f} MHz)")
 
 
 def front_flops(m: int) -> float:
@@ -1416,7 +1432,9 @@ def phase_phase_kernels(x: np.ndarray, xsrc: np.ndarray) -> dict:
     the MPF kernels with one steering and with a theta timeline (two
     rows), the MPF state and the MCRA march from a zero state. Outputs and
     states are held to their plain versions under the flip contract,
-    current_L and first_L exactly. Returns the noise input's numbers."""
+    current_L and first_L exactly. Beside the timed marches it logs their
+    launches by profiler, clocks.sm and each march's serial floor (frames
+    x CHAIN_CYCLES). Returns the noise input's numbers."""
     import torch
     from beamform_tpu_torch.config import make_params
     from beamform_tpu_torch.kernels import phase_mask as kpm
@@ -1480,13 +1498,17 @@ def phase_phase_kernels(x: np.ndarray, xsrc: np.ndarray) -> dict:
             (y, st), (y_ref, st_ref) = (kpm.mpf_march(*mpf),
                                         kpm.mpf_march_plain(*mpf))
             torch.cuda.synchronize()
-            times = ((cuda_ms(lambda: kpm.mpf_march(*mpf)),
-                      cuda_ms(lambda: kpm.mpf_march_plain(*mpf), reps=3))
-                     if timed else ())
+            times = ()
+            if timed:
+                with SmClocks() as clk:
+                    ms = cuda_ms(lambda: kpm.mpf_march(*mpf))
+                times = (ms, cuda_ms(lambda: kpm.mpf_march_plain(*mpf),
+                                     reps=3))
             err = check(f"mpf_march {label}", y, y_ref, *times)
             check_state(f"mpf_march {label}", st, st_ref)
             if timed:
-                log_launch_split(lambda: kpm.mpf_march(*mpf), "mpf_")
+                log_launch_split(lambda: kpm.mpf_march(*mpf),
+                                 ("mpf_beams", "MpfNode"))
                 # the march's share per (frame, bin): the MCRA step (20),
                 # leakage, reverberation and lambda (14), the output (8)
                 results["mpf_march"] = dict(
@@ -1495,6 +1517,7 @@ def phase_phase_kernels(x: np.ndarray, xsrc: np.ndarray) -> dict:
                             + 2 * 4 * 9 * nb,
                             t * nb * (front_flops(m) + 16 + 42)),
                     library_ms=None)
+                log(f"  {clk.summary()}; {serial_floor(t, clk)}")
         x0 = spec[:, 0].contiguous()
         sq = x0.abs() ** 2
         s_f = freq_smooth(sq, x0[:, 0].abs())
@@ -1504,18 +1527,22 @@ def phase_phase_kernels(x: np.ndarray, xsrc: np.ndarray) -> dict:
                                     kpm.mcra_march_plain(*mc))
         torch.cuda.synchronize()
         timed = scene == "noise"
-        times = ((cuda_ms(lambda: kpm.mcra_march(*mc)),
-                  cuda_ms(lambda: kpm.mcra_march_plain(*mc), reps=3))
-                 if timed else ())
+        times = ()
+        if timed:
+            with SmClocks() as clk:
+                ms = cuda_ms(lambda: kpm.mcra_march(*mc))
+            times = (ms, cuda_ms(lambda: kpm.mcra_march_plain(*mc), reps=3))
         label = f"mcra_march NB={nb} T={t} ({scene}, mic 0)"
         err = check(label, y, y_ref, *times)
         check_state(label, st, st_ref)
         if timed:
+            log_launch_split(lambda: kpm.mcra_march(*mc), "McraNode")
             # per (frame, bin): the MCRA step (20), the output (14)
             results["mcra_march"] = dict(
                 max_abs_err=err, ms=times[0], plain_ms=times[1],
                 **bound(24 * t * nb + 2 * 4 * 6 * nb, 34 * t * nb),
                 library_ms=None)
+            log(f"  {clk.summary()}; {serial_floor(t, clk)}")
     return results
 
 

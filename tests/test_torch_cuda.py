@@ -1081,6 +1081,88 @@ def test_mcra_march_kernel_matches_plain(cuda, t, nb, only_noise):
             _assert_close_mod_flips(a, b)
 
 
+def _march_operands(kernel, t, nb, cuda, L):
+    """A march's call: (the wrapper, its plain version, its operands
+    before the state, its parameters with MCRA's L = ``L``, a zero
+    state). MPF on 16 mics and two steering rows, MCRA on mic 0's
+    spectrum under a syllabic envelope."""
+    from beamform_tpu_torch.config import McraParams, PhasempfParams
+    from beamform_tpu_torch.kernels import phase_mask as kpm
+    from beamform_tpu_torch.models.mcra import freq_smooth
+    if kernel == "mpf":
+        p = PhasempfParams(**dict(load_launch_params("phasempf"), MCRA_L=L))
+        ops = _phase_operands(16, t, nb, 2, t + nb, cuda)
+        return (kpm.mpf_march, kpm.mpf_march_plain, ops, p,
+                kpm.init_state(kpm.MpfState, nb, torch.float32, cuda))
+    rng = np.random.default_rng(t + nb)
+    env = np.abs(np.sin(np.arange(t) / 9.0))[:, None] + 0.05
+    x = torch.as_tensor(env * (rng.standard_normal((t, nb))
+                               + 1j * rng.standard_normal((t, nb))),
+                        dtype=torch.complex64, device=cuda)
+    sq = x.abs() ** 2
+    p = McraParams(**dict(load_launch_params("mcra"), L=L))
+    return (kpm.mcra_march, kpm.mcra_march_plain,
+            (freq_smooth(sq, x[:, 0].abs()), sq, x), p,
+            kpm.init_state(kpm.McraState, nb, torch.float32, cuda))
+
+
+def _chunk(kernel, ops, a, z):
+    """Frames a .. z - 1 of a march's operands (the steering rows whole)."""
+    if kernel == "mpf":
+        return (ops[0][a:z].contiguous(), ops[1], ops[2][a:z].contiguous())
+    return tuple(o[a:z].contiguous() for o in ops)
+
+
+@pytest.mark.parametrize("L", [31, None], ids=["L31", "preset"])
+@pytest.mark.parametrize("kernel", ["mpf", "mcra"])
+def test_march_kernels_chunks_equal_one_call(cuda, kernel, L):
+    """Both march kernels at T = 1407, NB = 1026 in 64-frame chunks with
+    the state carried equal one call bit for bit. With L = 31 from a zero
+    state current_L rolls over at frame 32 (a segment boundary inside a
+    chunk) and then every 32 frames, at every chunk boundary too."""
+    t, nb = 1407, 1026
+    if L is None:
+        L = load_launch_params("mcra" if kernel == "mcra" else "phasempf")[
+            "L" if kernel == "mcra" else "MCRA_L"]
+    fn, _, ops, p, st0 = _march_operands(kernel, t, nb, cuda, L)
+    y, st = fn(*ops, st0, p, True)
+    ys, stc, ends = [], st0, []
+    for a in range(0, t, 64):
+        yc, stc = fn(*_chunk(kernel, ops, a, a + 64), stc, p, True)
+        ys.append(yc)
+        ends.append(int(stc.current_l))
+    torch.cuda.synchronize()
+    assert torch.equal(torch.cat(ys), y)
+    for name, a, b in zip(st._fields, stc, st):
+        assert torch.equal(a, b), name
+    if L == 31:
+        # after frame 64 k + 63 the counter has run 32 frames since the
+        # roll-over at frame 64 k + 32: 32, and it rolls at the next frame
+        assert ends[1:-1] == [32] * (len(ends) - 2)
+        assert ends[0] == 32 and not bool(stc.first_l)
+
+
+@pytest.mark.parametrize("t", [1, 7, 60, 1407])
+@pytest.mark.parametrize("nb", [130, 1026, 129])
+@pytest.mark.parametrize("kernel", ["mpf", "mcra"])
+def test_march_kernels_ragged_shapes(cuda, kernel, nb, t):
+    """Bins not a multiple of a block's 8 (and an odd count, whose rows
+    the kernels copy a bin a lane), frames not a multiple of the 32-frame
+    segment, from a zero state under L = 7 (current_L rolls over at frame
+    8 and every 8 frames on): output and state against the plain version
+    under the flip contract, current_L and first_L exact."""
+    fn, plain, ops, p, st0 = _march_operands(kernel, t, nb, cuda, 7)
+    y, st = fn(*ops, st0, p, True)
+    torch.cuda.synchronize()
+    y_ref, st_ref = plain(*ops, st0, p, True)
+    assert y.shape == (t, nb)
+    _assert_close_mod_flips(y, y_ref)
+    assert int(st.current_l) == int(st_ref.current_l)
+    assert bool(st.first_l) == bool(st_ref.first_l)
+    for a, b in zip(st[:-2], st_ref[:-2]):
+        _assert_close_mod_flips(a, b)
+
+
 def test_phase_wrappers_refuse_what_they_do_not_take(cuda):
     from beamform_tpu_torch.config import McraParams, PhasempfParams
     from beamform_tpu_torch.kernels import phase_mask as kpm

@@ -201,6 +201,94 @@ def test_mcra_checkpoints_move_between_packages(direction, tmp_path):
         np.testing.assert_allclose(out.numpy(), y2, rtol=0, atol=1e-12)
 
 
+def _march_operands(t, nb, dtype, seed=6):
+    """Mic 0's spectrum (T, NB) under a syllabic envelope, its power and
+    its 3-tap smoothing: the MCRA march's operands."""
+    rng = np.random.default_rng(seed)
+    env = np.abs(np.sin(np.arange(t) / 5.0))[:, None] + 0.05
+    x = env * (rng.standard_normal((t, nb)) + 1j * rng.standard_normal((t, nb)))
+    x = torch.as_tensor(x.astype(np.complex128 if dtype == torch.float64
+                                 else np.complex64))
+    sq = x.abs() ** 2
+    return tmcra.freq_smooth(sq, x[:, 0].abs()), sq, x
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_mcra_march_plain_chunks_equal_one_call(dtype):
+    """The march's plain version (the CUDA kernel's oracle) in chunks of 8
+    frames with the state carried equals one call bit for bit. With L = 7
+    from a fresh state current_L rolls over at frame 8 and every 8 frames
+    on: at every chunk boundary."""
+    t, nb = 40, 2 * HOP + 2
+    s_f, sq, x = _march_operands(t, nb, dtype)
+    p = McraParams(**dict(PARITY, L=7))
+    st0 = tmcra.mcra_init_state(nb, dtype)
+    y, st = tpm.mcra_march_plain(s_f, sq, x, st0, p, True)
+    ys, stc, ends = [], st0, []
+    for a in range(0, t, 8):
+        yc, stc = tpm.mcra_march_plain(s_f[a:a + 8], sq[a:a + 8],
+                                       x[a:a + 8], stc, p, True)
+        ys.append(yc)
+        ends.append((int(stc.current_l), bool(stc.first_l)))
+    assert torch.equal(torch.cat(ys), y)
+    for name, a, b in zip(st._fields, stc, st):
+        assert torch.equal(a, b), name
+    # the counter ends each chunk at 8 > L: the next frame rolls it over
+    assert ends == [(8, True)] + [(8, False)] * (t // 8 - 1)
+
+
+def _jax_mcra_scan(s_f, sq, x, state, p, dc_zero):
+    """The JAX MCRA model's scan (beamform_tpu/models/mcra.py
+    McraModel._forward's step) on given operands."""
+    from beamform_tpu.models import common as jcommon
+
+    def step(st, inp):
+        s_f_t, sq_t, x_t = inp
+        st, lam = jmcra.mcra_update(st, s_f_t, sq_t, p)
+        mag_x, pha = jcommon.polar_mag_phase(x_t)
+        if p.out_only_noise:
+            mag = jax.numpy.sqrt(lam) * p.out_amp
+        else:
+            mag = jax.numpy.maximum(mag_x - jax.numpy.sqrt(lam), 0.0) * p.out_amp
+        y = jcommon.from_mag_phase(mag, pha)
+        return st, y.at[0].set(0.0 if dc_zero else x_t[0])
+
+    return jax.lax.scan(step, state, (s_f, sq, x))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("params", [PARITY, ONLY_NOISE],
+                         ids=["parity", "only_noise"])
+def test_mcra_march_plain_matches_jax_scan(params, dtype):
+    """The march's plain version against the JAX model's scan on the same
+    numpy operands, across roll-overs (L = 7) and with
+    bug_dc_zero on and off: float64 within 1e-12 of peak, float32 under
+    the mask contract; the state too, current_L and first_L exactly."""
+    t, nb = 30, 2 * HOP + 2
+    s_f, sq, x = _march_operands(t, nb, dtype)
+    params = dict(params, L=7)
+    p, jp = McraParams(**params), jcfg.McraParams(**params)
+    for dc_zero in (True, False):
+        y, st = tpm.mcra_march_plain(s_f, sq, x, tmcra.mcra_init_state(
+            nb, dtype), p, dc_zero)
+        st_j, y_j = _jax_mcra_scan(s_f.numpy(), sq.numpy(), x.numpy(),
+                                   jmcra.mcra_init_state(nb, s_f.numpy()
+                                                         .dtype), jp, dc_zero)
+        y_j = np.asarray(y_j)
+        if dtype == torch.float64:
+            assert np.abs(y.numpy() - y_j).max() <= 1e-12 * np.abs(y_j).max()
+        else:
+            assert_close_mod_flips(y.numpy(), y_j)
+        assert int(st.current_l) == int(st_j.current_l)
+        assert bool(st.first_l) == bool(st_j.first_l) is False
+        for a, b in zip(st[:4], st_j[:4]):
+            b = np.asarray(b)
+            if dtype == torch.float64:
+                assert np.abs(a.numpy() - b).max() <= 1e-12 * np.abs(b).max()
+            else:
+                assert_close_mod_flips(a.numpy(), b)
+
+
 def test_mcra_wrapper_takes_plain_on_cpu():
     rng = np.random.default_rng(1)
     x = torch.as_tensor(rng.standard_normal((6, 10))

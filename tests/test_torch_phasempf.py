@@ -173,6 +173,43 @@ def test_mpf_march_plain_matches_jax_kernel(m, u, flags):
                 np.abs(rows[r]).max(), 1e-30)
 
 
+def test_mpf_march_plain_chunks_equal_one_call_and_the_jax_kernel():
+    """The MPF kernels' plain version (the CUDA kernels' oracle) in chunks
+    of 8 frames with the state carried equals one call bit for bit; with
+    MCRA_L = 7 from a fresh state current_L rolls over at frame 8 and every
+    8 frames on, at every chunk boundary. The one call against
+    phase_mask.py's MPF kernel in interpret mode on the same numpy
+    operands: the output under the mask contract, the state's rows within
+    1e-5 of their peak, current_L and first_L exactly."""
+    t, nb, m = 24, 2 * HOP + 2, 3
+    spec, w, idx = _operands(m, t, nb, 2, 17)
+    p = PhasempfParams(**dict(PMPF, MCRA_L=7))
+    tspec, tw, tidx = (torch.as_tensor(a) for a in (spec, w, idx))
+    st0 = tpm.init_state(tpm.MpfState, nb, torch.float32)
+    y, st = tpm.mpf_march_plain(tspec, tw, tidx, st0, p, True)
+    ys, stc, ends = [], st0, []
+    for a in range(0, t, 8):
+        yc, stc = tpm.mpf_march_plain(tspec[a:a + 8], tw, tidx[a:a + 8],
+                                      stc, p, True)
+        ys.append(yc)
+        ends.append((int(stc.current_l), bool(stc.first_l)))
+    assert torch.equal(torch.cat(ys), y)
+    for name, a, b in zip(st._fields, stc, st):
+        assert torch.equal(a, b), name
+    assert ends == [(8, True), (8, False), (8, False)]
+    yr, yi, rows = jpm.phasempf_march_pallas(
+        np.ascontiguousarray(spec.real), np.ascontiguousarray(spec.imag),
+        np.ascontiguousarray(w.real), np.ascontiguousarray(w.imag), idx,
+        _rows(st0), jcfg.PhasempfParams(**dict(PMPF, MCRA_L=7)), True,
+        interpret=True)
+    assert_close_mod_flips(y.numpy(), np.asarray(yr) + 1j * np.asarray(yi))
+    rows, got = np.asarray(rows), _rows(st)
+    np.testing.assert_array_equal(got[7:], rows[7:])
+    for r in range(7):
+        assert np.abs(got[r] - rows[r]).max() <= 1e-5 * max(
+            np.abs(rows[r]).max(), 1e-30)
+
+
 def test_phasempf_helpers_match_jax():
     rng = np.random.default_rng(5)
     n = 2 * HOP + 2

@@ -22,9 +22,11 @@ two events, median of 20), ``kernels.wola.wola_analysis`` (C = 16, T =
 and ``kernels.lcmv_stream.lcmv_stream`` on chip_smoke.py's operands (the
 analysis of the noise input under the LCMV preset, whose solve settings
 are MVDR's; LCMV at S = 1, 3 and 16 with 13 slots inactive),
-``kernels.mega_stream.mega_stream`` (MVDR, and LCMV at S = 3) and
+``kernels.mega_stream.mega_stream`` (MVDR, and LCMV at S = 3),
 ``kernels.gss_stream.gss_mega`` (the gss preset, zero state, S = 1, 3
-and 16 with 13 slots inactive).
+and 16 with 13 slots inactive) and the marches
+``kernels.phase_mask.mpf_march`` and ``mcra_march`` (the presets, one
+steering, zero state).
 CHANGE_ROOT defaults to this checkout. Prints one line per process, then
 per metric both sides' medians and ranges; imports no JAX.
 """
@@ -113,20 +115,27 @@ def worker(root: str) -> dict:
 
 def solve_kernels(cs, x) -> dict:
     """One call of the MVDR and LCMV stream kernels, the fused MVDR/LCMV
-    kernel and the fused GSS kernel through their wrappers (ms), on
+    kernel, the fused GSS kernel and the MPF and MCRA marches through
+    their wrappers (ms), on
     chip_smoke.py's operands: the analysis of ``x`` under the LCMV preset
     (678 in-band bins, 1407 frames, W = 10, zero history), MVDR at one
     steering and LCMV at S = 1, 3 and 16 (two interferers, 13 slots
     inactive); the fused kernels on ``x`` with zero carries, MVDR and LCMV
     at S = 3, and GSS under the gss preset (zero state, W <- A^H at frame
-    0) at S = 1, 3 and 16 (two interferers, 13 slots inactive)."""
+    0) at S = 1, 3 and 16 (two interferers, 13 slots inactive); the MPF
+    front end and march on the analysis under the phasempf preset (one
+    steering, zero state), the MCRA march on its mic 0 under the mcra
+    preset (zero state)."""
     import torch
+    from beamform_tpu_torch.config import make_params
     from beamform_tpu_torch.kernels import gss_stream as kgss
     from beamform_tpu_torch.kernels import lcmv_stream as kl
     from beamform_tpu_torch.kernels import mega_stream as kmega
     from beamform_tpu_torch.kernels import mvdr_stream as km
+    from beamform_tpu_torch.kernels import phase_mask as kpm
     from beamform_tpu_torch.kernels.wola import wola_analysis
     from beamform_tpu_torch.models import common, get_model
+    from beamform_tpu_torch.models.mcra import freq_smooth
     from beamform_tpu_torch.runtime.timeline import static_interference
     dev = torch.device("cuda")
     params = cs.preset("lcmv")
@@ -174,6 +183,23 @@ def solve_kernels(cs, x) -> dict:
             lambda: kgss.gss_mega(xm, tail, prev, w0, ah, gidx, reset,
                                   gss.ib, 2 * cs.HOP, gp.freq_mag_threshold,
                                   gp.mu, gp.lam, act_bits=bits))
+    nb = spec.shape[2]
+    phase = get_model("phase", cs.engine(), cs.aira16(), cs.preset("phase"),
+                      device=dev)
+    uniq, w_idx = phase._theta_ctrl(cs.THETA, t)
+    wts = common.weights_for_thetas(phase.geom, phase.freqs, uniq,
+                                    torch.float32, torch.complex64)
+    mp = make_params("phasempf", cs.preset("phasempf"))
+    st = kpm.init_state(kpm.MpfState, nb, torch.float32, dev)
+    out["mpf_march"] = cs.cuda_ms(
+        lambda: kpm.mpf_march(spec, wts, w_idx, st, mp, True))
+    x0 = spec[:, 0].contiguous()
+    sq = x0.abs() ** 2
+    s_f = freq_smooth(sq, x0[:, 0].abs())
+    cp = make_params("mcra", cs.preset("mcra"))
+    mst = kpm.init_state(kpm.McraState, nb, torch.float32, dev)
+    out["mcra_march"] = cs.cuda_ms(
+        lambda: kpm.mcra_march(s_f, sq, x0, mst, cp, True))
     return out
 
 
