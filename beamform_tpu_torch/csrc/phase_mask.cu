@@ -30,18 +30,32 @@
 //
 // What bounds them on this card. The front end reads the spectra once
 // (T*M*NB*8 bytes: 185 MB at the main shape, 16 mics x 1026 bins x 1407
-// frames) and does ~1,000 float32 operations per (t, b) (16 atan2 and 120
-// pair terms), so it is bound by bytes, ~0.055 ms at 3.35 TB/s. Design: one
-// thread per (t, b), consecutive threads on consecutive bins, so each mic's
-// load is coalesced over the (T, M, NB) layout; the thread reads its own
-// steering row through w_idx (no per-frame weight tensor is gathered); the
-// M aligned phases stay in registers (the mic loop is unrolled to MAXM, a
-// template parameter, so they are registers and not local memory) and the
-// pairs are walked there; the output phase is x0 / |x0|, no trigonometry.
-// atan2 is CUDA's atan2f (at most 3 ulp), not a port of the TPU kernel's
-// Cephes polynomial: either rounds differently from torch.atan2, and a
-// binary mask flips only where a bin's mean pair distance lies within
-// ~1e-6 rad of the threshold.
+// frames), so it is bound by bytes, ~0.055 ms at 3.35 TB/s; its ~1,000
+// float32 instructions a (t, b) at 16 mics (16 atan2, 120 pair terms)
+// take about as long at full issue rate, so the design cuts instructions
+// until the loads set the pace. One thread per (t, b) over a flat grid
+// (no block of a frame's last few bins), consecutive threads on
+// consecutive bins, so each mic's load is coalesced over the (T, M, NB)
+// layout; the thread reads its own steering row through w_idx (no
+// per-frame weight tensor is gathered) and puts all of its 2M loads in
+// flight before the first atan2. The mic count is a template constant
+// (4, 8, 16, 32, the main path's 16 among them): with a runtime count each
+// of the 120 pair terms carried its own `j < M` guard, and the kernel ran
+// 30% more instructions (2,280 SASS against 1,752) and 24% longer. Other
+// counts run the next larger size with the guards. The M aligned phases
+// stay in registers. atan2 is the TPU kernel's branch-free form (two range
+// reductions, Cephes' odd polynomial of degree 9, the octant and quadrant
+// as selects, IEEE signed zeros), its one division the reciprocal fast
+// path with an exact fallback for a denominator outside [2^-125, 2^126);
+// a pair's wrapped distance is min(|d|, 2 pi - |d|), d = phi_i - phi_j,
+// summed as it is (four instructions a pair: the three-instruction form
+// pi - |pi - |d|| with pairs x pi added once cancels where the masks
+// decide, near 10 and 30 degrees, and was 13-20x further from float64
+// than this sum at 16 and 32 mics). atan2 rounds otherwise than
+// torch.atan2, in the last bits of the mean: a binary mask flips only
+// where a bin's mean pair distance lies within ~1e-6 rad of the
+// threshold. The output phase is x0 / |x0|, no
+// trigonometry.
 //
 // The marches are bound by latency, not bytes: NB independent bins (1026)
 // each walk T dependent frames. Only lam (lam_noise in MPF) depends on its
@@ -61,6 +75,9 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
+#include "atan2_fast.cuh"
 #include "march.cuh"
 
 namespace {
@@ -68,12 +85,11 @@ namespace {
 constexpr int kBinThreads = 128;   // bins per block, (frame, bin) kernels
 using march::kLanes;
 using march::kSeg;
-constexpr float kPi = 3.14159265358979323846f;
 constexpr float kTwoPi = 6.28318530717958647692f;
 constexpr int kOnlyNoise = 1, kOnlyMcra = 2, kDcZero = 4;
 
 struct FrontCoef {
-  float inv_m, inv_pairs;
+  float inv_m, inv_pairs;   // 1 / M, 1 / (M (M - 1) / 2)
 };
 
 struct PhaseCoef {
@@ -82,34 +98,45 @@ struct PhaseCoef {
 
 // Per (t, b): the mean wrapped pair distance of the aligned phases, the mean
 // |x| over mics and x0 (phase_mask.py:_aligned_and_stats). xs and ws point
-// at mic 0 of bin b; mic m is m * NB further.
-template <int MAXM>
+// at mic 0 of bin b; mic m is m * NB further. kExact: M == MAXM, no guards.
+template <int MAXM, bool kExact>
 __device__ __forceinline__ void front_end(const float2* __restrict__ xs,
                                           const float2* __restrict__ ws,
                                           int M, int NB, FrontCoef c,
                                           float& diff_mean, float& mag_mean,
                                           float2& x0) {
+  float2 xv[MAXM], wv[MAXM];
+#pragma unroll
+  for (int i = 0; i < MAXM; ++i) {            // every load in flight first
+    xv[i] = make_float2(0.f, 0.f);
+    wv[i] = xv[i];
+    if (kExact || i < M) {
+      xv[i] = __ldcs(xs + (size_t)i * NB);    // read once: evict first
+      wv[i] = __ldg(ws + (size_t)i * NB);
+    }
+  }
+  x0 = xv[0];
   float ph[MAXM];
   float mag = 0.f;
-  x0 = xs[0];
 #pragma unroll
   for (int i = 0; i < MAXM; ++i) {
+    const float2 x = xv[i], w = wv[i];
     ph[i] = 0.f;
-    if (i < M) {
-      const float2 x = xs[(size_t)i * NB];
-      const float2 w = ws[(size_t)i * NB];
-      ph[i] = atan2f(w.x * x.y - w.y * x.x, w.x * x.x + w.y * x.y);
+    if (kExact || i < M) {
+      ph[i] = bf_math::atan2_fast(w.x * x.y - w.y * x.x,
+                                  w.x * x.x + w.y * x.y);
       mag += sqrtf(x.x * x.x + x.y * x.y);
     }
   }
+  // sum of the wrapped pair distances
   float acc = 0.f;
 #pragma unroll
   for (int i = 0; i < MAXM - 1; ++i) {
 #pragma unroll
     for (int j = i + 1; j < MAXM; ++j) {
-      if (j < M) {
+      if (kExact || j < M) {
         const float d = fabsf(ph[i] - ph[j]);
-        acc += d > kPi ? kTwoPi - d : d;
+        acc += fminf(d, kTwoPi - d);
       }
     }
   }
@@ -127,17 +154,24 @@ __device__ __forceinline__ float2 unit_phase(float2 x) {
   return make_float2(1.f, 0.f);
 }
 
-// grid T * nbb blocks (nbb = ceil(NB / kBinThreads)): block -> (t, bins)
-template <int MAXM>
+// Thread q of the flat grid takes (t, b) = (q / NB, q mod NB), q < T * NB.
+__device__ __forceinline__ bool flat_tb(int T, int NB, int& t, int& b) {
+  const unsigned q = blockIdx.x * kBinThreads + threadIdx.x;
+  if (q >= (unsigned)T * (unsigned)NB) return false;
+  t = (int)(q / (unsigned)NB);
+  b = (int)(q - (unsigned)t * NB);
+  return true;
+}
+
+template <int MAXM, bool kExact>
 __global__ void __launch_bounds__(kBinThreads)
     phase_mask_kernel(const float2* __restrict__ spec,
                       const float2* __restrict__ w,
                       const int64_t* __restrict__ w_idx,
-                      float2* __restrict__ y, int M, int NB, int U, int nbb,
+                      float2* __restrict__ y, int M, int T, int NB, int U,
                       FrontCoef fc, PhaseCoef c) {
-  const int t = blockIdx.x / nbb;
-  const int b = (blockIdx.x % nbb) * kBinThreads + threadIdx.x;
-  if (b >= NB) return;
+  int t, b;
+  if (!flat_tb(T, NB, t, b)) return;
   const int64_t u = w_idx[t];
   float2* out = y + (size_t)t * NB + b;
   if (u < 0 || u >= U) {
@@ -147,8 +181,9 @@ __global__ void __launch_bounds__(kBinThreads)
   }
   float diff, mag;
   float2 x0;
-  front_end<MAXM>(spec + (size_t)t * M * NB + b, w + (size_t)u * M * NB + b,
-                  M, NB, fc, diff, mag, x0);
+  front_end<MAXM, kExact>(spec + (size_t)t * M * NB + b,
+                          w + (size_t)u * M * NB + b, M, NB, fc, diff, mag,
+                          x0);
   if (b == 0) {                                   // phase.cpp:87
     *out = x0;
     return;
@@ -162,17 +197,15 @@ __global__ void __launch_bounds__(kBinThreads)
 
 // planes (4, T, NB): SOI magnitude; interference power (0 at bin 0);
 // mic 0's unit phase, re and im (X0[0] itself at bin 0)
-template <int MAXM>
+template <int MAXM, bool kExact>
 __global__ void __launch_bounds__(kBinThreads)
     mpf_beams_kernel(const float2* __restrict__ spec,
                      const float2* __restrict__ w,
                      const int64_t* __restrict__ w_idx,
                      float* __restrict__ planes, int M, int T, int NB, int U,
-                     int nbb, FrontCoef fc, float min_phase_rad,
-                     float min_mag) {
-  const int t = blockIdx.x / nbb;
-  const int b = (blockIdx.x % nbb) * kBinThreads + threadIdx.x;
-  if (b >= NB) return;
+                     FrontCoef fc, float min_phase_rad, float min_mag) {
+  int t, b;
+  if (!flat_tb(T, NB, t, b)) return;
   const size_t o = (size_t)t * NB + b;
   const size_t plane = (size_t)T * NB;
   const int64_t u = w_idx[t];
@@ -183,8 +216,9 @@ __global__ void __launch_bounds__(kBinThreads)
   }
   float diff, mag;
   float2 x0;
-  front_end<MAXM>(spec + (size_t)t * M * NB + b, w + (size_t)u * M * NB + b,
-                  M, NB, fc, diff, mag, x0);
+  front_end<MAXM, kExact>(spec + (size_t)t * M * NB + b,
+                          w + (size_t)u * M * NB + b, M, NB, fc, diff, mag,
+                          x0);
   const bool is_soi = diff < min_phase_rad;
   const float soi_mag = is_soi ? mag : mag * min_mag;
   const float int_mag = is_soi ? mag * min_mag : mag;
@@ -193,6 +227,28 @@ __global__ void __launch_bounds__(kBinThreads)
   planes[plane + o] = b == 0 ? 0.f : int_mag * int_mag;
   planes[2 * plane + o] = e.x;
   planes[3 * plane + o] = e.y;
+}
+
+// Launch a front-end kernel at the mic count's size: ``launch(m, exact)``
+// with integral constants, M a template constant at 4, 8, 16 and 32, the
+// next larger size with guards otherwise.
+template <class L>
+cudaError_t by_mics(int M, L launch) {
+  using std::integral_constant;
+  constexpr std::true_type exact{};
+  constexpr std::false_type guarded{};
+  switch (M) {
+    case 4: launch(integral_constant<int, 4>{}, exact); break;
+    case 8: launch(integral_constant<int, 8>{}, exact); break;
+    case 16: launch(integral_constant<int, 16>{}, exact); break;
+    case 32: launch(integral_constant<int, 32>{}, exact); break;
+    default:
+      if (M < 4) launch(integral_constant<int, 4>{}, guarded);
+      else if (M < 8) launch(integral_constant<int, 8>{}, guarded);
+      else if (M < 16) launch(integral_constant<int, 16>{}, guarded);
+      else launch(integral_constant<int, 32>{}, guarded);
+  }
+  return cudaGetLastError();
 }
 
 // The MPF march on the beams' planes (march.cuh's march_kernel). Inputs
@@ -371,7 +427,8 @@ cudaError_t launch_march(const Node& nd, cudaStream_t st) {
 }
 
 FrontCoef front_coef(int M) {
-  return FrontCoef{(float)(1.0 / M), (float)(1.0 / (M * (M - 1) / 2))};
+  const int pairs = M * (M - 1) / 2;
+  return FrontCoef{(float)(1.0 / M), (float)(1.0 / pairs)};
 }
 
 march::McraCoef mcra_coef(const float* v) {
@@ -389,27 +446,18 @@ int bf_phase_mask(const void* spec, const void* w, const int64_t* w_idx,
                   void* y, int M, int T, int NB, int U, const float* coef,
                   void* stream) {
   if (M < 2 || M > 32 || T < 1 || NB < 1) return (int)cudaErrorInvalidValue;
-  const int nbb = (NB + kBinThreads - 1) / kBinThreads;
   const PhaseCoef c{coef[0], coef[1], coef[2], coef[3]};
   const FrontCoef fc = front_coef(M);
   cudaStream_t st = (cudaStream_t)stream;
   const float2* s = (const float2*)spec;
   const float2* wv = (const float2*)w;
   float2* out = (float2*)y;
-  const dim3 grid((unsigned)T * nbb);
-  if (M <= 4)
-    phase_mask_kernel<4><<<grid, kBinThreads, 0, st>>>(s, wv, w_idx, out, M,
-                                                       NB, U, nbb, fc, c);
-  else if (M <= 8)
-    phase_mask_kernel<8><<<grid, kBinThreads, 0, st>>>(s, wv, w_idx, out, M,
-                                                       NB, U, nbb, fc, c);
-  else if (M <= 16)
-    phase_mask_kernel<16><<<grid, kBinThreads, 0, st>>>(s, wv, w_idx, out, M,
-                                                        NB, U, nbb, fc, c);
-  else
-    phase_mask_kernel<32><<<grid, kBinThreads, 0, st>>>(s, wv, w_idx, out, M,
-                                                        NB, U, nbb, fc, c);
-  return (int)cudaGetLastError();
+  const dim3 grid((unsigned)(((size_t)T * NB + kBinThreads - 1) /
+                             kBinThreads));
+  return (int)by_mics(M, [&](auto m, auto exact) {
+    phase_mask_kernel<decltype(m)::value, decltype(exact)::value>
+        <<<grid, kBinThreads, 0, st>>>(s, wv, w_idx, out, M, T, NB, U, fc, c);
+  });
 }
 
 // spec, w, w_idx as bf_phase_mask; the state: vec_in / vec_out 7 float32
@@ -427,30 +475,18 @@ int bf_mpf_march(const void* spec, const void* w, const int64_t* w_idx,
                  unsigned char* first_out, int M, int T, int NB, int U,
                  const float* coef, int flags, void* stream) {
   if (M < 2 || M > 32 || T < 1 || NB < 2) return (int)cudaErrorInvalidValue;
-  const int nbb = (NB + kBinThreads - 1) / kBinThreads;
   const FrontCoef fc = front_coef(M);
   const float mp = coef[0], mm = coef[1];
   cudaStream_t st = (cudaStream_t)stream;
   const float2* s = (const float2*)spec;
   const float2* wv = (const float2*)w;
-  const dim3 grid((unsigned)T * nbb);
-  if (M <= 4)
-    mpf_beams_kernel<4><<<grid, kBinThreads, 0, st>>>(s, wv, w_idx, planes,
-                                                      M, T, NB, U, nbb, fc,
-                                                      mp, mm);
-  else if (M <= 8)
-    mpf_beams_kernel<8><<<grid, kBinThreads, 0, st>>>(s, wv, w_idx, planes,
-                                                      M, T, NB, U, nbb, fc,
-                                                      mp, mm);
-  else if (M <= 16)
-    mpf_beams_kernel<16><<<grid, kBinThreads, 0, st>>>(s, wv, w_idx, planes,
-                                                       M, T, NB, U, nbb, fc,
-                                                       mp, mm);
-  else
-    mpf_beams_kernel<32><<<grid, kBinThreads, 0, st>>>(s, wv, w_idx, planes,
-                                                       M, T, NB, U, nbb, fc,
-                                                       mp, mm);
-  cudaError_t err = cudaGetLastError();
+  const dim3 grid((unsigned)(((size_t)T * NB + kBinThreads - 1) /
+                             kBinThreads));
+  const cudaError_t err = by_mics(M, [&](auto m, auto exact) {
+    mpf_beams_kernel<decltype(m)::value, decltype(exact)::value>
+        <<<grid, kBinThreads, 0, st>>>(s, wv, w_idx, planes, M, T, NB, U, fc,
+                                       mp, mm);
+  });
   if (err != cudaSuccess) return (int)err;
   MpfNode nd{};
   nd.planes = planes;

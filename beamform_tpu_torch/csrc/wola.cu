@@ -35,13 +35,20 @@
 // ms (0.187 with the statistic; byte bound 0.083 ms; the radix-2 kernels
 // it replaced 0.449 ms, 0.542 with the statistic).
 //
-// The synthesis runs the radix-2 stages of band_wola.cuh (shared with the
-// fused kernels, mega_stream.cu and gss_stream.cu) on one frame held in
-// shared memory in bit-reversed order. Blocks are independent, so the
-// overlap-add, which the TPU carried across its sequential grid, is done
-// with atomicAdd into a zeroed output: each output sample receives exactly
-// two addends, and a + b == b + a, so the result does not depend on the
-// order blocks run in.
+// The synthesis is latency-bound at one channel (1,407 frames of nfft 2048
+// are ~17 MB, 0.005 ms of bytes); at 16 channels its byte bound is 0.083
+// ms (277 MB). It runs the
+// inverse real FFT on the register FFT at half length (reg_irfft.cuh: fold
+// and pre-twiddle on load, one complex FFT of nfft / 2 points, the even and
+// odd samples as its real and imaginary parts; at nfft 256, below the
+// register FFT's smallest size, the full-length transform of the Hermitian
+// mirror). A block owns a few consecutive frames of one channel and
+// recomputes the one before them, so it writes its hops whole with plain
+// stores: one launch, no atomics, no zeroed output, and each sample the
+// same two addends in the same order wherever a call starts. The radix-2
+// stages of band_wola.cuh, which this kernel ran before (six barriered
+// rounds on a bit-reversed frame of nfft points), still serve the fused
+// kernels' synthesis.
 //
 // Twiddles and the window come from tables computed in float64 on the host
 // and cast to float32. No fast-math intrinsics: the budget is 1e-5 of peak.
@@ -49,14 +56,10 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "band_wola.cuh"
 #include "reg_fft.cuh"
+#include "reg_irfft.cuh"
 
 namespace {
-
-using bf_band::kThreads;
-using bf_band::bitrev;
-using bf_band::ilog2;
 
 constexpr int kAnaThreads = 256;
 // frames from which a block walks every channel pair of its frame: four
@@ -152,38 +155,119 @@ wola_analysis_kernel(const float* __restrict__ x,
   }
 }
 
-// grid (T, C): y is (C, T, hop + 2) complex64 in the extended layout; out
-// (C, T*hop) must be zero on entry; new_prev (C, hop) receives the second
-// half of frame T-1.
-__global__ void __launch_bounds__(kThreads)
+// Threads a synthesis block: 256, or four frames' groups where a frame
+// takes more than 64 threads (nfft 4096).
+template <int R3>
+__host__ __device__ constexpr int syn_threads() {
+  return 16 * R3 > 64 ? 4 * 16 * R3 : 256;
+}
+
+// grid (ceil(T / G), C): block (b, c) owns frames t0 .. t0 + G - 1 (t0 =
+// b G) of channel c and writes their hops with plain stores. Its NG = G + 1
+// groups of n' / 16 threads each transform one frame, frame t0 - 1 + g,
+// on the register FFT of n' = 256 R3 points: the half-length inverse
+// (reg_irfft.cuh) for nfft = 2 n' (kHalf), the full-length one at nfft
+// 256. Group 0 recomputes frame t0 - 1, whose second half overlaps hop t0;
+// at t0 = 0 the carry out_prev takes its place. Hop t is then
+// win[i] x_t[i] + win[hop + i] x_{t-1}[hop + i], the same two float32
+// addends whichever block computes the frames, so the output does not
+// depend on the grid or on where a call starts. y is (C, T, hop + 2)
+// complex64 in the extended layout; out (C, T * hop); new_prev (C, hop)
+// receives the second half of frame T - 1. tw holds the FFT's pass
+// twiddles and, for kHalf, the pre-twiddles after them. Three blocks of
+// 256 threads an SM: the register FFT then fits in 80 registers without
+// spilling (at two blocks it took 128 and spilled 8 B), and 16 channels
+// run 10% faster (0.1448 against 0.1603 ms at nfft 2048, 1,407 frames, on
+// an H100).
+template <int R3, bool kHalf>
+__global__ void __launch_bounds__(syn_threads<R3>(),
+                                  syn_threads<R3>() > 256 ? 1 : 3)
 wola_inv_kernel(const float2* __restrict__ y,
                 const float* __restrict__ out_prev,
                 const float* __restrict__ win, const float2* __restrict__ tw,
                 float* __restrict__ out, float* __restrict__ new_prev,
-                int C, int T, int hop, int log2n) {
-  extern __shared__ float2 s[];
-  const int h = hop;
-  const int n = 2 * h;
-  const int t = blockIdx.x;
+                int T) {
+  constexpr int np = 256 * R3;                // FFT points
+  constexpr int hop = kHalf ? np : np / 2;
+  constexpr int tpf = np / bf_fft::kPts;      // threads a frame
+  constexpr int G = syn_threads<R3>() / tpf - 1;
+  constexpr int ld = bf_fft::padded(np);
+  constexpr int half = hop / 2;               // sample pairs a hop
+  // rows of the pass table (kernels/wola.py analysis_plan at np points)
+  constexpr int pass_rows = 256 + (R3 > 1 ? 256 * R3 : 0);
+  constexpr float inv_n = 1.0f / (float)(2 * hop);  // exact: a power of two
+  extern __shared__ float2 sh[];
+  const int g = threadIdx.x / tpf;
+  const int j = threadIdx.x - g * tpf;
   const int c = blockIdx.y;
-  const float2* yc = y + ((size_t)c * T + t) * (h + 2);
-  // fold (models/common.py fold_ext) + Hermitian mirror, in bit-reversed
-  // order for the DIT stages
-  for (int k = threadIdx.x; k < n; k += blockDim.x) {
-    const int kk = (k <= h) ? k : n - k;
-    float2 v = yc[kk];
-    if (kk == h - 1) {
-      const float2 sh = yc[h + 1];
-      v = make_float2(0.5f * (v.x + sh.x), 0.5f * (v.y - sh.y));
-    }
-    if (kk == 0 || kk == h) v.y = 0.0f;
-    if (k > h) v.y = -v.y;
-    s[bitrev(k, log2n)] = v;
+  const int t0 = blockIdx.x * G;
+  const int t = t0 - 1 + g;
+  float2 v[bf_fft::kPts];
+  if (t >= 0 && t < T) {
+    const float2* yt = y + ((size_t)c * T + t) * (hop + 2);
+    if constexpr (kHalf) bf_irfft::load_packed<R3>(yt, tw + pass_rows, j, v);
+    else bf_irfft::load_full256(yt, j, v);
+  } else {
+#pragma unroll
+    for (int s = 0; s < bf_fft::kPts; ++s) v[s] = make_float2(0.f, 0.f);
   }
-  __syncthreads();
-  bf_band::synthesize_frame(s, tw, win, out_prev + (size_t)c * h,
-                            out + (size_t)c * T * h, new_prev + (size_t)c * h,
-                            T, h, log2n, t);
+  bf_fft::fft<R3>(v, sh + g * ld, tw, j);    // ends with a barrier
+  auto pair = [&](int grp, int p) {
+    const float2* z = sh + grp * ld;
+    return kHalf ? bf_irfft::half_pair(z, p, inv_n)
+                 : bf_irfft::full_pair(z, p, inv_n);
+  };
+  const float2* win2 = reinterpret_cast<const float2*>(win);
+  float* oc = out + (size_t)c * T * hop;
+  const int nown = min(G, T - t0);
+  for (int q = threadIdx.x; q < nown * half; q += blockDim.x) {
+    const int f = q / half + 1;               // the group of frame t0 + f - 1
+    const int p = q - (f - 1) * half;
+    const int tf = t0 + f - 1;
+    const float2 wa = __ldg(win2 + p), wb = __ldg(win2 + half + p);
+    const float2 a = pair(f, p);
+    float2 b;
+    if (tf == 0) {
+      const float* pc = out_prev + (size_t)c * hop + 2 * p;
+      b = make_float2(__ldg(pc), __ldg(pc + 1));   // any alignment
+    } else {
+      const float2 x = pair(f - 1, half + p);
+      b = make_float2(__fmul_rn(x.x, wb.x), __fmul_rn(x.y, wb.y));
+    }
+    reinterpret_cast<float2*>(oc + (size_t)tf * hop)[p] =
+        make_float2(__fadd_rn(__fmul_rn(a.x, wa.x), b.x),
+                    __fadd_rn(__fmul_rn(a.y, wa.y), b.y));
+  }
+  if (T - 1 - t0 < G) {                       // this block owns frame T - 1
+    const int f = T - t0;
+    for (int p = threadIdx.x; p < half; p += blockDim.x) {
+      const float2 wb = __ldg(win2 + half + p);
+      const float2 x = pair(f, half + p);
+      reinterpret_cast<float2*>(new_prev + (size_t)c * hop)[p] =
+          make_float2(__fmul_rn(x.x, wb.x), __fmul_rn(x.y, wb.y));
+    }
+  }
+}
+
+template <int R3, bool kHalf>
+cudaError_t launch_synthesis(const float2* y, const float* out_prev,
+                             const float* win, const float2* tw, float* out,
+                             float* new_prev, int C, int T, cudaStream_t st) {
+  constexpr int threads = syn_threads<R3>();
+  constexpr int tpf = 16 * R3;
+  constexpr int G = threads / tpf - 1;
+  constexpr size_t smem =
+      sizeof(float2) * (threads / tpf) * bf_fft::padded(256 * R3);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        wola_inv_kernel<R3, kHalf>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+  }
+  const dim3 grid((T + G - 1) / G, C);
+  wola_inv_kernel<R3, kHalf><<<grid, threads, smem, st>>>(
+      y, out_prev, win, tw, out, new_prev, T);
+  return cudaGetLastError();
 }
 
 template <int R3>
@@ -237,21 +321,29 @@ int bf_wola_analysis(const float* x, const float* tail, const float* win,
   }
 }
 
-// y (C, T, hop+2) complex64, out_prev (C, hop), win (2*hop), tw (hop)
-// complex; out (C, T*hop), new_prev (C, hop).
+// y (C, T, hop+2) complex64, out_prev (C, hop), win (2*hop), tw the tables
+// of kernels/wola.py synthesis_plan (complex: the pass twiddles, then for
+// nfft >= 512 the pre-twiddles); out (C, T*hop), new_prev (C, hop). One
+// launch; returns its cudaGetLastError().
 int bf_wola_synthesis(const void* y, const float* out_prev, const float* win,
                       const void* tw, float* out, float* new_prev, int C,
                       int T, int hop, void* stream) {
-  const int n = 2 * hop;
+  if (C < 1 || T < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  cudaError_t err = cudaMemsetAsync(out, 0, (size_t)C * T * hop *
-                                    sizeof(float), st);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid(T, C);
-  wola_inv_kernel<<<grid, kThreads, n * sizeof(float2), st>>>(
-      (const float2*)y, out_prev, win, (const float2*)tw, out, new_prev, C,
-      T, hop, ilog2(n));
-  return (int)cudaGetLastError();
+  const float2* y2 = (const float2*)y;
+  const float2* t2 = (const float2*)tw;
+#define BF_SYN(R3, HALF)                                                    \
+  (int)launch_synthesis<R3, HALF>(y2, out_prev, win, t2, out, new_prev, C, \
+                                  T, st)
+  switch (2 * hop) {
+    case 256: return BF_SYN(1, false);
+    case 512: return BF_SYN(1, true);
+    case 1024: return BF_SYN(2, true);
+    case 2048: return BF_SYN(4, true);
+    case 4096: return BF_SYN(8, true);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef BF_SYN
 }
 
 }  // extern "C"

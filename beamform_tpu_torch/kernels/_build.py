@@ -17,6 +17,7 @@ because kernel wrappers take their plain-torch path for CPU tensors.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import glob
@@ -176,5 +177,16 @@ def check_tensor(t: torch.Tensor, name: str, dtype, shape, device):
 
 
 def launch_context(device: torch.device):
-    """(library, PyTorch's current stream on ``device`` as an int)."""
-    return build()["lib"], torch.cuda.current_stream(device).cuda_stream
+    """(library, PyTorch's current stream on ``device`` as an int: the raw
+    stream, without building a ``torch.cuda.Stream`` object a launch)."""
+    return build()["lib"], torch._C._cuda_getCurrentRawStream(device.index)
+
+
+def device_guard(device: torch.device):
+    """The context every wrapper launches in: ``torch.cuda.device(device)``,
+    or none where the CUDA tensor's ``device`` is already the current one,
+    the usual case, so that a launch pays no device switch and switch
+    back."""
+    if device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)

@@ -43,7 +43,7 @@ import numpy as np
 import torch
 
 from beamform_tpu_torch.kernels._build import (check, check_tensor,
-                                               launch_context)
+                                               device_guard, launch_context)
 
 K = 128            # the kernel's taps (the reference default, gsc.cpp:219)
 TILE = 128         # samples per tile of the kernel's staging
@@ -221,7 +221,7 @@ def _launch(inp, aligned_shape, block, filt, last_out, params, xmu: bool,
     upd = torch.empty((b, s), dtype=torch.bool, device=dev) if with_mu \
         else None
     if b and s:
-        with torch.cuda.device(dev):
+        with device_guard(dev):
             lib, stream = launch_context(dev)
             code = lib.bf_gsc_sample(
                 inp.data_ptr(), block.data_ptr(), filt.data_ptr(),

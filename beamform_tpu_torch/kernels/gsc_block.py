@@ -41,7 +41,7 @@ from __future__ import annotations
 import torch
 
 from beamform_tpu_torch.kernels._build import (check, check_tensor,
-                                               launch_context)
+                                               device_guard, launch_context)
 from beamform_tpu_torch.kernels.gsc import (K, check_shape, coef_array,
                                             window_sums)
 
@@ -159,7 +159,7 @@ def gsc_block(aligned, block, filt, last_out, gram, uold, params):
     lo_o = torch.empty_like(last_out)
     gr_o, uo_o = torch.empty_like(gram), torch.empty_like(uold)
     if b and s:
-        with torch.cuda.device(dev):
+        with device_guard(dev):
             lib, stream = launch_context(dev)
             code = lib.bf_gsc_block(
                 aligned.data_ptr(), block.data_ptr(), filt.data_ptr(),

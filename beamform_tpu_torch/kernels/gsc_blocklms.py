@@ -23,7 +23,7 @@ from __future__ import annotations
 import torch
 
 from beamform_tpu_torch.kernels._build import (check, check_tensor,
-                                               launch_context)
+                                               device_guard, launch_context)
 from beamform_tpu_torch.kernels.gsc import coef_array
 
 K = 128          # filter taps (reference default, gsc.cpp:219)
@@ -155,7 +155,7 @@ def gsc_blocklms(aligned, block, filt, last_out, params):
     out = torch.empty((b, s), dtype=torch.float32, device=dev)
     blk_o, flt_o = torch.empty_like(block), torch.empty_like(filt)
     lo_o = torch.empty_like(last_out)
-    with torch.cuda.device(dev):
+    with device_guard(dev):
         lib, stream = launch_context(dev)
         code = lib.bf_gsc_blocklms(
             aligned.data_ptr(), block.data_ptr(), filt.data_ptr(),

@@ -31,7 +31,7 @@ from __future__ import annotations
 import torch
 
 from beamform_tpu_torch.kernels._build import (check, check_tensor,
-                                               launch_context)
+                                               device_guard, launch_context)
 from beamform_tpu_torch.kernels.mega_stream import (SEG_FRAMES, band_fits,
                                                     half_spectrum_synthesis)
 from beamform_tpu_torch.kernels.mvdr_stream import MAX_MICS, MAX_SLOTS
@@ -200,7 +200,7 @@ def gss_mega(x, tail, out_prev, w0, ah_ib, idx, reset, ib, nfft: int,
     w_out = torch.empty_like(w0)
     xsc = torch.empty((2, seg, nib, m), dtype=torch.complex64, device=dev)
     ys = torch.empty((2, seg, nib), dtype=torch.complex64, device=dev)
-    with torch.cuda.device(dev):
+    with device_guard(dev):
         lib, stream = launch_context(dev)
         code = lib.bf_gss_stream(
             x.data_ptr(), tail.data_ptr(), out_prev.data_ptr(),

@@ -28,7 +28,7 @@ from __future__ import annotations
 import torch
 
 from beamform_tpu_torch.kernels._build import (check, check_tensor,
-                                               launch_context)
+                                               device_guard, launch_context)
 from beamform_tpu_torch.kernels.mvdr_stream import (MAX_MICS, MAX_SLOTS,
                                                     MAX_SMEM,
                                                     cholesky_refined_solve,
@@ -100,7 +100,7 @@ def lcmv_stream(x: torch.Tensor, hist: torch.Tensor, c: torch.Tensor,
     check_tensor(gate, "gate", torch.bool, (t, nib), dev)
     check_tensor(ib, "ib", torch.int64, (nib,), dev)
     y = torch.empty((t, nib), dtype=torch.complex64, device=dev)
-    with torch.cuda.device(dev):
+    with device_guard(dev):
         lib, stream = launch_context(dev)
         code = lib.bf_lcmv_stream(
             x.data_ptr(), ib.data_ptr(), hist.data_ptr(), c.data_ptr(),

@@ -24,7 +24,7 @@ from __future__ import annotations
 import torch
 
 from beamform_tpu_torch.kernels._build import (check, check_tensor,
-                                               launch_context)
+                                               device_guard, launch_context)
 
 #: the kernel holds one matrix in a group of at most 32 lanes (one warp)
 MAX_M = 32
@@ -80,7 +80,7 @@ def gj_inverse(a: torch.Tensor, polish: bool = True) -> torch.Tensor:
     out = torch.empty_like(a)
     if b == 0:
         return out
-    with torch.cuda.device(a.device):
+    with device_guard(a.device):
         lib, stream = launch_context(a.device)
         code = lib.bf_gj_inverse(a.data_ptr(), out.data_ptr(), b, m,
                                  int(polish), stream)

@@ -35,7 +35,7 @@ import torch
 
 from beamform_tpu_torch.dsp.wola import overlap_add_carry, sqrt_hann
 from beamform_tpu_torch.kernels._build import (check, check_tensor,
-                                               launch_context)
+                                               device_guard, launch_context)
 from beamform_tpu_torch.kernels.lcmv_stream import lcmv_stream_plain
 from beamform_tpu_torch.kernels.mvdr_stream import (MAX_MICS, MAX_SLOTS,
                                                     MAX_SMEM, _lanes,
@@ -188,7 +188,7 @@ def mega_stream(x: torch.Tensor, tail: torch.Tensor, out_prev: torch.Tensor,
     ring = torch.empty((seg + w, m, nib), dtype=torch.complex64, device=dev)
     ys = torch.empty((seg, nib), dtype=torch.complex64, device=dev)
     dc = torch.empty((2, seg), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
+    with device_guard(dev):
         lib, stream = launch_context(dev)
         code = lib.bf_mega_stream(
             x.data_ptr(), tail.data_ptr(), out_prev.data_ptr(),

@@ -27,7 +27,7 @@ from __future__ import annotations
 import torch
 
 from beamform_tpu_torch.kernels._build import (check, check_tensor,
-                                               launch_context)
+                                               device_guard, launch_context)
 
 #: capacity of the CUDA kernels: one problem in at most 32 lanes (a warp);
 #: the LCMV kernel takes at most 16 constraint slots
@@ -164,7 +164,7 @@ def mvdr_stream(x: torch.Tensor, hist: torch.Tensor, d: torch.Tensor,
     check_tensor(gate, "gate", torch.bool, (t, nib), dev)
     check_tensor(ib, "ib", torch.int64, (nib,), dev)
     y = torch.empty((t, nib), dtype=torch.complex64, device=dev)
-    with torch.cuda.device(dev):
+    with device_guard(dev):
         lib, stream = launch_context(dev)
         code = lib.bf_mvdr_stream(
             x.data_ptr(), ib.data_ptr(), hist.data_ptr(), d.data_ptr(),

@@ -34,10 +34,12 @@ order ``_mcra_step`` takes it, so that no rounding depends on where a
 segment or a call starts.
 
 Numerics: the plain versions repeat the kernels' algebra (torch's atan2,
-the output phase as x0 / |x0|). The kernels use CUDA's ``atan2f`` and sum
-the pair distances in another order, so a binary mask flips where a bin's
-mean pair distance lies within ~1e-6 rad of ``min_phase``; in the MPF march
-such a flip also enters the state and decays over the following frames.
+the output phase as x0 / |x0|). The kernels take atan2 from
+``csrc/atan2_fast.cuh`` (the TPU kernel's branch-free form, within 3.5
+ulp of float64's) and sum min(|d|, 2 pi - |d|) over the pairs as the
+plain version sums its wrapped distances, so a binary mask flips where a bin's mean pair distance lies within ~1e-6 rad
+of ``min_phase``; in the MPF march such a flip also enters the state and
+decays over the following frames.
 Kernel and plain version are held to each other, and to the JAX package,
 under the JAX package's contract for this (tests/test_phase_mask.py
 ``assert_close_mod_flips``).
@@ -55,7 +57,7 @@ from typing import NamedTuple
 import torch
 
 from beamform_tpu_torch.kernels._build import (check, check_tensor,
-                                               launch_context)
+                                               device_guard, launch_context)
 
 MAX_MICS = 32
 # flags of the MPF and MCRA march kernels
@@ -340,7 +342,7 @@ def phase_mask(spec, w_uniq, w_idx, min_phase_rad: float,
     y = torch.empty((t, nb), dtype=torch.complex64, device=spec.device)
     if t == 0:
         return y
-    with torch.cuda.device(spec.device):
+    with device_guard(spec.device):
         lib, stream = launch_context(spec.device)
         code = lib.bf_phase_mask(
             spec.data_ptr(), w_uniq.data_ptr(), w_idx.data_ptr(),
@@ -382,7 +384,7 @@ def mpf_march(spec, w_uniq, w_idx, state: MpfState, p, bug_dc_zero: bool):
     flags = ((_ONLY_NOISE if p.out_only_noise else 0)
              | (_ONLY_MCRA if p.out_only_mcra else 0)
              | (_DC_ZERO if bug_dc_zero else 0))
-    with torch.cuda.device(dev):
+    with device_guard(dev):
         lib, stream = launch_context(dev)
         code = lib.bf_mpf_march(
             spec.data_ptr(), w_uniq.data_ptr(), w_idx.data_ptr(),
@@ -417,7 +419,7 @@ def mcra_march(s_f, sq, x, state: McraState, p, bug_dc_zero: bool):
                                 p.L), p.out_amp)
     flags = ((_ONLY_NOISE if p.out_only_noise else 0)
              | (_DC_ZERO if bug_dc_zero else 0))
-    with torch.cuda.device(dev):
+    with device_guard(dev):
         lib, stream = launch_context(dev)
         code = lib.bf_mcra_march(
             s_f.data_ptr(), sq.data_ptr(), x.data_ptr(), _ptrs(vecs),

@@ -21,7 +21,7 @@ import torch
 
 from beamform_tpu_torch.dsp.wola import frame_signal_carry, sqrt_hann
 from beamform_tpu_torch.kernels._build import (check, check_tensor,
-                                               launch_context)
+                                               device_guard, launch_context)
 
 MIN_NFFT, MAX_NFFT = 256, 4096
 
@@ -97,20 +97,52 @@ def _check_nfft(nfft: int):
             "CPU only (see ROADMAP.md §1)")
 
 
+def _pass_table(passes) -> np.ndarray:
+    """The twiddles of Stockham passes with Ns > 1 as one float64 (rows, 2)
+    table, pass after pass, entry r * Ns + k holding exp(-2 pi i k r /
+    (Ns R))."""
+    parts = []
+    for r_, ns in passes[1:]:
+        r, k = np.meshgrid(np.arange(r_), np.arange(ns), indexing="ij")
+        ang = -2.0 * np.pi * (k * r).ravel() / (ns * r_)
+        parts.append(np.stack([np.cos(ang), np.sin(ang)], axis=-1))
+    return np.concatenate(parts)
+
+
+def _fft_passes(n: int):
+    """The register FFT's Stockham passes (csrc/reg_fft.cuh) at n points:
+    (16, 1), (16, 16) and, above 256 points, (n / 256, 256)."""
+    return [(16, 1), (16, 16)] + ([(n // 256, 256)] if n > 256 else [])
+
+
 def analysis_plan(nfft: int):
     """The analysis kernel's FFT plan (csrc/reg_fft.cuh): its Stockham
     passes as (R, Ns) pairs, (16, 1), (16, 16) and, above 256 points,
     (nfft / 256, 256), and the twiddles of the passes with Ns > 1 as one
     float32 (rows, 2) table, pass after pass, entry r * Ns + k holding
     exp(-2 pi i k r / (Ns R)), computed in float64."""
-    passes = [(16, 1), (16, 16)] + ([(nfft // 256, 256)] if nfft > 256
-                                    else [])
-    parts = []
-    for r_, ns in passes[1:]:
-        r, k = np.meshgrid(np.arange(r_), np.arange(ns), indexing="ij")
-        ang = -2.0 * np.pi * (k * r).ravel() / (ns * r_)
-        parts.append(np.stack([np.cos(ang), np.sin(ang)], axis=-1))
-    return passes, np.concatenate(parts).astype(np.float32)
+    passes = _fft_passes(nfft)
+    return passes, _pass_table(passes).astype(np.float32)
+
+
+def synthesis_plan(nfft: int):
+    """The synthesis kernel's plan (csrc/wola.cu, csrc/reg_irfft.cuh):
+    (half, passes, table), ``table`` float64 (rows, 2). For nfft >= 512
+    (``half``) the inverse real FFT runs as one complex FFT of nfft / 2
+    points: ``passes`` are that FFT's Stockham passes and ``table`` its
+    pass twiddles (:func:`analysis_plan`'s at nfft / 2, in float64)
+    followed by the nfft / 2 pre-twiddles exp(+2 pi i k / nfft). At nfft
+    256 the kernel transforms the full Hermitian frame: the passes and
+    pass twiddles of 256 points, no pre-twiddles."""
+    half = nfft >= 512
+    n = nfft // 2 if half else nfft
+    passes = _fft_passes(n)
+    table = _pass_table(passes)
+    if half:
+        ang = 2.0 * np.pi * np.arange(n) / nfft
+        table = np.concatenate([table, np.stack([np.cos(ang), np.sin(ang)],
+                                                axis=-1)])
+    return half, passes, table
 
 
 @lru_cache(maxsize=8)
@@ -125,12 +157,23 @@ def _analysis_tables(nfft: int, device: torch.device):
 @lru_cache(maxsize=8)
 def _tables(nfft: int, device: torch.device):
     """(window (nfft,), twiddles (nfft/2, 2)) as float32 on ``device``,
-    computed in float64: tw[j] = exp(-2 pi i j / nfft)."""
+    computed in float64: tw[j] = exp(-2 pi i j / nfft). The fused kernels'
+    radix-2 synthesis (csrc/band_wola.cuh) reads them."""
     ang = -2.0 * np.pi * np.arange(nfft // 2, dtype=np.float64) / nfft
     tw = np.stack([np.cos(ang), np.sin(ang)], axis=-1)
     win = sqrt_hann(nfft)
     return (torch.as_tensor(win, dtype=torch.float32, device=device),
             torch.as_tensor(tw, dtype=torch.float32, device=device))
+
+
+@lru_cache(maxsize=8)
+def _synthesis_tables(nfft: int, device: torch.device):
+    """(window (nfft,), :func:`synthesis_plan`'s table) as float32 on
+    ``device``."""
+    return (torch.as_tensor(sqrt_hann(nfft), dtype=torch.float32,
+                            device=device),
+            torch.as_tensor(synthesis_plan(nfft)[2], dtype=torch.float32,
+                            device=device))
 
 
 def wola_analysis(x: torch.Tensor, tail: torch.Tensor,
@@ -154,7 +197,7 @@ def wola_analysis(x: torch.Tensor, tail: torch.Tensor,
     spec = torch.empty((t, c, nb), dtype=torch.complex64, device=x.device)
     mag = (torch.empty((t, nb), dtype=torch.float32, device=x.device)
            if with_mag else None)
-    with torch.cuda.device(x.device):
+    with device_guard(x.device):
         lib, stream = launch_context(x.device)
         code = lib.bf_wola_analysis(
             x.data_ptr(), tail.data_ptr(), win.data_ptr(), tw.data_ptr(),
@@ -169,7 +212,7 @@ def wola_synthesis(y_ext: torch.Tensor, out_prev: torch.Tensor):
     """Fused WOLA synthesis; see :func:`wola_synthesis_plain` for the
     contract. On CUDA: complex64 ``y_ext`` (C, T, hop+2) and float32
     ``out_prev`` (C, hop), contiguous, nfft a power of two in
-    [256, 4096]."""
+    [256, 4096]; one launch."""
     if not y_ext.is_cuda:
         return wola_synthesis_plain(y_ext, out_prev)
     if y_ext.dim() != 3 or y_ext.shape[1] == 0:
@@ -180,11 +223,11 @@ def wola_synthesis(y_ext: torch.Tensor, out_prev: torch.Tensor):
     _check_nfft(2 * hop)
     check_tensor(y_ext, "y_ext", torch.complex64, (c, t, nb), y_ext.device)
     check_tensor(out_prev, "out_prev", torch.float32, (c, hop), y_ext.device)
-    win, tw = _tables(2 * hop, y_ext.device)
+    win, tw = _synthesis_tables(2 * hop, y_ext.device)
     out = torch.empty((c, t * hop), dtype=torch.float32, device=y_ext.device)
     new_prev = torch.empty((c, hop), dtype=torch.float32,
                            device=y_ext.device)
-    with torch.cuda.device(y_ext.device):
+    with device_guard(y_ext.device):
         lib, stream = launch_context(y_ext.device)
         code = lib.bf_wola_synthesis(
             y_ext.data_ptr(), out_prev.data_ptr(), win.data_ptr(),

@@ -12,7 +12,9 @@ kernel, the fused GSS kernel, the phase mask, the MPF beams and march, the
 MCRA march, and GSC's per-sample, xmu, block-LMS and lookahead-8 adaptive
 stages)
 against its plain-torch version at the main paths' shapes (the analysis
-also at every nfft it takes, with and without its fused gate statistic),
+and the synthesis also at every nfft they take, the analysis with and
+without its fused gate statistic, the synthesis split into calls that
+must equal one call bit for bit),
 with its time beside its bound (the least time the card could take for
 the same work) and, where one PyTorch call computes the same function,
 that call's time. It drives the main paths at full width (16 mics of the
@@ -489,10 +491,53 @@ def phase_kernels(t_main: int) -> dict:
         f"without mag ({n_cases} cases): worst rel err {worst:.3e} (bar "
         f"{KERNEL_REL_TOL:g}), one launch each")
 
+    # the synthesis at every nfft (256 on the full-length inverse, the
+    # others on the half-length one), C 1/5/16, T 1/2/7: one launch each,
+    # checked, not timed
+    worst, n_cases = 0.0, 0
+    for hop in (128, 256, 512, 1024, 2048):
+        for c in (1, 5, 16):
+            for t in (1, 2, 7):
+                y = torch.complex(*(torch.as_tensor(
+                    rng.standard_normal((c, t, hop + 2)),
+                    dtype=torch.float32, device=dev) for _ in range(2)))
+                prev = torch.as_tensor(rng.standard_normal((c, hop)),
+                                       dtype=torch.float32, device=dev)
+                before = kw.wola_synthesis.launches
+                got = kw.wola_synthesis(y, prev)
+                rel = _err(got, kw.wola_synthesis_plain(y, prev))[1]
+                worst, n_cases = max(worst, rel), n_cases + 1
+                if not (rel <= KERNEL_REL_TOL and
+                        kw.wola_synthesis.launches == before + 1):
+                    raise AssertionError(
+                        f"synthesis nfft={2 * hop} C={c} T={t}: rel err "
+                        f"{rel}")
+    log(f"kernel synthesis at nfft 256..4096, C 1/5/16, T 1/2/7 ({n_cases} "
+        f"cases): worst rel err {worst:.3e} (bar {KERNEL_REL_TOL:g}), one "
+        "launch each")
+    # blocks own whole hops: calls split at frames 1, 63, 64 and 700 equal
+    # one call bit for bit
+    y = torch.complex(*(torch.as_tensor(
+        rng.standard_normal((16, t_main, HOP + 2)), dtype=torch.float32,
+        device=dev) for _ in range(2)))
+    prev = torch.as_tensor(rng.standard_normal((16, HOP)),
+                           dtype=torch.float32, device=dev)
+    whole = kw.wola_synthesis(y, prev)
+    edges = [0, 1, 63, 64, 700, t_main]
+    parts, carry = [], prev
+    for a, b in zip(edges[:-1], edges[1:]):
+        out, carry = kw.wola_synthesis(y[:, a:b].contiguous(), carry)
+        parts.append(out)
+    if not (torch.equal(torch.cat(parts, 1), whole[0])
+            and torch.equal(carry, whole[1])):
+        raise AssertionError("synthesis chunks differ from one call")
+    log(f"kernel synthesis C=16 T={t_main} split at frames {edges[1:-1]}: "
+        "equal to one call bit for bit")
+
     cases = [("analysis", 16, t_main, False), ("analysis", 16, t_main, True),
              ("analysis", 16, 256, False), ("analysis", 16, 256, True),
-             ("synthesis", 1, t_main, None), ("synthesis", 1, 256, None),
-             ("synthesis", 8, 256, None)]
+             ("synthesis", 1, t_main, None), ("synthesis", 16, t_main, None),
+             ("synthesis", 1, 256, None), ("synthesis", 8, 256, None)]
     for kind, c, t, with_mag in cases:
         if kind == "analysis":
             x = torch.as_tensor(0.1 * rng.standard_normal((c, t * HOP)),
@@ -534,13 +579,18 @@ def phase_kernels(t_main: int) -> dict:
         if not rel_err <= KERNEL_REL_TOL:
             raise AssertionError(f"{label}: rel err {rel_err} > "
                                  f"{KERNEL_REL_TOL}")
-        if (t, c) in ((t_main, 16), (t_main, 1)) and not with_mag:
-            results[kind] = dict(max_abs_err=abs_err, ms=ms,
-                                 plain_ms=plain_ms,
-                                 **wola_yardsticks(kind, c, t, x if kind ==
-                                                   "analysis" else y,
-                                                   tail if kind == "analysis"
-                                                   else prev))
+        if kind == "synthesis" and t == t_main:
+            # the kernel's own time beside the call through the wrapper
+            log_launch_split(lambda: kw.wola_synthesis(y, prev), "wola_inv")
+        # the kernels line: the analysis at 16 channels, the synthesis at
+        # one (DAS and the other one-channel paths; GSC's 16 logged)
+        if t == t_main and not with_mag:
+            yard = wola_yardsticks(kind, c, t, x if kind == "analysis"
+                                   else y, tail if kind == "analysis"
+                                   else prev)
+            if c == (16 if kind == "analysis" else 1):
+                results[kind] = dict(max_abs_err=abs_err, ms=ms,
+                                     plain_ms=plain_ms, **yard)
     return results
 
 
@@ -1387,8 +1437,8 @@ def fmt_flips(stats) -> str:
 def log_launch_split(fn, prefix, calls: int = 5):
     """The device time of each kernel whose name holds ``prefix`` (a
     string, or a tuple of them) in one call of ``fn``: torch.profiler over
-    ``calls`` calls after one warm-up, the mean per call (a profile that
-    lost a kernel shows as a count below ``calls``)."""
+    ``calls`` calls after one warm-up, the mean per launch it recorded (a
+    profile that lost a launch shows as a count below ``calls``)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -1403,8 +1453,8 @@ def log_launch_split(fn, prefix, calls: int = 5):
         if (any(p in e.key for p in prefixes)
                 and not e.key.startswith("aten::")):
             log(f"  launch {e.key[:70]}: "
-                f"{getattr(e, 'device_time_total', 0.0) / 1e3 / calls:.4f} "
-                f"ms per call (x{e.count} in {calls} calls, profiler)")
+                f"{getattr(e, 'device_time_total', 0.0) / 1e3 / e.count:.4f}"
+                f" ms per launch (x{e.count} in {calls} calls, profiler)")
 
 
 def serial_floor(frames: int, clk: "SmClocks") -> str:
@@ -1490,6 +1540,8 @@ def phase_phase_kernels(x: np.ndarray, xsrc: np.ndarray) -> dict:
                      if timed else ())
             err = check(f"phase_mask {label}", got, ref, *times)
             if timed:
+                log_launch_split(lambda: kpm.phase_mask(*pm),
+                                 "phase_mask_kernel")
                 results["phase_mask"] = dict(
                     max_abs_err=err, ms=times[0], plain_ms=times[1],
                     **bound(8 * (t + u) * m * nb + 8 * t + 8 * t * nb,

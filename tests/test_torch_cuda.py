@@ -77,11 +77,15 @@ def test_analysis_kernel_matches_plain(cuda, hop, c, t, with_mag):
         assert _rel(mag, ref_mag) < REL
 
 
-@pytest.mark.parametrize("hop", [128, 1024, 2048])
-@pytest.mark.parametrize("c", [1, 5])
-def test_synthesis_kernel_matches_plain(cuda, hop, c):
-    rng = np.random.default_rng(hop + c)
-    y = torch.complex(*(torch.as_tensor(rng.standard_normal((c, 9, hop + 2)),
+@pytest.mark.parametrize("hop", [128, 256, 512, 1024, 2048])
+@pytest.mark.parametrize("c", [1, 5, 16])
+@pytest.mark.parametrize("t", [1, 2, 7, 1407])
+def test_synthesis_kernel_matches_plain(cuda, hop, c, t):
+    """Every nfft the kernel takes (256 on the full-length inverse, the
+    others on the half-length one), one to sixteen channels, one frame, a
+    block's first two, a ragged last block and a 30 s call: one launch."""
+    rng = np.random.default_rng(hop + c + t)
+    y = torch.complex(*(torch.as_tensor(rng.standard_normal((c, t, hop + 2)),
                                         dtype=torch.float32)
                         for _ in range(2))).to(cuda)
     prev = torch.as_tensor(rng.standard_normal((c, hop)),
@@ -95,6 +99,29 @@ def test_synthesis_kernel_matches_plain(cuda, hop, c):
     assert (new_prev - ref_prev).abs().max() / ref_out.abs().max() < REL
 
 
+@pytest.mark.parametrize("c", [1, 16])
+def test_synthesis_kernel_chunks_equal_one_call(cuda, c):
+    """Blocks own whole hops and recompute the frame before them, so calls
+    split at frames 1, 63, 64 and 700 (and 64-frame chunks) with the carry
+    passed on equal one call of 1407 frames bit for bit."""
+    rng = np.random.default_rng(c)
+    t, hop = 1407, 1024
+    y = torch.complex(*(torch.as_tensor(rng.standard_normal((c, t, hop + 2)),
+                                        dtype=torch.float32)
+                        for _ in range(2))).to(cuda)
+    prev = torch.as_tensor(rng.standard_normal((c, hop)),
+                           dtype=torch.float32, device=cuda)
+    out, new_prev = kw.wola_synthesis(y, prev)
+    for edges in ([0, 1, 63, 64, 700, t], list(range(0, t, 64)) + [t]):
+        outs, p = [], prev
+        for a, b in zip(edges[:-1], edges[1:]):
+            o, p = kw.wola_synthesis(y[:, a:b].contiguous(), p)
+            outs.append(o)
+        torch.cuda.synchronize()
+        assert torch.equal(torch.cat(outs, 1), out)
+        assert torch.equal(p, new_prev)
+
+
 def test_unsupported_modes_raise_on_cuda(cuda):
     x = torch.zeros((2, 4 * 128), device=cuda)
     with pytest.raises(ValueError, match="ROADMAP"):
@@ -106,6 +133,17 @@ def test_unsupported_modes_raise_on_cuda(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         kw.wola_analysis(torch.zeros((8 * 128, 2), device=cuda).T,
                          torch.zeros((2, 128), device=cuda))
+    before = kw.wola_synthesis.launches
+    with pytest.raises(ValueError, match="ROADMAP"):
+        kw.wola_synthesis(torch.zeros((2, 4, 98), device=cuda,
+                                      dtype=torch.complex64),
+                          torch.zeros((2, 96), device=cuda))
+    with pytest.raises(ValueError, match="ROADMAP"):
+        kw.wola_synthesis(torch.zeros((2, 4, 130), device=cuda,
+                                      dtype=torch.complex128),
+                          torch.zeros((2, 128), device=cuda,
+                                      dtype=torch.float64))
+    assert kw.wola_synthesis.launches == before
     cfg = load_array_config(os.path.join(ROOT, "beamform_tpu_torch",
                                          "configs", "aira3.yaml"))
     for eng in (EngineConfig(window_size=128, dtype="float64"),
@@ -990,14 +1028,17 @@ def _phase_operands(m, t, nb, u, seed, device):
 
 
 PM_SHAPES = [(3, 40, 130, 1), (16, 40, 130, 2), (32, 9, 258, 3),
-             (16, 1407, 1026, 1)]
+             (16, 1407, 1026, 1), (2, 33, 77, 1), (5, 20, 129, 2),
+             (17, 12, 66, 2), (8, 50, 1025, 3), (4, 50, 513, 1)]
 
 
 @pytest.mark.parametrize("m,t,nb,u", PM_SHAPES)
 def test_phase_mask_kernel_matches_plain(cuda, m, t, nb, u):
-    """Ragged bins (not a multiple of the block), 3 to 32 mics, several
-    steering rows, and the main path's shape (16 mics, 1026 bins, 1407
-    frames)."""
+    """Ragged bins (frames that share a block of the flat grid), an odd
+    bin count and fewer bins than a block, 2 to 32 mics (4, 8, 16 and 32
+    on the kernels with the count a constant, the others on the guarded
+    ones), several steering rows, and the main path's shape (16 mics,
+    1026 bins, 1407 frames)."""
     from beamform_tpu_torch.kernels import phase_mask as kpm
     spec, w, idx = _phase_operands(m, t, nb, u, m + t, cuda)
     args = (spec, w, idx, 0.35, 0.004, 0.1, 2 * (nb - 2))
@@ -1008,6 +1049,30 @@ def test_phase_mask_kernel_matches_plain(cuda, m, t, nb, u):
     assert got.shape == (t, nb) and got.dtype == torch.complex64
     assert torch.equal(got[:, 0], spec[:, 0, 0])
     _assert_close_mod_flips(got, kpm.phase_mask_plain(*args))
+
+
+@pytest.mark.parametrize("m", [3, 16])
+def test_phase_mask_index_out_of_range_gives_nan(cuda, m):
+    """A w_idx entry outside [0, U) is never dereferenced: its frame is
+    NaN, in the phase mask and in the MPF beams' output, and the other
+    frames are the plain version's."""
+    from beamform_tpu_torch.config import PhasempfParams
+    from beamform_tpu_torch.kernels import phase_mask as kpm
+    spec, w, idx = _phase_operands(m, 20, 129, 2, 1, cuda)
+    idx = idx.clone()
+    idx[5], idx[9] = 2, -1
+    got = kpm.phase_mask(spec, w, idx, 0.35, 0.004, 0.1, 254)
+    torch.cuda.synchronize()
+    bad = torch.isnan(torch.view_as_real(got)).all(-1).all(-1)
+    assert bad.nonzero().flatten().tolist() == [5, 9]
+    keep = ~bad
+    ref = kpm.phase_mask_plain(spec[keep], w, idx[keep], 0.35, 0.004, 0.1,
+                               254)
+    _assert_close_mod_flips(got[keep], ref)
+    st = kpm.init_state(kpm.MpfState, 129, torch.float32, cuda)
+    y, _ = kpm.mpf_march(spec, w, idx, st, PhasempfParams(), False)
+    torch.cuda.synchronize()
+    assert torch.isnan(torch.view_as_real(y[[5, 9]])).all()
 
 
 def _carried(cls, plain_march, nb, device, steps=5):

@@ -392,3 +392,196 @@ def _float32_error(node):
               + f" (peak {float(np.abs(ref).max())!r})")
         for solver in solvers:
             assert_close_mod_flips(ys[("port", solver)], ref)
+
+
+# ----------------------------------------- the CUDA front end's algebra
+
+F32 = np.float32
+# Cephes' atanf coefficients and tan(pi / 8), as csrc/phase_mask.cu holds
+# them
+_CEPHES = (F32(8.05374449538e-2), F32(-1.38776856032e-1),
+           F32(1.99777106478e-1), F32(-3.33329491539e-1))
+_TAN_PI_8 = F32(0.414213562373095049)
+# the transliteration's worst error against float64 arctan2 over the cases
+# below is 3.2 ulp (float32 rounding of lo -/+ hi, of the quotient and of
+# the polynomial, op by op; the kernel fuses some into FMAs and takes the
+# reciprocal from MUFU.RCP: tools/h100_probe/fastpath_check.py measures it)
+ATAN2_ULPS = 4.0
+
+
+def _atan2_cuda_form(y, x):
+    """csrc/phase_mask.cu ``atan2_fast`` in numpy float32: the fold test's
+    sign exact (the kernel's FMA), the quotient as num x (1 / den) where
+    den lies in [2^-125, 2^126) and else the exact quotient of lo and hi
+    scaled by 2^-+64, the degree-9 polynomial, the octant, x's sign bit
+    and y's sign."""
+    y, x = np.asarray(y, F32), np.asarray(x, F32)
+    ax, ay = np.abs(x), np.abs(y)
+    hi, lo = np.maximum(ax, ay), np.minimum(ax, ay)
+    fold = lo.astype(np.float64) - float(_TAN_PI_8) * hi.astype(np.float64) > 0
+    with np.errstate(divide="ignore", invalid="ignore", over="ignore"):
+        num = np.where(fold, lo - hi, lo)
+        den = np.where(fold, lo + hi, hi)
+        e = (den.view(np.uint32) >> 23).astype(np.int64)
+        fast = (e >= 2) & (e <= 252)
+        sc = np.where(hi > 1, F32(2.0 ** -64), F32(2.0 ** 64))
+        lo_s, hi_s = lo * sc, hi * sc
+        exact = np.where(fold, (lo_s - hi_s) / (lo_s + hi_s),
+                         lo_s / np.maximum(hi_s, F32(1e-45)))
+        z = np.where(fast, num * (F32(1) / den), exact).astype(F32)
+    s = z * z
+    p0, p1, p2, p3 = _CEPHES
+    p = (((p0 * s + p1) * s + p2) * s + p3) * s * z + z
+    a = np.where(fold, F32(np.pi / 4) + p, p)
+    a = np.where(ay > ax, F32(np.pi / 2) - a, a)
+    a = np.where(np.signbit(x), F32(np.pi) - a, a)
+    return np.copysign(a, y).astype(F32)
+
+
+def _ulps(got, ref):
+    """|got - ref| in units of float32's spacing at |ref| (ref float64)."""
+    return (np.abs(got.astype(np.float64) - ref)
+            / np.spacing(np.abs(ref).astype(F32)).astype(np.float64))
+
+
+def _atan2_inputs(case):
+    """(y, x) float32 pairs of one class of inputs."""
+    rng = np.random.default_rng(13)
+    s = np.array([1.0, -1.0], F32)
+    if case == "zeros_and_axes":
+        v = np.array([0.0, -0.0, 1.0, -1.0, 3.5, -2e-30, 7e30], F32)
+        y, x = np.meshgrid(v, v)
+    elif case == "diagonals":
+        m = (2.0 ** rng.uniform(-140, 126, 2000)).astype(F32)
+        y = m * rng.choice(s, 2000)
+        x = m * rng.choice(s, 2000)
+    elif case == "fold_point":
+        # lo / hi within a few ulps of tan(pi / 8), either side
+        hi = (2.0 ** rng.uniform(-100, 100, 4000)).astype(F32)
+        lo = (hi * _TAN_PI_8).astype(F32)
+        lo = np.nextafter(lo, lo * F32(2) * rng.choice(s, 4000))
+        y, x = np.where(rng.random(4000) < 0.5, (lo, hi), (hi, lo))
+        y, x = y * rng.choice(s, 4000), x * rng.choice(s, 4000)
+    elif case == "subnormal":
+        y = (rng.integers(0, 2 ** 23, 4000) * rng.choice(s, 4000)).astype(
+            np.int64).astype(F32) * F32(2.0 ** -149)
+        x = (rng.integers(0, 2 ** 23, 4000) * rng.choice(s, 4000)).astype(
+            np.int64).astype(F32) * F32(2.0 ** -149)
+    elif case == "large":
+        y = ((2.0 ** rng.uniform(100, 127.9, 4000)) * rng.choice(s, 4000))
+        x = ((2.0 ** rng.uniform(100, 127.9, 4000)) * rng.choice(s, 4000))
+    else:                                      # seeded pairs
+        y = rng.standard_normal(100_000)
+        x = rng.standard_normal(100_000)
+    return np.asarray(y, F32).ravel(), np.asarray(x, F32).ravel()
+
+
+@pytest.mark.parametrize("case", ["zeros_and_axes", "diagonals",
+                                  "fold_point", "subnormal", "large",
+                                  "seeded_pairs"])
+def test_cuda_atan2_form_within_ulps_of_float64(case):
+    """The CUDA front end's atan2, transliterated, within ATAN2_ULPS of
+    float64 arctan2 (IEEE's signed zeros exactly: atan2(+-0, -0) = +-pi,
+    atan2(+-0, +0) = +-0)."""
+    y, x = _atan2_inputs(case)
+    got = _atan2_cuda_form(y, x)
+    ref = np.arctan2(y.astype(np.float64), x.astype(np.float64))
+    assert np.isfinite(got).all()
+    assert _ulps(got, ref).max() <= ATAN2_ULPS, _ulps(got, ref).max()
+    zero = ref == 0
+    np.testing.assert_array_equal(np.signbit(got[zero]),
+                                  np.signbit(ref[zero]))
+
+
+@pytest.mark.parametrize("case", ["diagonals", "fold_point",
+                                  "seeded_pairs"])
+def test_cuda_atan2_form_matches_the_jax_kernels(case):
+    """The same form against the JAX kernel's ``atan2f``
+    (beamform_tpu/kernels/phase_mask.py) on normal-range inputs: the two
+    differ only in the fold test's rounding, the division (the port's
+    num x (1 / den)) and signed zeros, within 2 ATAN2_ULPS of each
+    other."""
+    y, x = _atan2_inputs(case)
+    keep = (np.abs(y) > 2.0 ** -60) & (np.abs(x) > 2.0 ** -60) \
+        & (np.abs(y) < 2.0 ** 60) & (np.abs(x) < 2.0 ** 60)
+    y, x = y[keep], x[keep]
+    assert len(y) > 900
+    got = _atan2_cuda_form(y, x)
+    ref = np.asarray(jpm.atan2f(y, x), F32)
+    assert _ulps(got, ref.astype(np.float64)).max() <= 2 * ATAN2_ULPS
+
+
+def _pair_forms(ph):
+    """(the plain version's mean wrapped pair distance, the CUDA form's
+    sum of min(|d|, 2 pi - |d|) over pairs / pairs, the three-instruction
+    form's (pairs pi - sum |pi - |d||) / pairs), float32 phases (T, M)
+    summed pair after pair in float32, anchor by anchor as the kernel
+    unrolls them."""
+    m = ph.shape[1]
+    pairs = m * (m - 1) // 2
+    plain, acc, cancel = (np.zeros(len(ph), F32) for _ in range(3))
+    for i in range(m - 1):
+        for j in range(i + 1, m):
+            d = np.abs(ph[:, i] - ph[:, j])
+            plain = plain + np.where(d > F32(np.pi), F32(2 * np.pi) - d, d)
+            acc = acc + np.minimum(d, F32(2 * np.pi) - d)
+            cancel = cancel + np.abs(F32(np.pi) - d)
+    inv = F32(1.0 / pairs)
+    return plain * inv, acc * inv, (F32(pairs * np.pi) - cancel) * inv
+
+
+def _pair_mean_f64(ph):
+    """The float64 mean wrapped pair distance of float32 phases (T, M)."""
+    p64 = ph.astype(np.float64)
+    d = np.abs(p64[:, :, None] - p64[:, None, :])
+    w = np.where(d > np.pi, 2 * np.pi - d, d)
+    iu = np.triu_indices(ph.shape[1], 1)
+    return w[:, iu[0], iu[1]].mean(1)
+
+
+# (mics, None: phases uniform in [-pi, pi]; or the min_phase in degrees
+# that the mean pair distance sits at: the presets' 10 and 30)
+PAIR_CASES = [(2, None), (3, None), (16, None), (32, None)] + [
+    (m, deg) for deg in (10.0, 30.0) for m in (2, 16, 32)]
+
+
+@pytest.mark.parametrize(
+    "m,min_phase_deg", PAIR_CASES,
+    ids=[str(m) if d is None else f"{d:g}deg-{m}" for m, d in PAIR_CASES])
+def test_cuda_pair_form_matches_the_plain_sum(m, min_phase_deg):
+    """The kernel's pair term, min(|d|, 2 pi - |d|) summed as it is, is
+    the plain version's wrapped distance to the bit (fl(2 pi) = 2 fl(pi),
+    and 2 pi - d is exact for d above pi), so its float32 sum is as near
+    the float64 mean pair distance as the plain version's: over 10^4
+    seeded frames of phases in [-pi, pi] (4.1e-7 to 2.9e-6 rad from 2 to
+    32 mics), and where the masks decide, over 2 x 10^4 frames clustered
+    about a random centre so that the mean sits at min_phase (2.2e-7 to
+    8.0e-7 rad). There the three-instruction form pi - |pi - |d|| with
+    pairs x pi added once, which subtracts two sums near pairs x pi, was
+    13.5x (16 mics) and 19.0x (32 mics) further from float64 than the
+    plain sum at 10 degrees, 4.3x and 5.3x at 30, so the kernel does not
+    use it (held here at more than 4x from 16 mics). The kernel's atan2
+    moves only the last bits of the mean, where the flip contract lets a
+    bin cross a mask's threshold."""
+    rng = np.random.default_rng(m)
+    if min_phase_deg is None:
+        ph = rng.uniform(-np.pi, np.pi, (10_000, m)).astype(F32)
+    else:
+        target = np.deg2rad(min_phase_deg)
+        centre = rng.uniform(-np.pi, np.pi, (20_000, 1))
+        # E|a - b| = 2 s / sqrt(pi) for a, b ~ N(c, s^2)
+        ph = centre + target * np.sqrt(np.pi) / 2 \
+            * rng.standard_normal((20_000, m))
+        ph = (np.mod(ph + np.pi, 2 * np.pi) - np.pi).astype(F32)
+    plain, form, cancel = _pair_forms(ph)
+    ref = _pair_mean_f64(ph)
+    err_plain = np.abs(plain - ref).max()
+    err_form = np.abs(form - ref).max()
+    assert err_form <= 1.5 * err_plain + 1e-7
+    assert np.abs(form - plain).max() < 4e-6
+    assert np.array_equal(form, plain)
+    if min_phase_deg is not None:
+        assert abs(ref.mean() - target) < 0.05 * target
+        assert err_form < 2e-6
+        if m >= 16:
+            assert np.abs(cancel - ref).max() > 4 * err_plain

@@ -205,14 +205,16 @@ def test_kernel_size_gate_names_roadmap(nfft):
         kw._check_nfft(nfft)
 
 
-def _run_plan(z: np.ndarray, passes, table: np.ndarray) -> np.ndarray:
-    """The analysis kernel's Stockham passes (csrc/reg_fft.cuh) in numpy,
-    in complex64: pass (R, Ns) reads point b + r n/R of butterfly b,
+def _run_plan(z: np.ndarray, passes, table: np.ndarray,
+              dtype=np.complex64) -> np.ndarray:
+    """The register FFT's Stockham passes (csrc/reg_fft.cuh) in numpy, in
+    ``dtype``: pass (R, Ns) reads point b + r n/R of butterfly b,
     multiplies it by the table's entry r * Ns + b mod Ns, takes an R-point
-    DFT and writes output r to (b // Ns) Ns R + b mod Ns + r Ns."""
+    DFT and writes output r to (b // Ns) Ns R + b mod Ns + r Ns. The table
+    holds exactly the passes' twiddles."""
     n = z.shape[-1]
-    tw = (table[:, 0] + 1j * table[:, 1]).astype(np.complex64)
-    data, off = z.astype(np.complex64), 0
+    tw = (table[:, 0] + 1j * table[:, 1]).astype(dtype)
+    data, off = z.astype(dtype), 0
     for r_, ns in passes:
         b = np.arange(n // r_)[:, None]
         r = np.arange(r_)[None, :]
@@ -221,7 +223,7 @@ def _run_plan(z: np.ndarray, passes, table: np.ndarray) -> np.ndarray:
             v = v * tw[off + r * ns + b % ns]
             off += r_ * ns
         dft = np.exp(-2j * np.pi * np.outer(np.arange(r_), np.arange(r_))
-                     / r_).astype(np.complex64)
+                     / r_).astype(dtype)
         out = np.empty_like(data)
         out[(b // ns) * ns * r_ + b % ns + r * ns] = v @ dft
         data = out
@@ -241,3 +243,100 @@ def test_analysis_kernel_pass_plan_is_the_fft(nfft):
     z = (rng.standard_normal(nfft) + 1j * rng.standard_normal(nfft))
     got = _run_plan(z, passes, table)
     assert _rel(got, np.fft.fft(z)) < F32_REL
+
+
+def _syn_frames_per_block(nfft: int) -> int:
+    """Frames a synthesis block owns (csrc/wola.cu syn_threads): a block of
+    256 threads, or of four frames' groups where a frame takes more than
+    64 threads, holds one group of n' / 16 threads per frame (n' = nfft / 2
+    points, nfft at 256) and recomputes one frame."""
+    n = nfft // 2 if nfft >= 512 else nfft
+    tpf = n // 16
+    return max(256, 4 * tpf) // tpf - 1
+
+
+def _plan_synthesis(y_ext: np.ndarray, prev: np.ndarray, nfft: int):
+    """The synthesis kernel (csrc/wola.cu, csrc/reg_irfft.cuh) in numpy,
+    float64: per frame the fold, then for nfft >= 512 the pre-twiddle and
+    one complex FFT of nfft / 2 points run as conj(FFT(conj Z)) on the
+    plan's passes, the even and odd samples as its real and imaginary
+    parts (at nfft 256 the full Hermitian frame through a 256-point FFT);
+    x 1/nfft, the window, and the overlap-add as the blocks own it: block
+    b writes hops bG .. bG + G - 1 from its frames and frame bG - 1,
+    recomputed, or the carry at b = 0."""
+    c, t, nb = y_ext.shape
+    hop = nb - 2
+    half, passes, table = kw.synthesis_plan(nfft)
+    n = nfft // 2 if half else nfft
+    rows = len(table) - (n if half else 0)
+    win = twola.sqrt_hann(nfft)
+
+    def frame(yf):
+        x = yf[:hop + 1].copy()                       # fold_ext
+        x[hop - 1] = 0.5 * (yf[hop - 1] + np.conj(yf[hop + 1]))
+        x[0], x[hop] = x[0].real, x[hop].real
+        if half:
+            k = np.arange(n)
+            a, b = x[k], x[hop - k]
+            pre = table[rows:, 0] + 1j * table[rows:, 1]
+            z = (a + np.conj(b)) + 1j * pre * (a - np.conj(b))
+        else:
+            z = np.concatenate([x, np.conj(x[1:hop][::-1])])
+        f = np.conj(_run_plan(np.conj(z), passes, table[:rows],
+                              np.complex128)) / nfft
+        if half:
+            s = np.empty(nfft)
+            s[0::2], s[1::2] = f.real, f.imag
+        else:
+            s = f.real
+        return s * win
+
+    g = _syn_frames_per_block(nfft)
+    out = np.empty((c, t * hop))
+    new_prev = np.empty((c, hop))
+    for ch in range(c):
+        for t0 in range(0, t, g):
+            frames = {tf: frame(y_ext[ch, tf])
+                      for tf in range(max(t0 - 1, 0), min(t0 + g, t))}
+            for tf in range(t0, min(t0 + g, t)):
+                carry = prev[ch] if tf == 0 else frames[tf - 1][hop:]
+                out[ch, tf * hop:(tf + 1) * hop] = frames[tf][:hop] + carry
+            if t0 + g >= t:
+                new_prev[ch] = frames[t - 1][hop:]
+    return out, new_prev
+
+
+@pytest.mark.parametrize("nfft", [256, 512, 1024, 2048, 4096])
+def test_synthesis_kernel_plan_is_the_irfft(nfft):
+    """The synthesis kernel's plan (kernels/wola.py synthesis_plan: its
+    passes, pass twiddles and pre-twiddles, in float64) run in numpy as the
+    kernel runs it, blocks and recomputed frames included, gives
+    wola_synthesis_plain and np.fft.irfft within 1e-12 of peak, and its
+    table is laid out as csrc/wola.cu reads it."""
+    half, passes, table = kw.synthesis_plan(nfft)
+    n = nfft // 2 if half else nfft
+    assert half == (nfft >= 512) and table.dtype == np.float64
+    assert np.prod([r for r, _ in passes]) == n
+    # wola_inv_kernel: pass rows 256 + (R3 > 1 ? 256 R3 : 0), R3 = n / 256
+    assert len(table) == 256 + (n if n > 256 else 0) + (n if half else 0)
+    hop = nfft // 2
+    g = _syn_frames_per_block(nfft)
+    t = 2 * g + 3                         # three blocks, the last ragged
+    rng = np.random.default_rng(nfft)
+    y = (rng.standard_normal((2, t, hop + 2))
+         + 1j * rng.standard_normal((2, t, hop + 2)))
+    prev = rng.standard_normal((2, hop))
+    got, got_prev = _plan_synthesis(y, prev, nfft)
+    ref, ref_prev = kw.wola_synthesis_plain(torch.as_tensor(y),
+                                            torch.as_tensor(prev))
+    scale = np.abs(ref.numpy()).max()
+    assert np.abs(got - ref.numpy()).max() / scale < 1e-12
+    assert np.abs(got_prev - ref_prev.numpy()).max() / scale < 1e-12
+    # np.fft.irfft of the folded frames, windowed and overlap-added
+    folded = kw.fold_ext(torch.as_tensor(y), nfft).numpy()
+    p = np.fft.irfft(folded, n=nfft, axis=-1) * twola.sqrt_hann(nfft)
+    ola = p[..., :hop].copy()
+    ola[:, 1:] += p[:, :-1, hop:]
+    ola[:, 0] += prev
+    assert np.abs(got - ola.reshape(2, -1)).max() / scale < 1e-12
+    assert np.abs(got_prev - p[:, -1, hop:]).max() / scale < 1e-12

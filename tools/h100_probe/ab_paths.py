@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Device time per call of the port's main paths, and of the WOLA analysis
-kernel, for two checkouts of the repo, in turns, on one NVIDIA GPU.
+"""Device time per call of the port's main paths, and of the WOLA kernels
+and the others through their wrappers, for two checkouts of the repo, in
+turns, on one NVIDIA GPU.
 
     python3 tools/h100_probe/ab_paths.py PARENT_ROOT [CHANGE_ROOT] [--pairs N]
 
@@ -18,13 +19,16 @@ it, median of 10 after 3 warm-ups (GSC: of 3 after 1). It also times, as
 chip_smoke.py's ``cuda_ms`` does (one call through the wrapper between
 two events, median of 20), ``kernels.wola.wola_analysis`` (C = 16, T =
 1407 and T = 64, with and without the gate statistic, seeded noise) and
-``torch.stft`` on the same frames, ``kernels.mvdr_stream.mvdr_stream``
+``torch.stft`` on the same frames, ``kernels.wola.wola_synthesis`` (C =
+1 and 16, T = 1407 and 64, seeded spectra),
+``kernels.mvdr_stream.mvdr_stream``
 and ``kernels.lcmv_stream.lcmv_stream`` on chip_smoke.py's operands (the
 analysis of the noise input under the LCMV preset, whose solve settings
 are MVDR's; LCMV at S = 1, 3 and 16 with 13 slots inactive),
 ``kernels.mega_stream.mega_stream`` (MVDR, and LCMV at S = 3),
 ``kernels.gss_stream.gss_mega`` (the gss preset, zero state, S = 1, 3
-and 16 with 13 slots inactive) and the marches
+and 16 with 13 slots inactive), ``kernels.phase_mask.phase_mask`` (the
+phase preset, one steering) and the marches
 ``kernels.phase_mask.mpf_march`` and ``mcra_march`` (the presets, one
 steering, zero state).
 CHANGE_ROOT defaults to this checkout. Prints one line per process, then
@@ -61,6 +65,7 @@ PATHS = (("das", "das", None, 10, False), ("mvdr", "mvdr", {}, 10, False),
          ("gss", "gss", {}, 10, False),
          ("gss S=3", "gss", {}, 10, True))
 ANALYSIS_T = (1407, 64)
+SYNTHESIS_C = (1, 16)
 
 
 def worker(root: str) -> dict:
@@ -109,23 +114,32 @@ def worker(root: str) -> dict:
             lambda: torch.stft(ext, n_fft=2 * hop, hop_length=hop,
                                window=win, center=False,
                                return_complex=True))
+    for c in SYNTHESIS_C:
+        for t in ANALYSIS_T:
+            y = torch.complex(*(torch.as_tensor(
+                rng.standard_normal((c, t, hop + 2)), dtype=torch.float32,
+                device="cuda") for _ in range(2)))
+            prev = torch.as_tensor(rng.standard_normal((c, hop)),
+                                   dtype=torch.float32, device="cuda")
+            out[f"synthesis C={c} T={t}"] = cs.cuda_ms(
+                lambda: kw.wola_synthesis(y, prev))
     out.update(solve_kernels(cs, x))
     return out
 
 
 def solve_kernels(cs, x) -> dict:
     """One call of the MVDR and LCMV stream kernels, the fused MVDR/LCMV
-    kernel, the fused GSS kernel and the MPF and MCRA marches through
-    their wrappers (ms), on
+    kernel, the fused GSS kernel, the phase mask and the MPF and MCRA
+    marches through their wrappers (ms), on
     chip_smoke.py's operands: the analysis of ``x`` under the LCMV preset
     (678 in-band bins, 1407 frames, W = 10, zero history), MVDR at one
     steering and LCMV at S = 1, 3 and 16 (two interferers, 13 slots
     inactive); the fused kernels on ``x`` with zero carries, MVDR and LCMV
     at S = 3, and GSS under the gss preset (zero state, W <- A^H at frame
-    0) at S = 1, 3 and 16 (two interferers, 13 slots inactive); the MPF
-    front end and march on the analysis under the phasempf preset (one
-    steering, zero state), the MCRA march on its mic 0 under the mcra
-    preset (zero state)."""
+    0) at S = 1, 3 and 16 (two interferers, 13 slots inactive); the phase
+    mask on the analysis under the phase preset and the MPF front end and
+    march under the phasempf preset (one steering, zero state), the MCRA
+    march on its mic 0 under the mcra preset (zero state)."""
     import torch
     from beamform_tpu_torch.config import make_params
     from beamform_tpu_torch.kernels import gss_stream as kgss
@@ -189,6 +203,10 @@ def solve_kernels(cs, x) -> dict:
     uniq, w_idx = phase._theta_ctrl(cs.THETA, t)
     wts = common.weights_for_thetas(phase.geom, phase.freqs, uniq,
                                     torch.float32, torch.complex64)
+    pp = phase.params
+    out["phase_mask"] = cs.cuda_ms(
+        lambda: kpm.phase_mask(spec, wts, w_idx, pp.min_phase * np.pi / 180,
+                               pp.mag_threshold, pp.mag_mult, 2 * cs.HOP))
     mp = make_params("phasempf", cs.preset("phasempf"))
     st = kpm.init_state(kpm.MpfState, nb, torch.float32, dev)
     out["mpf_march"] = cs.cuda_ms(
