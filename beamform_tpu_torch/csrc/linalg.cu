@@ -7,22 +7,45 @@
 // diagonal loading, inverted by M steps of unpivoted Gauss-Jordan
 // elimination, optionally followed by one Newton-Schulz step
 // X <- X (2I - A X). Same arithmetic as the Pallas kernel: complex division
-// by the pivot as a * conj(p) / |p|^2, rank-1 row updates in the same order.
+// by the pivot as a * conj(p) * (1 / |p|^2), rank-1 row updates in the same
+// order, the polish's sums over k in ascending order.
 //
-// What bounds it on this card: little arithmetic per byte. At the dense
-// MVDR block (55,596 matrices of 16 x 16, complex64) the kernel moves
-// 2 KB per matrix in and out (228 MB) and does about 32 k flop per matrix
-// without the polish; the TPU kernel was also bound by memory, which is why
-// it kept the whole elimination in VMEM. Here the elimination stays in
-// registers: MP lanes of a warp (M rounded up to a power of two, at most
-// 32) hold one matrix, lane j owning column j of the working matrix and of
-// the inverse. Each step's pivot-row entry is the lane's own register; the
-// factor column lives in lane i and reaches the others by warp shuffles,
-// so there is no shared memory and no block barrier. Loads and stores walk
-// rows, so neighbouring lanes touch neighbouring addresses. Lanes past M,
-// and matrices past B, hold identity columns and are never loaded or
-// stored: the ragged edge is masked, not padded in memory. The polish
-// reloads A from device memory rather than keeping it in registers.
+// What bounds it on this card: at the dense MVDR block (55,596 matrices of
+// 16 x 16, complex64) the kernel moves 2 KB per matrix in and out (228 MB,
+// 0.068 ms at 3.35 TB/s) and issues ~15 k FFMA per matrix without the
+// polish, close enough that both the SM's issue slots and the memory have
+// to be kept busy at once:
+//
+// * In place, one live column a lane. MP lanes of a warp (M rounded up to
+//   a power of two, at least 4) hold one matrix; lane j holds column j of
+//   A until step j, and column j of the inverse from then on. At step i
+//   lane i's column is the factor column; it turns into the inverse's
+//   column i (-f_r / p off the pivot row, 1 / p on it: the update of a
+//   zero column, selected per lane, never a branch), and every other lane
+//   updates its one column with the pivot-row entry it owns. The
+//   two-matrix form (A's column and the inverse's, 32 registers a lane at
+//   M = 16) spent half its FFMAs on known zeros and units. Each complex
+//   update is two FMAs a component, in the Pallas kernel's term order.
+// * The factor column reaches the group's lanes through shared memory:
+//   lane i stores it (MP / 2 16-byte stores), one __syncwarp, and every
+//   lane reads it back as 16-byte broadcasts, two buffers by step parity
+//   so one __syncwarp a step suffices; groups are padded apart by 16 bytes
+//   so a warp's broadcasts fall in distinct banks.
+// * Loads in flight during the elimination. Each warp walks tiles of
+//   32 / MP matrices over a grid sized to what the card holds resident;
+//   the next tile is copied to shared memory by cp.async (each lane its
+//   own column, rows MP apart) while the current one is eliminated in
+//   registers.
+// * The polish is a template parameter: the unpolished instantiation (the
+//   MVDR and LCMV R inverses) carries none of its state. The polished one
+//   double-buffers the tiles, reads A from the staged copy, not again from
+//   device memory, and broadcasts X's columns through the same buffer.
+//
+// Entries past M, and matrices past B, are never loaded or stored (the
+// ragged edge is masked, not padded in memory): their lanes and rows
+// compute on stale words of the buffer, and steps past M are skipped, so
+// no stored entry depends on them. Singular inputs give inf/NaN as the
+// plain version does: an exact zero pivot makes every entry NaN in both.
 //
 // No fast-math intrinsics.
 
@@ -30,113 +53,253 @@
 
 namespace {
 
-constexpr int kGjThreads = 256;
+constexpr int kGjWarps = 4;          // warps a block
+constexpr int kMaxDevices = 64;
 
-template <int MP>
-__device__ __forceinline__ float2 shfl(float2 v, int src) {
-  return make_float2(__shfl_sync(0xffffffffu, v.x, src, MP),
-                     __shfl_sync(0xffffffffu, v.y, src, MP));
+__device__ __forceinline__ void cp_async8(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)),
+               "l"(src)
+               : "memory");
 }
 
-// column ``lane`` of matrix ``b``, rows 0..MP-1, identity beyond M or B
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// p ? a : b as a select, never a branch on the lane
+__device__ __forceinline__ float sel(bool p, float a, float b) {
+  float r;
+  asm("{\n .reg .pred q;\n setp.ne.b32 q, %3, 0;\n selp.f32 %0, %1, %2, q;\n}"
+      : "=f"(r)
+      : "f"(a), "f"(b), "r"((int)p));
+  return r;
+}
+
+// b - f p and acc + x t for complex values, each component two FMAs in the
+// Pallas kernel's term order (its real part b - (f.x p.x - f.y p.y) is
+// b - f.x p.x + f.y p.y, rounded twice where the unfused form rounds three
+// times)
+__device__ __forceinline__ float2 cmsub(float2 b, float2 f, float2 p) {
+  return make_float2(fmaf(f.y, p.y, fmaf(-f.x, p.x, b.x)),
+                     fmaf(-f.y, p.x, fmaf(-f.x, p.y, b.y)));
+}
+
+__device__ __forceinline__ float2 cmadd(float2 acc, float2 x, float2 t) {
+  return make_float2(fmaf(-x.y, t.y, fmaf(x.x, t.x, acc.x)),
+                     fmaf(x.y, t.x, fmaf(x.x, t.y, acc.y)));
+}
+
+template <int MP, bool POLISH>
+struct GjLayout {
+  // blocks an SM that the register budget must allow: 64 registers a
+  // thread for one live column of up to 16 entries, 128 at 32 or with the
+  // polish's second column, 255 for both at 32
+  static constexpr int kMinBlocks = MP == 32 ? (POLISH ? 2 : 4)
+                                             : (POLISH && MP == 16 ? 4 : 8);
+  static constexpr int kGroups = 32 / MP;        // matrices a warp tile
+  static constexpr int kTile = 32 * MP;          // kGroups * MP * MP slots
+  static constexpr int kStages = POLISH ? 2 : 1;
+  // the factor buffers, two by step parity, each group's MP + 2 apart so
+  // that a warp's 16-byte broadcasts fall in distinct banks
+  static constexpr int kFbStride = MP + 2;
+  static constexpr int kFb = 2 * kGroups * kFbStride;
+  static constexpr int kWarp = kStages * kTile + kFb;   // float2 a warp
+  static constexpr size_t kSmem = sizeof(float2) * kWarp * kGjWarps;
+};
+
+// The warp's tile ``t`` (matrices t G .. t G + G - 1) into ``dst`` by
+// cp.async, each matrix at g MP^2 with rows MP apart: lane (g, j) copies
+// column j of matrix g (a warp's copy is row r of its G matrices) and
+// nothing past M or B. One commit group (empty past the last tile).
 template <int MP>
-__device__ __forceinline__ void load_column(const float2* __restrict__ a,
-                                            float2 (&col)[MP], bool in,
-                                            size_t base, int m, int lane) {
+__device__ __forceinline__ void stage_tile(const float2* __restrict__ a,
+                                           float2* dst, long long t,
+                                           long long tiles, int B, int M,
+                                           int g, int j) {
+  constexpr int G = 32 / MP;
+  if (t < tiles && t * G + g < B && j < M) {
+    const float2* src = a + (t * G + g) * M * M + j;
+    float2* d = dst + g * MP * MP + j;
+#pragma unroll
+    for (int r = 0; r < MP; ++r, src += M)
+      if (r < M) cp_async8(d + r * MP, src);
+  }
+  cp_async_commit();
+}
+
+// One Gauss-Jordan step on the lane's live column. ``fb`` is the group's
+// factor buffer for this step's parity.
+template <int MP>
+__device__ __forceinline__ void gj_step(float2 (&col)[MP], float2* fb, int j,
+                                        int i) {
+  const bool me = j == i;
+  if (me) {
+#pragma unroll
+    for (int r = 0; r < MP; r += 2)
+      *reinterpret_cast<float4*>(fb + r) =
+          make_float4(col[r].x, col[r].y, col[r + 1].x, col[r + 1].y);
+  }
+  __syncwarp();
+  const float2 piv = fb[i];
+  const float inv_den = 1.f / (piv.x * piv.x + piv.y * piv.y);
+  // the lane's entry of the pivot row divided by the pivot; lane i's is
+  // that of the inverse's column i, a unit before this step
+  const float ax = sel(me, 1.f, col[i].x), ay = sel(me, 0.f, col[i].y);
+  const float2 p = make_float2((ax * piv.x + ay * piv.y) * inv_den,
+                               (ay * piv.x - ax * piv.y) * inv_den);
+#pragma unroll
+  for (int r = 0; r < MP; r += 2) {
+    const float4 f2 = *reinterpret_cast<const float4*>(fb + r);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int rr = r + h;
+      if (rr == i) continue;
+      const float2 f = h ? make_float2(f2.z, f2.w) : make_float2(f2.x, f2.y);
+      // lane i's column starts from the inverse's column i: zero here
+      col[rr] = cmsub(make_float2(sel(me, 0.f, col[rr].x),
+                                  sel(me, 0.f, col[rr].y)), f, p);
+    }
+  }
+  col[i] = p;
+}
+
+// X <- X (2I - A X) on the lane's column of X, with A staged in ``cur``
+// (the group's matrix at g MP^2, row r at r MP) and ``cur`` then reused for
+// X's columns (column k at g MP^2 + k MP). The sums run over k in
+// ascending order, as the Pallas kernel's.
+template <int MP>
+__device__ __forceinline__ void gj_polish(float2 (&col)[MP], float2* cur,
+                                          int g, int j, int M) {
+  float2* mg = cur + g * MP * MP;
+  float2 t[MP];
+  // T = 2I - A X, column j: row r is 2 [r = j] - sum over k of A[r][k]
+  // X[k][j], two entries of A's row a 16-byte broadcast
 #pragma unroll
   for (int r = 0; r < MP; ++r) {
-    col[r] = make_float2(r == lane ? 1.f : 0.f, 0.f);
-    if (in && r < m) col[r] = a[base + (size_t)r * m + lane];
+    float2 acc = make_float2(r == j ? 2.f : 0.f, 0.f);
+#pragma unroll
+    for (int k = 0; k < MP; k += 2) {
+      if (k >= M) break;
+      const float4 a2 = *reinterpret_cast<const float4*>(mg + r * MP + k);
+      acc = cmsub(acc, make_float2(a2.x, a2.y), col[k]);
+      if (k + 1 < M) acc = cmsub(acc, make_float2(a2.z, a2.w), col[k + 1]);
+    }
+    t[r] = acc;
+  }
+  __syncwarp();                                   // every lane is past A
+#pragma unroll
+  for (int r = 0; r < MP; r += 2)
+    *reinterpret_cast<float4*>(mg + j * MP + r) =
+        make_float4(col[r].x, col[r].y, col[r + 1].x, col[r + 1].y);
+  __syncwarp();
+  // X T, column j: sum over k of X[:, k] T[k][j]
+#pragma unroll
+  for (int r = 0; r < MP; ++r) col[r] = make_float2(0.f, 0.f);
+#pragma unroll
+  for (int k = 0; k < MP; ++k) {
+    if (k >= M) break;
+    const float2 tk = t[k];
+#pragma unroll
+    for (int r = 0; r < MP; r += 2) {
+      const float4 x2 = *reinterpret_cast<const float4*>(mg + k * MP + r);
+      col[r] = cmadd(col[r], make_float2(x2.x, x2.y), tk);
+      col[r + 1] = cmadd(col[r + 1], make_float2(x2.z, x2.w), tk);
+    }
   }
 }
 
-template <int MP>
-__global__ void __launch_bounds__(kGjThreads)
+template <int MP, bool POLISH>
+__global__ void __launch_bounds__(kGjWarps * 32,
+                                  GjLayout<MP, POLISH>::kMinBlocks)
     gj_inverse_kernel(const float2* __restrict__ a, float2* __restrict__ out,
-                      int B, int M, int polish) {
-  const int lane = threadIdx.x % MP;                // column j
-  const int b = blockIdx.x * (kGjThreads / MP) + threadIdx.x / MP;
-  const bool in = b < B && lane < M;
-  const size_t base = (size_t)b * M * M;
+                      int B, int M) {
+  using L = GjLayout<MP, POLISH>;
+  constexpr int G = L::kGroups;
+  extern __shared__ float4 gj_smem[];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  float2* stage = reinterpret_cast<float2*>(gj_smem) + warp * L::kWarp;
+  const int j = lane % MP, g = lane / MP;
+  float2* fb = stage + L::kStages * L::kTile + g * L::kFbStride;
+  const long long tiles = ((long long)B + G - 1) / G;
+  const long long stride = (long long)gridDim.x * kGjWarps;
+  long long t = (long long)blockIdx.x * kGjWarps + warp;
 
-  float2 mat[MP], inv[MP];
-  load_column<MP>(a, mat, in, base, M, lane);
+  stage_tile<MP>(a, stage, t, tiles, B, M, g, j);
+  int s = 0;
+  for (; t < tiles; t += stride) {
+    cp_async_wait_all();
+    __syncwarp();
+    float2* cur = stage + s * L::kTile;
+    // entries past M (and matrices past B) are stale words of the buffer:
+    // no step reads them into a stored entry
+    float2 col[MP];
 #pragma unroll
-  for (int r = 0; r < MP; ++r)
-    inv[r] = make_float2(r == lane ? 1.f : 0.f, 0.f);
+    for (int r = 0; r < MP; ++r) col[r] = cur[g * MP * MP + r * MP + j];
+    __syncwarp();                   // every lane has read its column
+    const int sn = L::kStages == 2 ? s ^ 1 : 0;
+    stage_tile<MP>(a, stage + sn * L::kTile, t + stride, tiles, B, M, g, j);
 
 #pragma unroll
-  for (int i = 0; i < MP; ++i) {
-    const float2 piv = shfl<MP>(mat[i], i);         // mat[i][i], in lane i
-    const float inv_den = 1.f / (piv.x * piv.x + piv.y * piv.y);
-    // this lane's entry of the normalised pivot row: row_i / pivot
-    const float2 prow = make_float2(
-        (mat[i].x * piv.x + mat[i].y * piv.y) * inv_den,
-        (mat[i].y * piv.x - mat[i].x * piv.y) * inv_den);
-    const float2 qrow = make_float2(
-        (inv[i].x * piv.x + inv[i].y * piv.y) * inv_den,
-        (inv[i].y * piv.x - inv[i].x * piv.y) * inv_den);
+    for (int i = 0; i < MP; ++i)
+      if (i < M) gj_step<MP>(col, fb + (i & 1) * G * L::kFbStride, j, i);
+    if constexpr (POLISH) gj_polish<MP>(col, cur, g, j, M);
+
+    const long long b = t * G + g;
+    if (b < B && j < M) {
+      float2* o = out + b * M * M + j;
 #pragma unroll
-    for (int r = 0; r < MP; ++r) {
-      if (r == i) continue;
-      const float2 f = shfl<MP>(mat[r], i);         // mat[r][i], in lane i
-      mat[r] = make_float2(mat[r].x - (f.x * prow.x - f.y * prow.y),
-                           mat[r].y - (f.x * prow.y + f.y * prow.x));
-      inv[r] = make_float2(inv[r].x - (f.x * qrow.x - f.y * qrow.y),
-                           inv[r].y - (f.x * qrow.y + f.y * qrow.x));
+      for (int r = 0; r < MP; ++r, o += M)
+        if (r < M) *o = col[r];
     }
-    mat[i] = prow;
-    inv[i] = qrow;
+    s = sn;
   }
+  cp_async_wait_all();
+}
 
-  if (polish) {
-    // T = 2I - A X, column ``lane``: sum over k of A[:, k] X[k][lane]
-    float2 t[MP];
-    load_column<MP>(a, mat, in, base, M, lane);     // mat := A
-#pragma unroll
-    for (int r = 0; r < MP; ++r)
-      t[r] = make_float2(r == lane ? 2.f : 0.f, 0.f);
-#pragma unroll
-    for (int k = 0; k < MP; ++k) {
-      const float2 x = inv[k];
-#pragma unroll
-      for (int r = 0; r < MP; ++r) {
-        const float2 ar = shfl<MP>(mat[r], k);      // A[r][k], in lane k
-        t[r] = make_float2(t[r].x - (ar.x * x.x - ar.y * x.y),
-                           t[r].y - (ar.x * x.y + ar.y * x.x));
-      }
+// blocks of the persistent grid: as many as the card holds resident, no
+// more than the tiles need (the occupancy is read once per device)
+template <int MP, bool POLISH>
+cudaError_t launch_tiles(const float2* a, float2* out, int B, int M,
+                         cudaStream_t st) {
+  using L = GjLayout<MP, POLISH>;
+  static int resident[kMaxDevices];
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (resident[dev] == 0) {
+    if (L::kSmem > 48 * 1024) {
+      e = cudaFuncSetAttribute(gj_inverse_kernel<MP, POLISH>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)L::kSmem);
+      if (e != cudaSuccess) return e;
     }
-    // X T, column ``lane``: sum over k of X[:, k] T[k][lane]
-#pragma unroll
-    for (int r = 0; r < MP; ++r) mat[r] = make_float2(0.f, 0.f);
-#pragma unroll
-    for (int k = 0; k < MP; ++k) {
-      const float2 tk = t[k];
-#pragma unroll
-      for (int r = 0; r < MP; ++r) {
-        const float2 xr = shfl<MP>(inv[r], k);      // X[r][k], in lane k
-        mat[r] = make_float2(mat[r].x + (xr.x * tk.x - xr.y * tk.y),
-                             mat[r].y + (xr.x * tk.y + xr.y * tk.x));
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < MP; ++r) inv[r] = mat[r];
+    int per_sm = 0, sms = 0;
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, gj_inverse_kernel<MP, POLISH>, kGjWarps * 32, L::kSmem);
+    if (e != cudaSuccess) return e;
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return e;
+    resident[dev] = (per_sm > 0 ? per_sm : 1) * sms;
   }
-
-  if (in) {
-#pragma unroll
-    for (int r = 0; r < MP; ++r)
-      if (r < M) out[base + (size_t)r * M + lane] = inv[r];
-  }
+  const long long tiles = ((long long)B + L::kGroups - 1) / L::kGroups;
+  const long long need = (tiles + kGjWarps - 1) / kGjWarps;
+  const int blocks = (int)(need < resident[dev] ? need : resident[dev]);
+  gj_inverse_kernel<MP, POLISH><<<blocks, kGjWarps * 32, L::kSmem, st>>>(
+      a, out, B, M);
+  return cudaGetLastError();
 }
 
 template <int MP>
 cudaError_t launch_gj(const float2* a, float2* out, int B, int M, int polish,
                       cudaStream_t st) {
-  constexpr int per_block = kGjThreads / MP;
-  const int blocks = (B + per_block - 1) / per_block;
-  gj_inverse_kernel<MP><<<blocks, kGjThreads, 0, st>>>(a, out, B, M, polish);
-  return cudaGetLastError();
+  return polish ? launch_tiles<MP, true>(a, out, B, M, st)
+                : launch_tiles<MP, false>(a, out, B, M, st);
 }
 
 }  // namespace

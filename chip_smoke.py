@@ -61,7 +61,7 @@ KERNEL_REL_TOL = 1e-5    # kernel vs plain torch, max error / max |ref|
 # the MVDR kernels vs their plain versions, max error / max |ref|: float32
 # solves and inverses of 1.001-loaded rank-10 covariances of 16 mics, whose
 # condition reaches ~1e4, so float32 round-off is amplified up to that much
-# (measured on an H100: mvdr_stream 1.9e-4, gj_inverse 4.9e-5 and 1.2e-4
+# (measured on an H100: mvdr_stream 1.9e-4, gj_inverse 7.4e-5 and 1.4e-4
 # with the polish). Each kernel is also held to F64_FACTOR times its plain
 # float32 version's own error against the plain version in complex128.
 MVDR_STREAM_REL_TOL = 5e-4
@@ -834,7 +834,9 @@ def phase_mvdr_kernels(x: np.ndarray) -> dict:
     launch preset (678 in-band bins, 1407 frames, W = 10) for mvdr_stream,
     with one steering and with a theta timeline; one dense block of
     covariances (82 frames x 678 bins = 55,596 16 x 16 matrices) for
-    gj_inverse. Returns the numbers per kernel."""
+    gj_inverse, unpolished and polished, then LCMV's inner matrices over
+    that block (S = 1 and 3, polished) and a seeded 32-mic block. Returns
+    the numbers per kernel."""
     import torch
     from beamform_tpu_torch.kernels import linalg as kl
     from beamform_tpu_torch.kernels import mvdr_stream as km
@@ -894,27 +896,60 @@ def phase_mvdr_kernels(x: np.ndarray) -> dict:
     band = (ones.tril(w - 1) - ones.tril(-1)).to(torch.complex64)
     r = (torch.einsum("ct,tnmk->cnmk", band, o)
          * white_r(m, torch.float32, dev)).reshape(-1, m, m).contiguous()
+    b = r.shape[0]
     for polish in (False, True):
-        got = kl.gj_inverse(r, polish=polish)
-        ref = kl.gj_inverse_plain(r, polish=polish)
-        f64 = kl.gj_inverse_plain(r.cdouble(), polish=polish)
-        torch.cuda.synchronize()
-        ms = cuda_ms(lambda: kl.gj_inverse(r, polish=polish))
-        plain_ms = cuda_ms(lambda: kl.gj_inverse_plain(r, polish=polish),
-                           reps=5)
-        abs_err = check_solve_kernel(
-            f"gj_inverse B={r.shape[0]} M={m} polish={polish}", got, ref,
-            f64, GJ_REL_TOL, ms, plain_ms)
-        del f64
+        abs_err, ms, plain_ms = check_gj("dense block", r, polish)
+        log_launch_split(lambda: kl.gj_inverse(r, polish=polish),
+                         "gj_inverse_kernel", calls=20)
+        # the elimination's 8 M^3 operations a matrix; the polish's two
+        # products 16 M^3 more
+        nb = bound(2 * 8 * b * m * m, (24 if polish else 8) * b * m ** 3)
         if not polish:
-            b = r.shape[0]
             lib_ms = cuda_ms(lambda: torch.linalg.inv(r))
             log(f"  library: torch.linalg.inv {lib_ms:.4f} ms")
             results["gj_inverse"] = dict(
-                max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
-                **bound(2 * 8 * b * m * m, 8 * b * m ** 3),
+                max_abs_err=abs_err, ms=ms, plain_ms=plain_ms, **nb,
                 library_ms=lib_ms)
+
+    # LCMV's inner S x S matrices, C^H R^-1 C, over the same block at S = 1
+    # (the preset) and S = 3 (two static interferers), polished as
+    # lcmv_solve inverts them; and 32 mics, at a fifth of the block's
+    # matrices: seeded rank-16 covariances under MVDR's loading, whose
+    # condition (~1e4) is the 16-mic block's, for which GJ_REL_TOL is set
+    # (at rank 10 it reaches ~3e4, and the two float32 versions then part
+    # by more than the bar while both stay as far from complex128)
+    lcmv = get_model("lcmv", engine(), aira16(), preset("lcmv"), device=dev)
+    x_r = kl.gj_inverse_plain(r, polish=False)
+    for n_interf, cap in ((0, 0), (2, 2)):
+        c = lcmv_constraints(lcmv, n_interf, cap)[0]       # (S, M, NIB)
+        cm = c.permute(2, 1, 0).expand(cb, -1, -1, -1).reshape(b, m, -1)
+        inner = (cm.conj().transpose(1, 2) @ (x_r @ cm)).contiguous()
+        check_gj(f"LCMV inner S={inner.shape[1]}", inner, True)
+    rng = np.random.default_rng(32)
+    k32 = torch.complex(*(torch.as_tensor(
+        rng.standard_normal((b // 5, 32, 16)), dtype=torch.float32,
+        device=dev) for _ in range(2)))
+    r32 = ((k32 @ k32.conj().transpose(1, 2))
+           * white_r(32, torch.float32, dev)).contiguous()
+    for polish in (False, True):
+        check_gj("rank-16, 32 mics", r32, polish)
     return results
+
+
+def check_gj(label: str, a, polish: bool) -> tuple:
+    """gj_inverse on ``a`` against its plain version: GJ_REL_TOL of peak,
+    and F64_FACTOR times the plain version's own error against complex128.
+    Returns (max abs error, ms, the plain version's ms)."""
+    from beamform_tpu_torch.kernels import linalg as kl
+    got = kl.gj_inverse(a, polish=polish)
+    ref = kl.gj_inverse_plain(a, polish=polish)
+    f64 = kl.gj_inverse_plain(a.cdouble(), polish=polish)
+    ms = cuda_ms(lambda: kl.gj_inverse(a, polish=polish))
+    plain_ms = cuda_ms(lambda: kl.gj_inverse_plain(a, polish=polish), reps=5)
+    abs_err = check_solve_kernel(
+        f"gj_inverse {label} B={a.shape[0]} M={a.shape[1]} polish={polish}",
+        got, ref, f64, GJ_REL_TOL, ms, plain_ms)
+    return abs_err, ms, plain_ms
 
 
 def phase_mvdr(x: np.ndarray, xs: np.ndarray) -> tuple:

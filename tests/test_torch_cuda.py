@@ -208,14 +208,21 @@ def test_mvdr_stream_kernel_matches_plain(cuda, m, nib, t, u, gate_kind):
                                                1e-6)
 
 
-@pytest.mark.parametrize("m", [3, 16, 32])
-@pytest.mark.parametrize("b", [1, 37, 1000])
+def _hpd(rng, b, m, device):
+    a = _cplx(rng, (b, m, m), device)
+    return (a @ a.conj().transpose(1, 2) / m
+            + 0.5 * torch.eye(m, device=device)).contiguous()
+
+
+@pytest.mark.parametrize("m", [1, 2, 3, 5, 16, 17, 32])
+@pytest.mark.parametrize("b", [1, 37, 1000, 1001])
 @pytest.mark.parametrize("polish", [False, True])
 def test_gj_inverse_kernel_matches_plain(cuda, m, b, polish):
+    """Every lane count (4, 8, 16, 32 lanes a matrix, with lanes past M),
+    one matrix to many, and B = 1001, whose last tile of 8, 4 or 2 matrices
+    and last block of four warps are ragged: one launch."""
     rng = np.random.default_rng(m + b)
-    a = _cplx(rng, (b, m, m), cuda)
-    a = (a @ a.conj().transpose(1, 2) / m
-         + 0.5 * torch.eye(m, device=cuda)).contiguous()
+    a = _hpd(rng, b, m, cuda)
     before = kl.gj_inverse.launches
     got = kl.gj_inverse(a, polish=polish)
     torch.cuda.synchronize()
@@ -224,6 +231,44 @@ def test_gj_inverse_kernel_matches_plain(cuda, m, b, polish):
     assert got.shape == a.shape and _rel(got, ref) < REL
     eye = torch.eye(m, device=cuda, dtype=a.dtype)
     assert float((a @ got - eye).abs().max()) < 1e-4
+
+
+@pytest.mark.parametrize("m", [3, 16, 32])
+@pytest.mark.parametrize("polish", [False, True])
+def test_gj_inverse_kernel_nan_positions_match_plain(cuda, m, polish):
+    """The cold-start block (R = 0) and a block whose middle mic is silent
+    (a zero row and column: an exact zero pivot at its step) give NaN
+    exactly where the plain version does; the finite matrices beside them
+    in the same tiles stay within REL of plain."""
+    rng = np.random.default_rng(300 + m)
+    a = _hpd(rng, 37, m, cuda)
+    a[:9] = 0
+    a[9:18, m // 2, :] = 0
+    a[9:18, :, m // 2] = 0
+    got = kl.gj_inverse(a, polish=polish)
+    ref = kl.gj_inverse_plain(a, polish=polish)
+    torch.cuda.synchronize()
+    assert torch.equal(torch.isnan(got), torch.isnan(ref))
+    assert torch.isnan(got[:18]).all()
+    assert _rel(got[18:], ref[18:]) < REL
+
+
+@pytest.mark.parametrize("polish", [False, True])
+def test_gj_inverse_kernel_repeats_bit_for_bit(cuda, polish):
+    """chip_smoke.py's dense block shape (82 frames x 678 bins of 16 x 16
+    covariances, rank 10 under a 1e-3 loading): a second call on the same
+    input gives the same output bit for bit."""
+    rng = np.random.default_rng(13)
+    b, m, k = 55596, 16, 10
+    x = _cplx(rng, (b, m, k), cuda)
+    a = x @ x.conj().transpose(1, 2) / k
+    tr = torch.diagonal(a, dim1=1, dim2=2).real.mean(-1)
+    a = (a + 1e-3 * tr[:, None, None] * torch.eye(m, device=cuda)).contiguous()
+    first = kl.gj_inverse(a, polish=polish)
+    second = kl.gj_inverse(a, polish=polish)
+    torch.cuda.synchronize()
+    assert torch.isfinite(torch.view_as_real(first)).all()
+    assert torch.equal(first, second)
 
 
 def test_mvdr_kernels_raise_on_what_they_do_not_take(cuda):

@@ -10,8 +10,9 @@ side. Then each checkout's package and chip_smoke.py run in processes of
 their own, N pairs (default 10) in the order parent, change, change,
 parent, ... Each process drives, on chip_smoke.py's noise input (aira16's
 16 mics, 48 kHz, 30 s), the device-resident call ``model.process`` of DAS,
-MVDR ``auto`` and ``mega``, LCMV ``auto`` (one slot, and chip_smoke.py's
-two static interferers: three) and ``mega`` (one slot and three), phase,
+MVDR ``auto``, ``mega`` and ``dense``, LCMV ``auto`` (one slot, and
+chip_smoke.py's two static interferers: three), ``dense`` (one slot) and
+``mega`` (one slot and three), phase,
 phasempf and mcra under the launch presets, GSC ``sample``, ``block``
 and ``blocklms`` (l = 128), and GSS (one slot, and chip_smoke.py's two
 static interferers: three): the time of one call is CUDA events around
@@ -30,7 +31,9 @@ are MVDR's; LCMV at S = 1, 3 and 16 with 13 slots inactive),
 and 16 with 13 slots inactive), ``kernels.phase_mask.phase_mask`` (the
 phase preset, one steering) and the marches
 ``kernels.phase_mask.mpf_march`` and ``mcra_march`` (the presets, one
-steering, zero state).
+steering, zero state), and ``kernels.linalg.gj_inverse``, unpolished and
+polished, on chip_smoke.py's dense block (the windowed covariances of 82
+frames at 678 bins: 55,596 matrices of 16 x 16).
 CHANGE_ROOT defaults to this checkout. Prints one line per process, then
 per metric both sides' medians and ranges; imports no JAX.
 """
@@ -50,7 +53,9 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 # the array carries chip_smoke.py's two static interferers)
 PATHS = (("das", "das", None, 10, False), ("mvdr", "mvdr", {}, 10, False),
          ("mvdr mega", "mvdr", {"solver": "mega"}, 10, False),
+         ("mvdr dense", "mvdr", {"solver": "dense"}, 10, False),
          ("lcmv", "lcmv", {}, 10, False),
+         ("lcmv dense", "lcmv", {"solver": "dense"}, 10, False),
          ("lcmv S=3", "lcmv", {}, 10, True),
          ("lcmv mega", "lcmv", {"solver": "mega"}, 10, False),
          ("lcmv mega S=3", "lcmv", {"solver": "mega"}, 10, True),
@@ -124,7 +129,38 @@ def worker(root: str) -> dict:
             out[f"synthesis C={c} T={t}"] = cs.cuda_ms(
                 lambda: kw.wola_synthesis(y, prev))
     out.update(solve_kernels(cs, x))
+    out.update(gj_kernels(cs, x))
     return out
+
+
+def gj_kernels(cs, x) -> dict:
+    """One call of ``kernels.linalg.gj_inverse`` through its wrapper (ms),
+    unpolished and polished, on chip_smoke.py's dense block: the windowed
+    covariances of 82 frames past the quiet lead-in at the 678 in-band
+    bins of the MVDR preset, loaded as MvdrModel._solve_dense loads them
+    (55,596 matrices of 16 x 16)."""
+    import torch
+    from beamform_tpu_torch.kernels import linalg as kl
+    from beamform_tpu_torch.kernels.mvdr_stream import white_r
+    from beamform_tpu_torch.kernels.wola import wola_analysis
+    from beamform_tpu_torch.models import common, get_model
+    dev = torch.device("cuda")
+    params = cs.preset("mvdr")
+    model = get_model("mvdr", cs.engine(), cs.aira16(), params, device=dev)
+    xp = common.prepare_input(x, cs.engine(), torch.float32, dev)
+    spec, _, _ = wola_analysis(xp, torch.zeros((16, cs.HOP), device=dev))
+    t, m, _ = spec.shape
+    w = params["past_windows"]
+    cb = model._block_frames(t)
+    c0 = max(w, min(4 * cb, t - cb))
+    e = spec[c0 - w:c0 + cb].index_select(2, model.ib)
+    o = torch.einsum("tmn,tkn->tnmk", e, e.conj())
+    ones = torch.ones((cb, cb + w), device=dev)
+    band = (ones.tril(w - 1) - ones.tril(-1)).to(torch.complex64)
+    r = (torch.einsum("ct,tnmk->cnmk", band, o)
+         * white_r(m, torch.float32, dev)).reshape(-1, m, m).contiguous()
+    return {f"gj_inverse{' polish' if polish else ''}": cs.cuda_ms(
+        lambda: kl.gj_inverse(r, polish=polish)) for polish in (False, True)}
 
 
 def solve_kernels(cs, x) -> dict:
