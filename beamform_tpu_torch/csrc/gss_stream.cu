@@ -83,6 +83,17 @@
 // ~770 SM-clock cycles a frame (clock64() stamps: the butterfly 293, the
 // update and the ring 328), the analysing blocks 41% (PERF.md section 6).
 //
+// Streams. One launch serves B streams, which share the control rows: the
+// marching blocks' bin groups take the B NIB (stream, bin) pairs, in more
+// than one turn where they outnumber the groups (at 8 streams of 678 bins
+// and 16 mics, 198 of the 264 resident blocks march, in two turns), each
+// stream's control rows and flags are staged apart, and the analysing
+// blocks' items run over every stream's frames. A frame's serial chain is
+// the one-stream design's; no barrier is added per stream. A single stream
+// is B = 1, in the kernel's kOne form: with the pair loop and the stream
+// offsets in the general form, a single stream's march spilled twice the
+// bytes and took 13% longer.
+//
 // Index checks run here: a control index outside [0, U) makes the frame's
 // output NaN (and a reset there W), a bin outside [1, nfft / 2) its
 // spectra and output NaN. Neither is dereferenced.
@@ -105,38 +116,41 @@ constexpr int kFast = 4;     // active slots the register path takes
 constexpr int kSlots = 16;   // source slots at most
 constexpr int kNone = -2;    // no control row loaded
 
+// B streams share the control rows (ah, act); the other arrays but ib and
+// the tables have a stream axis
 struct GssArgs {
-  const float* x;         // (M, T * hop) audio
-  const float* tail;      // (M, hop) analysis carry
-  const float* out_prev;  // (hop,) overlap-add carry
-  const float2* w0;       // (NIB, S, M) demixing state
+  const float* x;         // (B, M, T * hop) audio
+  const float* tail;      // (B, M, hop) analysis carry
+  const float* out_prev;  // (B, hop) overlap-add carry
+  const float2* w0;       // (B, NIB, S, M) demixing state
   const float2* ah;       // (U, S, M, NIB) A^H per control row
   const int* act;         // (U,) bit s: slot s of the row is active
-  const int64_t* idx;     // (T,) control row per frame
-  const uint8_t* reset;   // (T,) W <- A^H before the frame
+  const int64_t* idx;     // (B, T) control row per frame
+  const uint8_t* reset;   // (B, T) W <- A^H before the frame
   const int64_t* ib;      // (NIB,) in-band bins
   const float* win;       // (nfft,) sqrt-Hann
   const float2* tw;       // (nfft / 2,) exp(-2 pi i j / nfft): synthesis
   const float2* ptw;      // the analysis FFT's pass twiddles
                           // (kernels/wola.py analysis_plan)
-  float* out;             // (T * hop,) zero on entry
-  float* new_prev;        // (hop,)
-  float2* w_out;          // (NIB, S, M): W's rows while not in registers
-  float2* xsc;            // scratch (2, SEG, NIB, M): two segments' spectra
-  float2* ys;             // scratch (2, SEG, NIB): two segments' output
-  int M, T, hop, log2n, NIB, U, S, SEG;
+  float* out;             // (B, T * hop) zero on entry
+  float* new_prev;        // (B, hop)
+  float2* w_out;          // (B, NIB, S, M): W's rows while not in registers
+  float2* xsc;            // scratch (2, B, SEG, NIB, M): two segments'
+                          // spectra
+  float2* ys;             // scratch (2, B, SEG, NIB): two segments' output
+  int B, M, T, hop, log2n, NIB, U, S, SEG;
   float thr, mu, lam;
 };
 
 // float2 elements of stage B's shared memory: the spectra ring, with more
-// than kFast slots the rows of W and A^H of the slow path; then SEG control
-// rows (int) and reset flags (bytes)
+// than kFast slots the rows of W and A^H of the slow path; then each
+// stream's SEG control rows (int) and reset flags (bytes)
 __host__ __device__ constexpr int ring_elems() { return kRing * kThreads; }
 __host__ __device__ constexpr int wide_elems(int S) {
   return S > kFast ? 2 * kSlots * kThreads : 0;
 }
 
-// One bin's lanes' context: lane i (mic i) of bin j.
+// One bin's lanes' context: lane i (mic i) of bin j of a stream.
 struct Lane {
   const GssArgs& p;
   float2* ring;           // [kRing][kThreads]
@@ -147,7 +161,7 @@ struct Lane {
   const float2* xsc;      // the segment's spectra (SEG, NIB, M)
   float2* ys;             // the segment's output (SEG, NIB)
   unsigned grp;           // the bin's MP lanes
-  int i, j, F;
+  int i, j, jw, F;        // jw: the (stream, bin) pair, W's row in w_out
   float scale, one_lm;
 };
 
@@ -228,15 +242,17 @@ __device__ __forceinline__ size_t ah_at(const GssArgs& p, int u, int s, int i,
 }
 
 // W <- A^H at mic i for the slots that are not active in row u (their
-// rows in w_out, (NIB, S, M)); the caller resets the active ones
+// rows in w_out, (B NIB, S, M), at pair jw; A^H at bin j); the caller
+// resets the active ones
 __device__ __noinline__ void reset_inactive(float2* __restrict__ w_out,
                                             const float2* __restrict__ ah,
                                             int S, int M, int NIB, int u,
-                                            unsigned am, int j, int i) {
+                                            unsigned am, int j, int jw,
+                                            int i) {
   if (i >= M) return;
   for (int s = 0; s < S; ++s)
     if (!((am >> s) & 1u))
-      w_out[((size_t)j * S + s) * M + i] =
+      w_out[((size_t)jw * S + s) * M + i] =
           ah[(((size_t)u * S + s) * M + i) * NIB + j];
 }
 
@@ -273,7 +289,8 @@ __device__ __forceinline__ int march_fast(const Lane& c, int f, int u,
 #pragma unroll
       for (int a = 0; a < N; ++a) w[a] = ah[a];
       if (__popc(am) < p.S)
-        reset_inactive(p.w_out, p.ah, p.S, p.M, p.NIB, u, am, c.j, c.i);
+        reset_inactive(p.w_out, p.ah, p.S, p.M, p.NIB, u, am, c.j, c.jw,
+                       c.i);
     }
     // the lane's partials of y_a = W x and (W A)[a][b], and the next
     // frame's gate partials
@@ -357,7 +374,8 @@ __device__ __forceinline__ int march_wide(const Lane& c, int f, int u,
       for (int a = 0; a < n; ++a)
         c.wsh[a * kThreads + tid] = c.ahsh[a * kThreads + tid];
       if (n < p.S)
-        reset_inactive(p.w_out, p.ah, p.S, p.M, p.NIB, u, am, c.j, c.i);
+        reset_inactive(p.w_out, p.ah, p.S, p.M, p.NIB, u, am, c.j, c.jw,
+                       c.i);
     }
     const Gate g = gate_of<MP>(c, x, n);
     float v[2 * kSlots];
@@ -440,13 +458,13 @@ __device__ __forceinline__ void write_back(const Lane& c, const State& s) {
       if (a >= s.n) break;
       const int slot = __ffs(rest) - 1;
       rest &= rest - 1u;
-      p.w_out[w_at(p, c.j, slot, c.i)] = s.w[a];
+      p.w_out[w_at(p, c.jw, slot, c.i)] = s.w[a];
     }
   } else {
     for (int a = 0; a < s.n; ++a) {
       const int slot = __ffs(rest) - 1;
       rest &= rest - 1u;
-      p.w_out[w_at(p, c.j, slot, c.i)] = c.wsh[a * kThreads + threadIdx.x];
+      p.w_out[w_at(p, c.jw, slot, c.i)] = c.wsh[a * kThreads + threadIdx.x];
     }
   }
 }
@@ -468,7 +486,7 @@ __device__ __forceinline__ void load_row(const Lane& c, State& s, int u) {
         const int slot = __ffs(rest) - 1;
         rest &= rest - 1u;
         if (in) {
-          s.w[a] = p.w_out[w_at(p, c.j, slot, c.i)];
+          s.w[a] = p.w_out[w_at(p, c.jw, slot, c.i)];
           s.ah[a] = p.ah[ah_at(p, u, slot, c.i, c.j)];
         }
       }
@@ -478,7 +496,8 @@ __device__ __forceinline__ void load_row(const Lane& c, State& s, int u) {
       const int slot = __ffs(rest) - 1;
       rest &= rest - 1u;
       const int q = a * kThreads + threadIdx.x;
-      c.wsh[q] = in ? p.w_out[w_at(p, c.j, slot, c.i)] : make_float2(0.f, 0.f);
+      c.wsh[q] = in ? p.w_out[w_at(p, c.jw, slot, c.i)]
+                    : make_float2(0.f, 0.f);
       c.ahsh[q] = in ? p.ah[ah_at(p, u, slot, c.i, c.j)]
                      : make_float2(0.f, 0.f);
     }
@@ -502,7 +521,7 @@ __device__ __forceinline__ void march(const Lane& c, State& s) {
       put_y(c, f, gate_of<MP>(c, x, 0).pass, make_float2(nan, nan), x);
       if (c.srst[f] && c.i < p.M)
         for (int sl = 0; sl < p.S; ++sl)
-          p.w_out[w_at(p, c.j, sl, c.i)] = make_float2(nan, nan);
+          p.w_out[w_at(p, c.jw, sl, c.i)] = make_float2(nan, nan);
       const float2 xn = f + 1 < c.F ? ring_peek(c, f + 1)
                                     : make_float2(0.f, 0.f);
       ring_put(c, f + kRing);
@@ -531,146 +550,194 @@ __device__ __forceinline__ void march(const Lane& c, State& s) {
 // so that a segment's march overlaps the next segment's analysis and the
 // synthesis of the one before: phase k marches segment k - 1 (spectra and
 // output in the buffers of its parity), analyses segment k and
-// synthesises segment k - 2, and a grid barrier ends the phase.
-template <int MP>
+// synthesises segment k - 2, and a grid barrier ends the phase. The
+// marching blocks' bin groups take the B NIB (stream, bin) pairs in turns,
+// each pair's rows of W going back to w_out at the end of its march of a
+// segment. kOne is one stream whose bins the groups cover at once: every
+// stream offset folds away, and a group keeps its rows of W in registers
+// from segment to segment, so that a single stream's march keeps the
+// registers it had without a stream axis.
+template <int MP, bool kOne>
 __global__ void __launch_bounds__(kThreads, 2) gss_kernel(GssArgs p,
                                                           int GB) {
   extern __shared__ float4 smem4[];
   float2* smem = reinterpret_cast<float2*>(smem4);
   const int n = 2 * p.hop;
-  const int M = p.M, NIB = p.NIB;
+  const int M = p.M, NIB = p.NIB, B = kOne ? 1 : p.B;
   const size_t plane = (size_t)M * NIB;
+  const size_t len = (size_t)p.T * p.hop;
   const bool marcher = (int)blockIdx.x < GB;
 
-  // this thread's bin and mic, for the whole call
+  // this thread's mic, and its first (stream, bin) pair; pass q takes
+  // pair pr0 + q * stride
   const int i = threadIdx.x % MP;
-  const int j = (threadIdx.x / MP) * GB + blockIdx.x;
-  const bool owner = marcher && j < NIB;
+  const int pr0 = (threadIdx.x / MP) * GB + blockIdx.x;
+  const int stride = GB * (kThreads / MP);
+  const int npairs = B * NIB;
+  const bool owner = marcher && pr0 < npairs;
   const unsigned grp =
       MP == 32 ? 0xffffffffu
                : ((1u << (MP % 32)) - 1u) << ((threadIdx.x % 32) / MP * MP);
   float2* ahsh = smem + ring_elems() + kSlots * kThreads;
   int* su = reinterpret_cast<int*>(smem + ring_elems() + wide_elems(p.S));
-  uint8_t* srst = reinterpret_cast<uint8_t*>(su + p.SEG);
-  Lane c{p,     smem, smem + ring_elems(), ahsh, su, srst, p.xsc, p.ys, grp,
-         i,     j,    0, 1.f / (float)(M * 2 * p.hop), 1.f - p.lam * p.mu};
+  uint8_t* srst = reinterpret_cast<uint8_t*>(su + B * p.SEG);
+  Lane c{p,   smem, smem + ring_elems(), ahsh,      su, srst, p.xsc, p.ys,
+         grp, i,    kOne ? pr0 : pr0 % NIB, pr0,      0,
+         1.f / (float)(M * 2 * p.hop),     1.f - p.lam * p.mu};
   State st;
   st.u = kNone;
   st.am = 0u;
   st.n = 0;
-  // W's rows start in w_out
-  if (owner && i < M)
-    for (int s = 0; s < p.S; ++s)
-      p.w_out[w_at(p, j, s, i)] = p.w0[w_at(p, j, s, i)];
+  // W's rows start in w_out, (B NIB, S, M) as w0
+  if (marcher && i < M)
+    for (int pr = pr0; pr < npairs; pr += stride)
+      for (int s = 0; s < p.S; ++s)
+        p.w_out[w_at(p, pr, s, i)] = p.w0[w_at(p, pr, s, i)];
 
   const int nseg = (p.T + p.SEG - 1) / p.SEG;
   const int gp = kThreads * 16 / n;                 // pairs a block at once
   const int groups = ((M + 1) / 2 + gp - 1) / gp;   // of a frame
   for (int k = 0; k <= nseg + 1; ++k) {
     if (marcher) {
-      // the march of segment k - 1: its control rows and reset flags
-      // staged, then every bin
+      // the march of segment k - 1: every stream's control rows and reset
+      // flags staged, then every (stream, bin) pair
       const int sg = k - 1;
       if (sg >= 0 && sg < nseg) {
         const int t0 = sg * p.SEG;
         const int F = min(p.SEG, p.T - t0);
-        for (int f = threadIdx.x; f < F; f += kThreads) {
-          const int64_t u = p.idx[t0 + f];
-          su[f] = u < 0 || u >= p.U ? -1 : (int)u;
-          srst[f] = p.reset[t0 + f];
+        for (int q = threadIdx.x; q < B * F; q += kThreads) {
+          const int sb = kOne ? 0 : q / F, f = kOne ? q : q % F;
+          const int64_t u = p.idx[(size_t)sb * p.T + t0 + f];
+          su[sb * p.SEG + f] = u < 0 || u >= p.U ? -1 : (int)u;
+          srst[sb * p.SEG + f] = p.reset[(size_t)sb * p.T + t0 + f];
         }
         __syncthreads();
-        if (owner) {
+        for (int pr = pr0; pr < npairs; pr += stride) {
+          const int sb = kOne ? 0 : pr / NIB;
+          c.j = kOne ? pr : pr % NIB;
+          c.jw = pr;
           c.F = F;
-          c.xsc = p.xsc + (size_t)(sg & 1) * p.SEG * plane;
-          c.ys = p.ys + (size_t)(sg & 1) * p.SEG * NIB;
+          c.su = su + sb * p.SEG;
+          c.srst = srst + sb * p.SEG;
+          c.xsc = p.xsc + ((size_t)(sg & 1) * B + sb) * p.SEG * plane;
+          c.ys = p.ys + ((size_t)(sg & 1) * B + sb) * p.SEG * NIB;
           march<MP>(c, st);
+          if (kOne) break;
+          write_back(c, st);
+          st.u = kNone;
         }
       }
     } else {
-      // the analysis of segment k, the synthesis of segment k - 2
+      // the analysis of segment k, the synthesis of segment k - 2, of
+      // every stream
       const int t0 = k * p.SEG;
       const int F = k < nseg ? min(p.SEG, p.T - t0) : 0;
       const int tp = t0 - 2 * p.SEG;
       const int Fp = k >= 2 ? min(p.SEG, p.T - tp) : 0;
-      float2* xsc = p.xsc + (size_t)(k & 1) * p.SEG * plane;
-      const float2* ys = p.ys + (size_t)(k & 1) * p.SEG * NIB;
-      for (int item = blockIdx.x - GB; item < F * groups + Fp;
-           item += gridDim.x - GB) {
+      const int ni = F * groups + Fp;               // items a stream
+      for (int it = blockIdx.x - GB; it < B * ni; it += gridDim.x - GB) {
+        const int sb = kOne ? 0 : it / ni, item = kOne ? it : it % ni;
+        const size_t buf = (size_t)(k & 1) * B + sb;
         if (item < F * groups) {
           const int f = item / groups;
-          bf_band::analyze_band<true>(p.hop, smem, p.x, p.tail, p.win,
-                                      p.ptw, p.ib, xsc + (size_t)f * plane,
-                                      nullptr, M, p.T, NIB, t0 + f,
-                                      (item - f * groups) * gp);
+          bf_band::analyze_band<true>(
+              p.hop, smem, p.x + (size_t)sb * M * len,
+              p.tail + (size_t)sb * M * p.hop, p.win, p.ptw, p.ib,
+              p.xsc + (buf * p.SEG + f) * plane, nullptr, M, p.T, NIB,
+              t0 + f, (item - f * groups) * gp);
         } else {
           const int f = item - F * groups;
           bf_band::load_half_spectrum(smem, n, p.log2n, 0.f,
-                                      ys + (size_t)f * NIB, p.ib, NIB);
-          bf_band::synthesize_frame(smem, p.tw, p.win, p.out_prev, p.out,
-                                    p.new_prev, p.T, p.hop, p.log2n, tp + f);
+                                      p.ys + (buf * p.SEG + f) * NIB, p.ib,
+                                      NIB);
+          bf_band::synthesize_frame(
+              smem, p.tw, p.win, p.out_prev + (size_t)sb * p.hop,
+              p.out + (size_t)sb * len, p.new_prev + (size_t)sb * p.hop,
+              p.T, p.hop, p.log2n, tp + f);
         }
       }
     }
     if (k <= nseg) bf_band::grid_sync();
   }
 
-  if (owner) write_back(c, st);
+  if (owner && kOne) write_back(c, st);
 }
 
-template <int MP>
-cudaError_t launch_gss(const GssArgs& a, cudaStream_t st) {
-  // the larger of the analysis and synthesis blocks' (the analysis FFT's
-  // padded frames, or one nfft-point synthesis frame) and the marching
-  // blocks' (the ring, the slow path's rows, SEG control rows and flags)
+// the larger of the analysis and synthesis blocks' (the analysis FFT's
+// padded frames, or one nfft-point synthesis frame) and the marching
+// blocks' (the ring, the slow path's rows, each stream's SEG control rows
+// and flags)
+inline size_t gss_smem(const GssArgs& a) {
   size_t smem = (size_t)bf_fft::padded(kThreads * 16) * sizeof(float2);
   if ((size_t)2 * a.hop * sizeof(float2) > smem)
     smem = (size_t)2 * a.hop * sizeof(float2);
   const size_t b = (size_t)(ring_elems() + wide_elems(a.S)) * sizeof(float2) +
-                   (size_t)a.SEG * (sizeof(int) + 1);
+                   (size_t)a.B * a.SEG * (sizeof(int) + 1);
   if (b > smem) smem = b;
-  smem = (smem + 15) / 16 * 16;
-  cudaError_t err = cudaSuccess;
-  const int grid = bf_band::resident_grid(gss_kernel<MP>, smem, err);
-  if (grid == 0) return err;
-  // half the grid marches, or as many blocks as the bins need
-  const int bins = kThreads / MP;                 // bins a marching block
-  int GB = grid / 2;
-  if (GB * bins < a.NIB) GB = (a.NIB + bins - 1) / bins;
-  if (GB >= grid) return cudaErrorCooperativeLaunchTooLarge;
+  return (smem + 15) / 16 * 16;
+}
+
+template <int MP, bool kOne>
+cudaError_t launch_gss(const GssArgs& a, int grid, int GB, cudaStream_t st) {
   GssArgs args = a;
   void* params[] = {&args, &GB};
-  err = cudaLaunchCooperativeKernel((const void*)gss_kernel<MP>, dim3(grid),
-                                    dim3(kThreads), params, smem, st);
+  cudaError_t err = cudaLaunchCooperativeKernel(
+      (const void*)gss_kernel<MP, kOne>, dim3(grid), dim3(kThreads),
+      params, gss_smem(a), st);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
+}
+
+// The resident grid and the marching blocks: half the grid, or as many
+// blocks as the (stream, bin) pairs need; where that is all of the grid,
+// three quarters march, the pairs in turns. One stream whose bins one turn
+// covers takes kOne.
+template <int MP>
+cudaError_t launch_mp(const GssArgs& a, cudaStream_t st) {
+  const size_t smem = gss_smem(a);
+  const int bins = kThreads / MP;                 // bins a marching block
+  const int pairs = a.B * a.NIB;
+  cudaError_t err = cudaSuccess;
+  int grid = bf_band::resident_grid(gss_kernel<MP, true>, smem, err);
+  if (grid == 0) return err;
+  int GB = grid / 2;
+  if (GB * bins < pairs) GB = (pairs + bins - 1) / bins;
+  if (a.B == 1 && GB < grid) return launch_gss<MP, true>(a, grid, GB, st);
+  grid = bf_band::resident_grid(gss_kernel<MP, false>, smem, err);
+  if (grid == 0) return err;
+  GB = grid / 2;
+  if (GB * bins < pairs) GB = (pairs + bins - 1) / bins;
+  if (GB >= grid) GB = grid - grid / 4;
+  if (GB < 1 || GB >= grid) return cudaErrorCooperativeLaunchTooLarge;
+  return launch_gss<MP, false>(a, grid, GB, st);
 }
 
 }  // namespace
 
 extern "C" {
 
-// x (M, T*hop), tail (M, hop), out_prev (hop,) float32; w0 (NIB, S, M),
-// ah (U, S, M, NIB) complex64; act (U,) int32; idx (T,), ib (NIB,) int64;
-// reset (T,) bool; win (2*hop) float32, tw (hop) complex64, ptw the
-// analysis pass table (complex64); out (T*hop), new_prev (hop) float32;
-// w_out (NIB, S, M) complex64; scratch xsc (2, SEG, NIB, M) and ys (2,
-// SEG, NIB) complex64. 1 <= M <= 32, 1 <= S <= 16, T >= 1, SEG >= 1, hop in
-// [128, 2048]. Returns the first CUDA error of the memset, the launch or
-// its check.
+// B streams in one launch: x (B, M, T*hop), tail (B, M, hop), out_prev
+// (B, hop) float32; w0 (B, NIB, S, M) complex64; ah (U, S, M, NIB)
+// complex64 and act (U,) int32, shared; idx (B, T), ib (NIB,) int64; reset
+// (B, T) bool; win (2*hop) float32, tw (hop) complex64, ptw the analysis
+// pass table (complex64); out (B, T*hop), new_prev (B, hop) float32; w_out
+// (B, NIB, S, M) complex64; scratch xsc (2, B, SEG, NIB, M) and ys (2, B,
+// SEG, NIB) complex64. B >= 1, 1 <= M <= 32, 1 <= S <= 16, T >= 1,
+// SEG >= 1, hop in [128, 2048]. Returns the first CUDA error of the memset,
+// the launch or its check.
 int bf_gss_stream(const void* x, const void* tail, const void* out_prev,
                   const void* w0, const void* ah, const void* act,
                   const void* idx, const void* reset, const void* ib,
                   const void* win, const void* tw, const void* ptw, void* out,
-                  void* new_prev, void* w_out, void* xsc, void* ys, int M,
-                  int T, int hop, int NIB, int U, int S, int SEG, float thr,
-                  float mu, float lam, void* stream) {
-  if (M < 1 || M > 32 || S < 1 || S > kSlots || T < 1 || SEG < 1 ||
+                  void* new_prev, void* w_out, void* xsc, void* ys, int B,
+                  int M, int T, int hop, int NIB, int U, int S, int SEG,
+                  float thr, float mu, float lam, void* stream) {
+  if (B < 1 || M < 1 || M > 32 || S < 1 || S > kSlots || T < 1 || SEG < 1 ||
       NIB < 1 || hop < 128 || hop > 2048)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   cudaError_t err =
-      cudaMemsetAsync(out, 0, (size_t)T * hop * sizeof(float), st);
+      cudaMemsetAsync(out, 0, (size_t)B * T * hop * sizeof(float), st);
   if (err != cudaSuccess) return (int)err;
   GssArgs a;
   a.x = (const float*)x;
@@ -690,6 +757,7 @@ int bf_gss_stream(const void* x, const void* tail, const void* out_prev,
   a.w_out = (float2*)w_out;
   a.xsc = (float2*)xsc;
   a.ys = (float2*)ys;
+  a.B = B;
   a.M = M;
   a.T = T;
   a.hop = hop;
@@ -701,10 +769,10 @@ int bf_gss_stream(const void* x, const void* tail, const void* out_prev,
   a.thr = thr;
   a.mu = mu;
   a.lam = lam;
-  if (M <= 4) return (int)launch_gss<4>(a, st);
-  if (M <= 8) return (int)launch_gss<8>(a, st);
-  if (M <= 16) return (int)launch_gss<16>(a, st);
-  return (int)launch_gss<32>(a, st);
+  if (M <= 4) return (int)launch_mp<4>(a, st);
+  if (M <= 8) return (int)launch_mp<8>(a, st);
+  if (M <= 16) return (int)launch_mp<16>(a, st);
+  return (int)launch_mp<32>(a, st);
 }
 
 }  // extern "C"

@@ -49,6 +49,11 @@
 // refinements of its two column pairs (419) and the inner system (187)
 // lead (PERF.md section 6).
 //
+// Streams. One launch serves B streams, the grid's z index the stream: the
+// spectra are the (T, B, M, NB) analysis output of all B * M channels, read
+// in place, hist, idx, gate and y carry a leading stream axis, and the
+// constraint sets c are shared. A single stream is B = 1.
+//
 // The index tensors are checked here, not on the host: a bin index outside
 // [0, NB) makes every output of its bin NaN, a control-row index outside
 // [0, U) every solved output of its frame. Neither is dereferenced.
@@ -60,14 +65,15 @@
 
 extern "C" {
 
-// spec (T, M, NB) complex64; ib (NIB,) int64 bin indices into NB; hist
-// (W, M, NIB), c (U, S, M, NIB) complex64; idx (T,) int64 into U; gate
-// (T, NIB) bool; y (T, NIB) complex64 out. 1 <= M <= 32, 1 <= S <= 16,
-// W >= 1. An index out of range gives NaN outputs. Returns the launch's
-// cudaGetLastError().
+// B streams in one launch: spec (T, B, M, NB) complex64 (the analysis
+// output of the B * M channels); ib (NIB,) int64 bin indices into NB; hist
+// (B, W, M, NIB) complex64; c (U, S, M, NIB) complex64, shared; idx (B, T)
+// int64 into U; gate (B, T, NIB) bool; y (B, T, NIB) complex64 out.
+// 1 <= B <= 65535, 1 <= M <= 32, 1 <= S <= 16, W >= 1. An index out of
+// range gives NaN outputs. Returns the launch's cudaGetLastError().
 int bf_lcmv_stream(const void* spec, const void* ib, const void* hist,
                    const void* c, const void* idx, const void* gate, void* y,
-                   int T, int M, int NB, int NIB, int W, int U, int S,
+                   int B, int T, int M, int NB, int NIB, int W, int U, int S,
                    void* stream) {
   const float2* sp = (const float2*)spec;
   const int64_t* b = (const int64_t*)ib;
@@ -77,19 +83,20 @@ int bf_lcmv_stream(const void* spec, const void* ib, const void* hist,
   const uint8_t* g = (const uint8_t*)gate;
   float2* out = (float2*)y;
   cudaStream_t st = (cudaStream_t)stream;
-  if (M < 1 || M > 32 || S < 1 || S > 16) return (int)cudaErrorInvalidValue;
+  if (B < 1 || B > 65535 || M < 1 || M > 32 || S < 1 || S > 16)
+    return (int)cudaErrorInvalidValue;
   const int n = M > S ? M : S;                      // MP: max(M, S)
   if (n <= 4)
-    return (int)bf_lcmv::launch_lanes<4>(sp, b, h, cc, ix, g, out, T, M, NB,
-                                         NIB, W, U, S, st);
+    return (int)bf_lcmv::launch_lanes<4>(sp, b, h, cc, ix, g, out, B, T,
+                                         M, NB, NIB, W, U, S, st);
   if (n <= 8)
-    return (int)bf_lcmv::launch_lanes<8>(sp, b, h, cc, ix, g, out, T, M, NB,
-                                         NIB, W, U, S, st);
+    return (int)bf_lcmv::launch_lanes<8>(sp, b, h, cc, ix, g, out, B, T,
+                                         M, NB, NIB, W, U, S, st);
   if (n <= 16)
-    return (int)bf_lcmv::launch_16(sp, b, h, cc, ix, g, out, T, M, NB, NIB,
+    return (int)bf_lcmv::launch_16(sp, b, h, cc, ix, g, out, B, T, M, NB, NIB,
                                    W, U, S, st);
-  return (int)bf_lcmv::launch_32(sp, b, h, cc, ix, g, out, T, M, NB, NIB, W,
-                                 U, S, st);
+  return (int)bf_lcmv::launch_32(sp, b, h, cc, ix, g, out, B, T, M, NB, NIB,
+                                 W, U, S, st);
 }
 
 }  // extern "C"

@@ -15,7 +15,8 @@ namespace bf_lcmv {
 #define BF_LCMV_ARGS                                                       \
   const float2 *spec, const int64_t *ib, const float2 *hist,               \
       const float2 *c, const int64_t *idx, const uint8_t *gate, float2 *y, \
-      int T, int M, int NB, int NIB, int W, int U, int S, cudaStream_t st
+      int B, int T, int M, int NB, int NIB, int W, int U, int S,           \
+      cudaStream_t st
 
 // launch_lanes<16> and <32>, each in its own source
 cudaError_t launch_16(BF_LCMV_ARGS);
@@ -44,7 +45,16 @@ __global__ void __launch_bounds__(kThreads, (MP <= 16 && SP <= 8) ? 2 : 1)
   float2* xs = smem;                        // [kFrames + W][kBins][LD]
   const int b0 = blockIdx.x * kBins;
   const int t0 = blockIdx.y * kFrames;
-  stage_spec<MP>(xs, spec, ib, hist, T, M, NB, NIB, W, b0, t0);
+  // stream blockIdx.z: its plane of the (T, B, M, NB) spectra, its rows of
+  // hist, idx, gate and y
+  const int sb = blockIdx.z;
+  spec += (size_t)sb * M * NB;
+  hist += (size_t)sb * W * M * NIB;
+  idx += (size_t)sb * T;
+  gate += (size_t)sb * T * NIB;
+  y += (size_t)sb * T * NIB;
+  stage_spec<MP>(xs, spec, ib, hist, T, M, NB, NIB, W, b0, t0,
+                 (size_t)gridDim.z * M * NB);
   __syncthreads();
 
   const int slot = threadIdx.x / Sh::H;
@@ -88,8 +98,8 @@ template <int MP, int SP>
 cudaError_t launch_lcmv(const float2* spec, const int64_t* ib,
                         const float2* hist, const float2* c,
                         const int64_t* idx, const uint8_t* gate, float2* y,
-                        int T, int M, int NB, int NIB, int W, int U, int S,
-                        cudaStream_t st) {
+                        int B, int T, int M, int NB, int NIB, int W, int U,
+                        int S, cudaStream_t st) {
   const size_t smem = ((size_t)tile_elems<MP>(W) + cbuf_elems<MP>()
                        + (size_t)Shape<MP>::kSlots * SP * MP) * sizeof(float2);
   if (smem > 48 * 1024) {
@@ -98,7 +108,8 @@ cudaError_t launch_lcmv(const float2* spec, const int64_t* ib,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
   }
-  const dim3 grid((NIB + kBins - 1) / kBins, (T + kFrames - 1) / kFrames);
+  const dim3 grid((NIB + kBins - 1) / kBins, (T + kFrames - 1) / kFrames,
+                  B);
   lcmv_stream_kernel<MP, SP><<<grid, kThreads, smem, st>>>(
       spec, ib, hist, c, idx, gate, y, T, M, NB, NIB, W, U, S);
   return cudaGetLastError();
@@ -108,12 +119,12 @@ template <int MP>
 cudaError_t launch_lanes(const float2* spec, const int64_t* ib,
                          const float2* hist, const float2* c,
                          const int64_t* idx, const uint8_t* gate, float2* y,
-                         int T, int M, int NB, int NIB, int W, int U, int S,
-                         cudaStream_t st) {
+                         int B, int T, int M, int NB, int NIB, int W, int U,
+                         int S, cudaStream_t st) {
 #define BF_LCMV_SP(SPV)                                                    \
   if (S <= SPV && SPV <= MP)                                               \
     return launch_lcmv<MP, (SPV <= MP ? SPV : MP)>(                        \
-        spec, ib, hist, c, idx, gate, y, T, M, NB, NIB, W, U, S, st);
+        spec, ib, hist, c, idx, gate, y, B, T, M, NB, NIB, W, U, S, st);
   BF_LCMV_SP(1)
   BF_LCMV_SP(2)
   BF_LCMV_SP(4)

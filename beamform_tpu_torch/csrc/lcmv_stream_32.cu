@@ -6,8 +6,8 @@
 namespace bf_lcmv {
 
 cudaError_t launch_32(BF_LCMV_ARGS) {
-  return launch_lanes<32>(spec, ib, hist, c, idx, gate, y, T, M, NB, NIB, W,
-                           U, S, st);
+  return launch_lanes<32>(spec, ib, hist, c, idx, gate, y, B, T, M, NB, NIB,
+                           W, U, S, st);
 }
 
 }  // namespace bf_lcmv

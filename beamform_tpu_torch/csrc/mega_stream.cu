@@ -63,6 +63,13 @@
 // 90, the staging 33, the forward pass 33), the grid barriers 0.06 ms
 // (PERF.md section 6).
 //
+// Streams. One launch serves B streams, which share the control rows:
+// stage A's items and stage B's tiles range over every stream's, each with
+// its own audio, carries, history, control indices and scratch (the ring
+// then holds B segments, 71 MB at 8 streams of 93 frames, and no longer
+// fits the L2 cache), and each stream's synthesis adds only into its own
+// output row. A single stream is B = 1.
+//
 // Index checks run here, not on the host: a bin index outside [1, nfft / 2)
 // gives NaN output for its frames, a control index outside [0, U) NaN
 // solves for its frame. Neither is dereferenced.
@@ -75,12 +82,13 @@
 
 extern "C" {
 
-// x (M, T*hop), tail (M, hop), out_prev (hop,) float32; hist (W, M, NIB),
-// ctrl (U, S, M, NIB) complex64; idx (T,), ib (NIB,) int64; win (2*hop)
-// float32, tw (hop) complex64, ptw the pass twiddles of kernels/wola.py
-// analysis_plan (complex64); out (T*hop), new_prev (hop) float32;
-// hist_out (W, M, NIB) complex64; scratch ring (SEG + W, M, NIB) and ys
-// (SEG, NIB) complex64, dc (2, SEG) float32. 1 <= M <= 32, 1 <= S <= 16,
+// B streams in one launch: x (B, M, T*hop), tail (B, M, hop), out_prev
+// (B, hop) float32; hist (B, W, M, NIB) complex64; ctrl (U, S, M, NIB)
+// complex64, shared; idx (B, T), ib (NIB,) int64; win (2*hop) float32, tw
+// (hop) complex64, ptw the pass twiddles of kernels/wola.py analysis_plan
+// (complex64); out (B, T*hop), new_prev (B, hop) float32; hist_out (B, W,
+// M, NIB) complex64; scratch ring (B, SEG + W, M, NIB) and ys (B, SEG, NIB)
+// complex64, dc (B, 2, SEG) float32. B >= 1, 1 <= M <= 32, 1 <= S <= 16,
 // W >= 1, T >= 1, 1 <= SEG. ``lcmv`` 0 takes ctrl as MVDR steering (S = 1).
 // Returns the first CUDA error of the memset, the launch or its check.
 int bf_mega_stream(const void* x, const void* tail, const void* out_prev,
@@ -88,16 +96,16 @@ int bf_mega_stream(const void* x, const void* tail, const void* out_prev,
                    const void* ib, const void* win, const void* tw,
                    const void* ptw, void* out,
                    void* new_prev, void* hist_out, void* ring, void* ys,
-                   void* dc, int M, int T, int hop, int NIB, int W, int U,
-                   int S, int SEG, float thr, int refine, int lcmv,
+                   void* dc, int B, int M, int T, int hop, int NIB, int W,
+                   int U, int S, int SEG, float thr, int refine, int lcmv,
                    void* stream) {
-  if (M < 1 || M > 32 || S < 1 || S > 16 || (!lcmv && S != 1) || W < 1 ||
-      T < 1 || SEG < 1 || NIB < 1 || hop < 128 || hop > 2048 ||
+  if (B < 1 || M < 1 || M > 32 || S < 1 || S > 16 || (!lcmv && S != 1) ||
+      W < 1 || T < 1 || SEG < 1 || NIB < 1 || hop < 128 || hop > 2048 ||
       (hop & (hop - 1)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   cudaError_t err =
-      cudaMemsetAsync(out, 0, (size_t)T * hop * sizeof(float), st);
+      cudaMemsetAsync(out, 0, (size_t)B * T * hop * sizeof(float), st);
   if (err != cudaSuccess) return (int)err;
   bf_mega::MegaArgs a;
   a.x = (const float*)x;
@@ -116,6 +124,7 @@ int bf_mega_stream(const void* x, const void* tail, const void* out_prev,
   a.ring = (float2*)ring;
   a.ys = (float2*)ys;
   a.dc = (float*)dc;
+  a.B = B;
   a.M = M;
   a.T = T;
   a.hop = hop;

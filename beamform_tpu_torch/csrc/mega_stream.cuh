@@ -15,26 +15,29 @@ namespace bf_mega {
 
 using namespace bf_tri;
 
+// B streams; each array but ctrl, ib and the tables has a leading stream
+// axis, which the stages index with the stream's offsets (plain ints: a copy
+// of the arguments per stream would cost the solves' registers)
 struct MegaArgs {
-  const float* x;         // (M, T * hop) audio
-  const float* tail;      // (M, hop) analysis carry
-  const float* out_prev;  // (hop,) overlap-add carry
-  const float2* hist;     // (W, M, NIB) in-band history, oldest first
+  const float* x;         // (B, M, T * hop) audio
+  const float* tail;      // (B, M, hop) analysis carry
+  const float* out_prev;  // (B, hop) overlap-add carry
+  const float2* hist;     // (B, W, M, NIB) in-band history, oldest first
   const float2* ctrl;     // (U, S, M, NIB) steering (S = 1) or constraints
-  const int64_t* idx;     // (T,) control row per frame
+  const int64_t* idx;     // (B, T) control row per frame
   const int64_t* ib;      // (NIB,) in-band bins
   const float* win;       // (nfft,) sqrt-Hann
   const float2* tw;       // (nfft / 2,) exp(-2 pi i j / nfft): synthesis
   const float2* ptw;      // the analysis FFT's pass twiddles
                           // (kernels/wola.py analysis_plan)
-  float* out;             // (T * hop,) zero on entry
-  float* new_prev;        // (hop,)
-  float2* hist_out;       // (W, M, NIB)
-  float2* ring;           // scratch (SEG + W, M, NIB): extended frame e at
-                          // slot e % (SEG + W); e < W the history
-  float2* ys;             // scratch (SEG, NIB): the segment's gated output
-  float* dc;              // scratch (2, SEG): mic 0's bin 0 per frame
-  int M, T, hop, log2n, NIB, W, U, S, SEG;
+  float* out;             // (B, T * hop) zero on entry
+  float* new_prev;        // (B, hop)
+  float2* hist_out;       // (B, W, M, NIB)
+  float2* ring;           // scratch (B, SEG + W, M, NIB): extended frame e
+                          // at slot e % (SEG + W); e < W the history
+  float2* ys;             // scratch (B, SEG, NIB): the segment's output
+  float* dc;              // scratch (B, 2, SEG): mic 0's bin 0 per frame
+  int B, M, T, hop, log2n, NIB, W, U, S, SEG;
   float thr;
   int refine;
 };
@@ -45,11 +48,12 @@ cudaError_t launch_32(const MegaArgs& a, bool lcmv, cudaStream_t st);
 
 namespace {
 
-// Stage B of segment ``sg`` (frames t0 .. t0 + F - 1) for one tile: bins
-// b0 .. b0 + kBins - 1, segment frames f0 .. f0 + kFrames - 1.
+// Stage B of segment ``sg`` (frames t0 .. t0 + F - 1) of stream sb for one
+// tile: bins b0 .. b0 + kBins - 1, segment frames f0 .. f0 + kFrames - 1.
 template <int MP, int SP, bool kLcmv>
 __device__ __forceinline__ void solve_tile(const MegaArgs& p, float2* smem,
-                                           int t0, int F, int b0, int f0) {
+                                           int sb, int t0, int F, int b0,
+                                           int f0) {
   using Sh = Shape<MP>;
   const int W = p.W, M = p.M, NIB = p.NIB;
   const int R = p.SEG + W;
@@ -63,7 +67,8 @@ __device__ __forceinline__ void solve_tile(const MegaArgs& p, float2* smem,
     float2 v = make_float2(0.f, 0.f);
     if (m < M && b0 + bb < NIB && f0 + el - W < F) {
       const int e = t0 + f0 + el;             // extended frame index
-      v = p.ring[(size_t)(e % R) * plane + (size_t)m * NIB + b0 + bb];
+      v = p.ring[((size_t)sb * R + e % R) * plane + (size_t)m * NIB + b0 +
+                 bb];
     }
     xs[(el * kBins + bb) * Sh::LD + m] = v;
   }
@@ -94,14 +99,14 @@ __device__ __forceinline__ void solve_tile(const MegaArgs& p, float2* smem,
                                      0.f)).x * scale;
     const bool act = valid && mag > p.thr;
     const unsigned mask = __ballot_sync(0xffffffffu, act) & grp;
-    float2* yo = p.ys + (size_t)f * NIB + bin;
+    float2* yo = p.ys + ((size_t)sb * p.SEG + f) * NIB + bin;
     if (!act) {
       if (valid && l == 0) *yo = make_float2(0.01f * xl.x, 0.01f * xl.y);
       continue;
     }
     Factor<MP> fc;
     covariance_factor<MP>(mask, xs, cb, lt, bb, l, M, W, fc);
-    const int64_t u = p.idx[t0 + f];
+    const int64_t u = p.idx[(size_t)sb * p.T + t0 + f];
     const bool bad = u < 0 || u >= p.U;
     const float2* cu = p.ctrl + (size_t)(bad ? 0 : u) * p.S * plane + bin;
     float2 yv;
@@ -124,19 +129,22 @@ __device__ __forceinline__ void solve_tile(const MegaArgs& p, float2* smem,
   __syncthreads();                          // xs is restaged
 }
 
-// Stage A's analysis of item ``item``: frame item / groups of the segment,
-// the item % groups-th group of channel pairs.
+// Stage A's analysis of item ``item`` of stream sb: frame item / groups of
+// the segment, the item % groups-th group of channel pairs.
 __device__ __forceinline__ void analyze_item(const MegaArgs& p, float2* smem,
-                                             int t0, int sg, int groups,
-                                             int item) {
+                                             int sb, int t0, int sg,
+                                             int groups, int item) {
   const int f = item / groups;
   const int q0 = (item - f * groups) * (kThreads * 16 / (2 * p.hop));
   const int t = t0 + f;
-  float2* dst = p.ring + (size_t)((p.W + t) % (p.SEG + p.W)) *
+  const int R = p.SEG + p.W;
+  float2* dst = p.ring + ((size_t)sb * R + (p.W + t) % R) *
                              ((size_t)p.M * p.NIB);
-  float* dc = p.dc + (sg & 1) * p.SEG + f;
-  bf_band::analyze_band<false>(p.hop, smem, p.x, p.tail, p.win, p.ptw, p.ib,
-                               dst, dc, p.M, p.T, p.NIB, t, q0);
+  float* dc = p.dc + ((size_t)sb * 2 + (sg & 1)) * p.SEG + f;
+  bf_band::analyze_band<false>(
+      p.hop, smem, p.x + (size_t)sb * p.M * p.T * p.hop,
+      p.tail + (size_t)sb * p.M * p.hop, p.win, p.ptw, p.ib, dst, dc, p.M,
+      p.T, p.NIB, t, q0);
 }
 
 // two blocks of 256 threads an SM (128 registers a thread) up to 16 rows
@@ -155,46 +163,57 @@ __global__ void __launch_bounds__(kThreads, (MP <= 16 && SP <= 8) ? 2 : 1)
   const size_t gstride = (size_t)gridDim.x * kThreads;
 
   // the carried history: extended frames 0 .. W-1, ring slots 0 .. W-1
-  for (size_t q = gtid; q < (size_t)W * plane; q += gstride)
-    p.ring[q] = p.hist[q];
+  const size_t hplane = (size_t)W * plane;        // a stream's history
+  for (size_t q = gtid; q < (size_t)p.B * hplane; q += gstride)
+    p.ring[q / hplane * R * plane + q % hplane] = p.hist[q];
 
   const int nseg = (p.T + p.SEG - 1) / p.SEG;
   const int gp = kThreads * 16 / n;                 // pairs a block at once
   const int groups = ((M + 1) / 2 + gp - 1) / gp;  // of a frame
   for (int sg = 0; sg <= nseg; ++sg) {
-    // A: analysis of segment sg, synthesis of segment sg - 1
+    // A: analysis of segment sg, synthesis of segment sg - 1, of every
+    // stream
     const int t0 = sg * p.SEG;
     const int F = sg < nseg ? min(p.SEG, p.T - t0) : 0;
     const int tp = t0 - p.SEG;
     const int Fp = sg > 0 ? min(p.SEG, p.T - tp) : 0;
-    for (int item = blockIdx.x; item < F * groups + Fp; item += gridDim.x) {
+    const int ni = F * groups + Fp;                 // items a stream
+    for (int it = blockIdx.x; it < p.B * ni; it += gridDim.x) {
+      const int sb = it / ni, item = it % ni;
       if (item < F * groups) {
-        analyze_item(p, smem, t0, sg, groups, item);
+        analyze_item(p, smem, sb, t0, sg, groups, item);
       } else {
         const int f = item - F * groups;
-        bf_band::load_half_spectrum(smem, n, p.log2n,
-                                    p.dc[((sg - 1) & 1) * p.SEG + f],
-                                    p.ys + (size_t)f * NIB, p.ib, NIB);
-        bf_band::synthesize_frame(smem, p.tw, p.win, p.out_prev, p.out,
-                                  p.new_prev, p.T, p.hop, p.log2n, tp + f);
+        const float dc = p.dc[((size_t)sb * 2 + ((sg - 1) & 1)) * p.SEG + f];
+        bf_band::load_half_spectrum(smem, n, p.log2n, dc,
+                                    p.ys + ((size_t)sb * p.SEG + f) * NIB,
+                                    p.ib, NIB);
+        bf_band::synthesize_frame(
+            smem, p.tw, p.win, p.out_prev + (size_t)sb * p.hop,
+            p.out + (size_t)sb * p.T * p.hop, p.new_prev + (size_t)sb * p.hop,
+            p.T, p.hop, p.log2n, tp + f);
       }
     }
     if (sg == nseg) break;
     bf_band::grid_sync();
 
-    // B: the solves of segment sg
+    // B: the solves of segment sg, of every stream
     const int ntb = (NIB + kBins - 1) / kBins;
     const int ntf = (F + kFrames - 1) / kFrames;
-    for (int tile = blockIdx.x; tile < ntb * ntf; tile += gridDim.x)
-      solve_tile<MP, SP, kLcmv>(p, smem, t0, F, (tile % ntb) * kBins,
-                                (tile / ntb) * kFrames);
+    for (int tile = blockIdx.x; tile < p.B * ntb * ntf; tile += gridDim.x) {
+      const int tl = tile % (ntb * ntf);
+      solve_tile<MP, SP, kLcmv>(p, smem, tile / (ntb * ntf), t0, F,
+                                (tl % ntb) * kBins, (tl / ntb) * kFrames);
+    }
     bf_band::grid_sync();
   }
 
   // the last W extended frames, oldest first
-  for (size_t q = gtid; q < (size_t)W * plane; q += gstride) {
-    const size_t w = q / plane;
-    p.hist_out[q] = p.ring[(size_t)((p.T + w) % R) * plane + q % plane];
+  for (size_t q = gtid; q < (size_t)p.B * hplane; q += gstride) {
+    const size_t r = q % hplane;
+    p.hist_out[q] = p.ring[q / hplane * R * plane +
+                           (size_t)((p.T + r / plane) % R) * plane +
+                           r % plane];
   }
 }
 

@@ -44,6 +44,11 @@
 // SM-cycles a solved problem (3.54 ms with two problems a warp and a full
 // row of R a lane; PERF.md section 6).
 //
+// Streams. One launch serves B streams, the grid's z index the stream: the
+// spectra are the (T, B, M, NB) analysis output of all B * M channels, read
+// in place, hist, w_idx, gate and y carry a leading stream axis, and the
+// steering d is shared. A single stream is B = 1.
+//
 // Rows beyond M are an identity block (zero spectra, unit diagonal, zero
 // steering), so the M x M solve is unchanged. Pivots use 1.f / sqrtf(),
 // not rsqrtf(); no fast-math intrinsics.
@@ -80,7 +85,16 @@ __global__ void __launch_bounds__(kThreads, MP <= 16 ? 2 : 1)
   const int b0 = blockIdx.x * kBins;
   const int t0 = blockIdx.y * kFrames;
   const float nan = __int_as_float(0x7fc00000);
-  stage_spec<MP>(xs, spec, ib, hist, T, M, NB, NIB, W, b0, t0);
+  // stream blockIdx.z: its plane of the (T, B, M, NB) spectra, its rows of
+  // hist, w_idx, gate and y
+  const int sb = blockIdx.z;
+  spec += (size_t)sb * M * NB;
+  hist += (size_t)sb * W * M * NIB;
+  w_idx += (size_t)sb * T;
+  gate += (size_t)sb * T * NIB;
+  y += (size_t)sb * T * NIB;
+  stage_spec<MP>(xs, spec, ib, hist, T, M, NB, NIB, W, b0, t0,
+                 (size_t)gridDim.z * M * NB);
   __syncthreads();
 
   const int slot = threadIdx.x / Sh::H;
@@ -131,8 +145,8 @@ template <int MP>
 cudaError_t launch_stream(const float2* spec, const int64_t* ib,
                           const float2* hist, const float2* d,
                           const int64_t* w_idx, const uint8_t* gate,
-                          float2* y, int T, int M, int NB, int NIB, int W,
-                          int U, cudaStream_t st) {
+                          float2* y, int B, int T, int M, int NB, int NIB,
+                          int W, int U, cudaStream_t st) {
   const size_t smem =
       ((size_t)tile_elems<MP>(W) + cbuf_elems<MP>()) * sizeof(float2);
   if (smem > 48 * 1024) {
@@ -141,7 +155,8 @@ cudaError_t launch_stream(const float2* spec, const int64_t* ib,
         (int)smem);
     if (e != cudaSuccess) return e;
   }
-  const dim3 grid((NIB + kBins - 1) / kBins, (T + kFrames - 1) / kFrames);
+  const dim3 grid((NIB + kBins - 1) / kBins, (T + kFrames - 1) / kFrames,
+                  B);
   mvdr_stream_kernel<MP><<<grid, kThreads, smem, st>>>(
       spec, ib, hist, d, w_idx, gate, y, T, M, NB, NIB, W, U);
   return cudaGetLastError();
@@ -151,14 +166,16 @@ cudaError_t launch_stream(const float2* spec, const int64_t* ib,
 
 extern "C" {
 
-// spec (T, M, NB) complex64; ib (NIB,) int64 bin indices into NB; hist
-// (W, M, NIB), d (U, M, NIB) complex64; w_idx (T,) int64 into U; gate
-// (T, NIB) bool; y (T, NIB) complex64 out. 1 <= M <= 32, W >= 1. An index
-// out of range gives NaN outputs. Returns the launch's cudaGetLastError().
+// B streams in one launch: spec (T, B, M, NB) complex64 (the analysis
+// output of the B * M channels); ib (NIB,) int64 bin indices into NB; hist
+// (B, W, M, NIB) complex64; d (U, M, NIB) complex64, shared; w_idx (B, T)
+// int64 into U; gate (B, T, NIB) bool; y (B, T, NIB) complex64 out.
+// 1 <= B <= 65535, 1 <= M <= 32, W >= 1. An index out of range gives NaN
+// outputs. Returns the launch's cudaGetLastError().
 int bf_mvdr_stream(const void* spec, const void* ib, const void* hist,
                    const void* d, const void* w_idx, const void* gate,
-                   void* y, int T, int M, int NB, int NIB, int W, int U,
-                   void* stream) {
+                   void* y, int B, int T, int M, int NB, int NIB, int W,
+                   int U, void* stream) {
   const float2* s = (const float2*)spec;
   const int64_t* b = (const int64_t*)ib;
   const float2* h = (const float2*)hist;
@@ -167,18 +184,19 @@ int bf_mvdr_stream(const void* spec, const void* ib, const void* hist,
   const uint8_t* g = (const uint8_t*)gate;
   float2* out = (float2*)y;
   cudaStream_t st = (cudaStream_t)stream;
+  if (B < 1 || B > 65535) return (int)cudaErrorInvalidValue;
   if (M <= 4)
-    return (int)launch_stream<4>(s, b, h, dv, wi, g, out, T, M, NB, NIB, W, U,
-                                 st);
+    return (int)launch_stream<4>(s, b, h, dv, wi, g, out, B, T, M, NB,
+                                 NIB, W, U, st);
   if (M <= 8)
-    return (int)launch_stream<8>(s, b, h, dv, wi, g, out, T, M, NB, NIB, W, U,
-                                 st);
+    return (int)launch_stream<8>(s, b, h, dv, wi, g, out, B, T, M, NB,
+                                 NIB, W, U, st);
   if (M <= 16)
-    return (int)launch_stream<16>(s, b, h, dv, wi, g, out, T, M, NB, NIB, W, U,
-                                  st);
+    return (int)launch_stream<16>(s, b, h, dv, wi, g, out, B, T, M, NB,
+                                  NIB, W, U, st);
   if (M <= 32)
-    return (int)launch_stream<32>(s, b, h, dv, wi, g, out, T, M, NB, NIB, W, U,
-                                  st);
+    return (int)launch_stream<32>(s, b, h, dv, wi, g, out, B, T, M, NB,
+                                  NIB, W, U, st);
   return (int)cudaErrorInvalidValue;
 }
 

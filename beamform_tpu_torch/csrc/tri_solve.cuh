@@ -187,15 +187,17 @@ __device__ __forceinline__ unsigned group_mask() {
 }
 
 // Stage frames t0 .. t0 + kFrames + W - 1 of the extended sequence (hist,
-// then spec at the band's bins) for bins b0 .. b0 + kBins - 1. A bin index
-// outside [0, NB) stages NaN, so every output of its bin is NaN.
+// then spec at the band's bins) for bins b0 .. b0 + kBins - 1. spec holds
+// one stream's (M, NB) plane a frame, fs elements apart (M * NB times the
+// streams of the analysis output it is a view of). A bin index outside
+// [0, NB) stages NaN, so every output of its bin is NaN.
 template <int MP>
 __device__ __forceinline__ void stage_spec(float2* __restrict__ xs,
                                            const float2* __restrict__ spec,
                                            const int64_t* __restrict__ ib,
                                            const float2* __restrict__ hist,
                                            int T, int M, int NB, int NIB,
-                                           int W, int b0, int t0) {
+                                           int W, int b0, int t0, size_t fs) {
   constexpr int LD = Shape<MP>::LD;
   const int ne = kFrames + W;
   const float nan = __int_as_float(0x7fc00000);
@@ -211,8 +213,9 @@ __device__ __forceinline__ void stage_spec(float2* __restrict__ xs,
         v = hist[((size_t)e * M + m) * NIB + bin];
       } else if (e - W < T) {
         const int64_t k = ib[bin];
-        v = (k >= 0 && k < NB) ? spec[((size_t)(e - W) * M + m) * NB + k]
-                               : make_float2(nan, nan);
+        v = (k >= 0 && k < NB)
+                ? spec[(size_t)(e - W) * fs + (size_t)m * NB + k]
+                : make_float2(nan, nan);
       }
     }
     xs[(el * kBins + bb) * LD + m] = v;

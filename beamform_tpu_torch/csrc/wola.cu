@@ -73,16 +73,19 @@ constexpr int kWalkFrames = 4 * 132;
 // X_2p[k] = (Z[k] + conj(Z[n-k])) / 2 and X_2p+1[k] = (Z[k] - conj(Z[n-k])) / 2i.
 // Frame t is samples [t*hop, t*hop + n) of [tail | x]; spec is
 // (T, C, hop + 2) complex64. An odd last channel pairs with zeros. With
-// mag (one pair block holding every chunk), mag[t, k] = scale *
-// sum_c |X_c[k]|, summed in channel order.
-template <int R3>
+// mag, mag[t, k] = scale * sum_c |X_c[k]|, summed in channel order; with
+// kStreams, the channels form C / CG streams of CG channels and mag[t, g,
+// k] sums stream g's channels, in channel order, a block's chunks starting
+// at a stream's first channel (one stream takes the kernel without
+// kStreams, whose split loop keeps the single sum).
+template <int R3, bool kStreams>
 __global__ void __launch_bounds__(kAnaThreads, 2)
 wola_analysis_kernel(const float* __restrict__ x,
                      const float* __restrict__ tail,
                      const float* __restrict__ win,
                      const float2* __restrict__ tw,
                      float2* __restrict__ spec, float* __restrict__ mag,
-                     int C, int T, int G, int cpb, float scale) {
+                     int C, int CG, int T, int G, int cpb, float scale) {
   // the frame's size is the template's, so that every offset of the
   // register FFT is an immediate
   constexpr int n = 256 * R3;
@@ -129,8 +132,11 @@ wola_analysis_kernel(const float* __restrict__ x,
     bf_fft::fft<R3>(v, sh + g * ld, tw, j);
     // the split: the thread of bin k takes it for every pair of the chunk
     const int npair = min(G, P - chunk * G);
+    // the stream of the chunk's first channel, and where it ends
+    const int g0 = kStreams ? 2 * chunk * G / CG : 0;
     for (int k = threadIdx.x; k < nb; k += blockDim.x) {
       float m = (mag != nullptr && chunk > chunk0) ? acc[k] : 0.f;
+      int si = g0, gend = (g0 + 1) * CG;        // the stream in progress
       const int pk = bf_fft::pad(k), pm = bf_fft::pad((n - k) & (n - 1));
       for (int q = 0; q < npair; ++q) {
         const float2 z = sh[q * ld + pk];
@@ -142,14 +148,32 @@ wola_analysis_kernel(const float* __restrict__ x,
         float2* out = spec + ((size_t)t * C + c) * nb + k;
         out[0] = a;
         if (c + 1 < C) out[nb] = b;
-        if (mag != nullptr) {
+        if (mag != nullptr && !kStreams) {
           m += sqrtf(a.x * a.x + a.y * a.y);
           if (c + 1 < C) m += sqrtf(b.x * b.x + b.y * b.y);
+        } else if (mag != nullptr) {
+          // a stream's sum is written at its last channel
+          m += sqrtf(a.x * a.x + a.y * a.y);
+          if (c + 1 == gend) {
+            mag[((size_t)t * (C / CG) + si++) * nb + k] = m * scale;
+            m = 0.f;
+            gend += CG;
+          }
+          if (c + 1 < C) {
+            m += sqrtf(b.x * b.x + b.y * b.y);
+            if (c + 2 == gend) {
+              mag[((size_t)t * (C / CG) + si++) * nb + k] = m * scale;
+              m = 0.f;
+              gend += CG;
+            }
+          }
         }
       }
-      if (mag != nullptr) {
+      if (mag != nullptr && !kStreams) {
         if (chunk + 1 == chunk1) mag[(size_t)t * nb + k] = m * scale;
         else acc[k] = m;
+      } else if (mag != nullptr && chunk + 1 < chunk1) {
+        acc[k] = m;
       }
     }
   }
@@ -273,7 +297,7 @@ cudaError_t launch_synthesis(const float2* y, const float* out_prev,
 template <int R3>
 cudaError_t launch_analysis(const float* x, const float* tail,
                             const float* win, const float2* tw,
-                            float2* spec, float* mag, int C, int T,
+                            float2* spec, float* mag, int C, int CG, int T,
                             cudaStream_t st) {
   constexpr int n = 256 * R3;
   constexpr int tpf = n / bf_fft::kPts;
@@ -282,15 +306,29 @@ cudaError_t launch_analysis(const float* x, const float* tail,
   const int G = P < kAnaThreads / tpf ? P : kAnaThreads / tpf;
   const int chunks = (P + G - 1) / G;
   // one block walks every chunk of its frame: fewer, longer blocks, whose
-  // loads overlap the last chunk's stores; with mag it must (the sum over
-  // channels stays in one thread). Without mag and with few frames each
-  // chunk is its own block, so that the grid still fills the card.
-  const int cpb = (mag != nullptr || T >= kWalkFrames) ? chunks : 1;
+  // loads overlap the last chunk's stores; with mag it must walk at least
+  // a stream's chunks (the sum over a stream's channels stays in one
+  // thread), and walks exactly those where a stream is whole chunks, or
+  // one chunk where a chunk holds whole streams. Without mag and with few
+  // frames each chunk is its own block, so that the grid still fills the
+  // card.
+  int cpb = (mag != nullptr || T >= kWalkFrames) ? chunks : 1;
+  const bool streams = mag != nullptr && CG < C;
+  if (streams) {
+    if (CG % (2 * G) == 0) cpb = CG / (2 * G);
+    else if ((2 * G) % CG == 0) cpb = 1;
+  }
   const size_t smem = sizeof(float2) * G * bf_fft::padded(n)
                       + (mag != nullptr ? sizeof(float) * (n / 2 + 2) : 0);
   dim3 grid(T, (chunks + cpb - 1) / cpb);
-  wola_analysis_kernel<R3><<<grid, G * tpf, smem, st>>>(
-      x, tail, win, tw, spec, mag, C, T, G, cpb, 1.0f / (float)(C * n));
+  if (streams)
+    wola_analysis_kernel<R3, true><<<grid, G * tpf, smem, st>>>(
+        x, tail, win, tw, spec, mag, C, CG, T, G, cpb,
+        1.0f / (float)(CG * n));
+  else
+    wola_analysis_kernel<R3, false><<<grid, G * tpf, smem, st>>>(
+        x, tail, win, tw, spec, mag, C, CG, T, G, cpb,
+        1.0f / (float)(CG * n));
   return cudaGetLastError();
 }
 
@@ -304,21 +342,26 @@ const char* bf_error_string(int code) {
 
 // x (C, T*hop), tail (C, hop), win (2*hop), tw the pass tables of
 // kernels/wola.py analysis_plan (complex), spec (T, C, hop+2) complex64,
-// mag (T, hop+2) or null. Returns the launch's cudaGetLastError().
+// mag (T, C / CG, hop+2) or null: the gate statistic of each stream of CG
+// channels (CG divides C). Returns the launch's cudaGetLastError().
 int bf_wola_analysis(const float* x, const float* tail, const float* win,
-                     const void* tw, void* spec, float* mag, int C, int T,
-                     int hop, void* stream) {
+                     const void* tw, void* spec, float* mag, int C, int CG,
+                     int T, int hop, void* stream) {
+  if (C < 1 || CG < 1 || C % CG) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const float2* t2 = (const float2*)tw;
   float2* sp = (float2*)spec;
+#define BF_ANA(R3) \
+  (int)launch_analysis<R3>(x, tail, win, t2, sp, mag, C, CG, T, st)
   switch (2 * hop) {
-    case 256: return (int)launch_analysis<1>(x, tail, win, t2, sp, mag, C, T, st);
-    case 512: return (int)launch_analysis<2>(x, tail, win, t2, sp, mag, C, T, st);
-    case 1024: return (int)launch_analysis<4>(x, tail, win, t2, sp, mag, C, T, st);
-    case 2048: return (int)launch_analysis<8>(x, tail, win, t2, sp, mag, C, T, st);
-    case 4096: return (int)launch_analysis<16>(x, tail, win, t2, sp, mag, C, T, st);
+    case 256: return BF_ANA(1);
+    case 512: return BF_ANA(2);
+    case 1024: return BF_ANA(4);
+    case 2048: return BF_ANA(8);
+    case 4096: return BF_ANA(16);
     default: return (int)cudaErrorInvalidValue;
   }
+#undef BF_ANA
 }
 
 // y (C, T, hop+2) complex64, out_prev (C, hop), win (2*hop), tw the tables

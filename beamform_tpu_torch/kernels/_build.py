@@ -117,21 +117,20 @@ def _declare(lib):
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.bf_error_string.argtypes = [i]
     lib.bf_error_string.restype = ctypes.c_char_p
-    lib.bf_wola_analysis.argtypes = [p, p, p, p, p, p, i, i, i, p]
+    lib.bf_wola_analysis.argtypes = [p, p, p, p, p, p, i, i, i, i, p]
     lib.bf_wola_analysis.restype = i
     lib.bf_wola_synthesis.argtypes = [p, p, p, p, p, p, i, i, i, p]
     lib.bf_wola_synthesis.restype = i
     lib.bf_gj_inverse.argtypes = [p, p, i, i, i, p]
     lib.bf_gj_inverse.restype = i
-    lib.bf_mvdr_stream.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, p]
+    lib.bf_mvdr_stream.argtypes = [p] * 7 + [i] * 7 + [p]
     lib.bf_mvdr_stream.restype = i
-    lib.bf_lcmv_stream.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, i,
-                                   p]
+    lib.bf_lcmv_stream.argtypes = [p] * 7 + [i] * 8 + [p]
     lib.bf_lcmv_stream.restype = i
     f = ctypes.c_float
-    lib.bf_mega_stream.argtypes = [p] * 16 + [i] * 8 + [f, i, i, p]
+    lib.bf_mega_stream.argtypes = [p] * 16 + [i] * 9 + [f, i, i, p]
     lib.bf_mega_stream.restype = i
-    lib.bf_gss_stream.argtypes = [p] * 17 + [i] * 7 + [f, f, f, p]
+    lib.bf_gss_stream.argtypes = [p] * 17 + [i] * 8 + [f, f, f, p]
     lib.bf_gss_stream.restype = i
     fp = ctypes.POINTER(ctypes.c_float)        # a host array of constants
     lib.bf_phase_mask.argtypes = [p] * 4 + [i] * 4 + [fp, p]

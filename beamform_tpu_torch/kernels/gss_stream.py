@@ -21,6 +21,12 @@ without them both versions derive the bits from A^H. The band must hold neither 
 gss.cpp:110, and a complex y[0] would break the half-spectrum fold) nor the
 Nyquist or shadow bin: :func:`gss_fits`.
 
+Streams: one launch serves B streams that share the control rows (A^H and
+the active bits): the audio, carries, W, control index and reset flags
+gain a leading stream axis ((B, M, S), (B, M, hop), (B, hop),
+(B, NIB, S, M), (B, T), (B, T)), and so do the outputs. The single-stream
+form is B = 1 of the same kernel.
+
 Routing: a CPU tensor takes the plain version (float32 or float64); a CUDA
 tensor launches the kernel or raises. ``gss_mega.launches`` counts
 launches.
@@ -33,8 +39,10 @@ import torch
 from beamform_tpu_torch.kernels._build import (check, check_tensor,
                                                device_guard, launch_context)
 from beamform_tpu_torch.kernels.mega_stream import (SEG_FRAMES, band_fits,
+                                                    check_scratch,
                                                     half_spectrum_synthesis)
-from beamform_tpu_torch.kernels.mvdr_stream import MAX_MICS, MAX_SLOTS
+from beamform_tpu_torch.kernels.mvdr_stream import (MAX_MICS, MAX_SLOTS,
+                                                    MAX_SMEM)
 from beamform_tpu_torch.kernels.wola import (MAX_NFFT, MIN_NFFT,
                                              _analysis_tables, _tables,
                                              wola_analysis_plain)
@@ -52,6 +60,16 @@ def _kernel_fits(m: int, nfft: int, s_cap: int) -> bool:
     card."""
     return (not nfft & (nfft - 1) and MIN_NFFT <= nfft <= MAX_NFFT
             and 1 <= m <= MAX_MICS and 1 <= s_cap <= MAX_SLOTS)
+
+
+def smem_bytes(b: int, s_cap: int, nfft: int, seg: int) -> int:
+    """Dynamic shared memory of one block (``csrc/gss_stream.cu``
+    launch_gss): the larger of the analysing blocks' (17 x 256 padded FFT
+    points, or one nfft-point frame) and the marching blocks' (the spectra
+    ring, the slow path's rows past four slots, and each of the ``b``
+    streams' ``seg`` control rows and reset flags)."""
+    march = (4 + (2 * 16 if s_cap > 4 else 0)) * 256 * 8 + b * seg * 5
+    return -(-max(17 * 256 * 8, nfft * 8, march) // 16) * 16
 
 
 def active_bits(active) -> torch.Tensor:
@@ -132,8 +150,16 @@ def gss_mega_plain(x, tail, out_prev, w0, ah_ib, idx, reset, ib,
     demixing state over the in-band bins ``ib``; ah_ib (U, S, M, NIB) A^H
     per control row; idx (T,) row per frame; reset (T,) bool; act_bits
     (U,) int32 active slots (:func:`active_bits`), derived from A^H when
-    None. Returns ((T*hop,) audio, new W, new out_prev).
+    None. Returns ((T*hop,) audio, new W, new out_prev). With a stream axis
+    (x (B, M, T*hop), tail (B, M, hop), out_prev (B, hop), w0 (B, NIB, S,
+    M), idx and reset (B, T)) each stream's plain version, stacked.
     """
+    if x.dim() == 3:
+        outs = [gss_mega_plain(x[b], tail[b], out_prev[b], w0[b], ah_ib,
+                               idx[b], reset[b], ib, mag_threshold, mu, lam,
+                               act_bits)
+                for b in range(x.shape[0])]
+        return tuple(torch.stack(parts) for parts in zip(*outs))
     spec, mag, _ = wola_analysis_plain(x, tail, with_mag=True)
     x_ib = spec.index_select(2, ib)
     gate = mag.index_select(1, ib) > mag_threshold
@@ -157,49 +183,64 @@ def gss_mega(x, tail, out_prev, w0, ah_ib, idx, reset, ib, nfft: int,
              mag_threshold: float, mu: float, lam: float, act_bits=None):
     """Fused GSS step (the contract of the JAX package's ``gss_mega``); see
     :func:`gss_mega_plain`. x (M, S) with S a multiple of hop; returns
-    (audio (S,), w (NIB, S, M), out_prev' (hop,)). On CUDA: float32 audio
-    and carries, complex64 state and A^H, int64 idx and ib, bool reset,
-    int32 act_bits, contiguous, within :func:`gss_fits` (the bins are
-    checked on the card: one outside [1, nfft / 2) gives NaN output, so the
-    call never synchronises)."""
+    (audio (S,), w (NIB, S, M), out_prev' (hop,)); with a stream axis one
+    launch serves the B streams. On CUDA: float32 audio and carries,
+    complex64 state and A^H, int64 idx and ib, bool reset, int32 act_bits,
+    contiguous, within :func:`gss_fits`, a block's shared memory
+    (:func:`smem_bytes`) and the scratch limit
+    (``mega_stream.check_scratch``); the bins are checked on the card (one
+    outside [1, nfft / 2) gives NaN output), so the call never
+    synchronises."""
     hop = nfft // 2
-    if tail.shape[-1] != hop or x.shape[1] % hop:
+    if tail.shape[-1] != hop or x.shape[-1] % hop:
         raise ValueError(f"nfft {nfft} disagrees with tail "
                          f"{tuple(tail.shape)} or x {tuple(x.shape)}")
-    if x.shape[1] < hop:                 # no whole hop: nothing to march
-        return out_prev.new_zeros((0,)), w0, out_prev
+    if x.shape[-1] < hop:                # no whole hop: nothing to march
+        return out_prev.new_zeros(out_prev.shape[:-1] + (0,)), w0, out_prev
     if not x.is_cuda:
         return gss_mega_plain(x, tail, out_prev, w0, ah_ib, idx, reset, ib,
                               mag_threshold, mu, lam, act_bits)
-    m, s = x.shape
+    m, s = x.shape[-2:]
+    lead = tuple(x.shape[:-2])              # (B,), or () for one stream
+    b = lead[0] if lead else 1
     t = s // hop
-    nib, s_cap = w0.shape[:2]
+    nib, s_cap = w0.shape[-3:-1]
     u = ah_ib.shape[0]
-    if not (_kernel_fits(m, nfft, s_cap) and nib >= 1 and u >= 1):
+    if not (_kernel_fits(m, nfft, s_cap) and nib >= 1 and u >= 1
+            and b >= 1):
         raise ValueError(
             f"the CUDA fused GSS kernel takes a power-of-two nfft in "
             f"[{MIN_NFFT}, {MAX_NFFT}], M <= {MAX_MICS} mics, S <= "
-            f"{MAX_SLOTS} source slots and a nonempty band and control, got "
-            f"nfft={nfft}, M={m}, S={s_cap}, NIB={nib}, U={u}")
+            f"{MAX_SLOTS} source slots and a nonempty band, control and "
+            f"batch, got nfft={nfft}, M={m}, S={s_cap}, NIB={nib}, U={u}, "
+            f"B={b}")
+    seg = min(SEG_FRAMES, t)
+    if smem_bytes(b, s_cap, nfft, seg) > MAX_SMEM:
+        raise ValueError(
+            f"the CUDA fused GSS kernel stages each stream's control rows "
+            f"in a block's shared memory: {b} streams of {seg} frames take "
+            f"{smem_bytes(b, s_cap, nfft, seg)} bytes, past {MAX_SMEM}; "
+            "serve fewer streams a call")
     dev = x.device
-    check_tensor(x, "x", torch.float32, (m, s), dev)
-    check_tensor(tail, "tail", torch.float32, (m, hop), dev)
-    check_tensor(out_prev, "out_prev", torch.float32, (hop,), dev)
-    check_tensor(w0, "w0", torch.complex64, (nib, s_cap, m), dev)
+    check_tensor(x, "x", torch.float32, lead + (m, s), dev)
+    check_tensor(tail, "tail", torch.float32, lead + (m, hop), dev)
+    check_tensor(out_prev, "out_prev", torch.float32, lead + (hop,), dev)
+    check_tensor(w0, "w0", torch.complex64, lead + (nib, s_cap, m), dev)
     check_tensor(ah_ib, "ah_ib", torch.complex64, (u, s_cap, m, nib), dev)
-    check_tensor(idx, "idx", torch.int64, (t,), dev)
-    check_tensor(reset, "reset", torch.bool, (t,), dev)
+    check_tensor(idx, "idx", torch.int64, lead + (t,), dev)
+    check_tensor(reset, "reset", torch.bool, lead + (t,), dev)
     check_tensor(ib, "ib", torch.int64, (nib,), dev)
     act = _slot_bits(ah_ib, act_bits)
     check_tensor(act, "act_bits", torch.int32, (u,), dev)
-    seg = min(SEG_FRAMES, t)
+    check_scratch("fused GSS", 2 * b * seg * nib * (m + 1) * 8, dev)
     win, tw = _tables(nfft, dev)
     ptw = _analysis_tables(nfft, dev)[1]
-    out = torch.empty((t * hop,), dtype=torch.float32, device=dev)
-    new_prev = torch.empty((hop,), dtype=torch.float32, device=dev)
+    out = torch.empty(lead + (t * hop,), dtype=torch.float32, device=dev)
+    new_prev = torch.empty(lead + (hop,), dtype=torch.float32, device=dev)
     w_out = torch.empty_like(w0)
-    xsc = torch.empty((2, seg, nib, m), dtype=torch.complex64, device=dev)
-    ys = torch.empty((2, seg, nib), dtype=torch.complex64, device=dev)
+    xsc = torch.empty((2, b, seg, nib, m), dtype=torch.complex64,
+                      device=dev)
+    ys = torch.empty((2, b, seg, nib), dtype=torch.complex64, device=dev)
     with device_guard(dev):
         lib, stream = launch_context(dev)
         code = lib.bf_gss_stream(
@@ -207,8 +248,8 @@ def gss_mega(x, tail, out_prev, w0, ah_ib, idx, reset, ib, nfft: int,
             w0.data_ptr(), ah_ib.data_ptr(), act.data_ptr(), idx.data_ptr(),
             reset.data_ptr(), ib.data_ptr(), win.data_ptr(), tw.data_ptr(),
             ptw.data_ptr(), out.data_ptr(), new_prev.data_ptr(),
-            w_out.data_ptr(), xsc.data_ptr(), ys.data_ptr(), m, t, hop, nib,
-            u, s_cap, seg, float(mag_threshold), float(mu), float(lam),
+            w_out.data_ptr(), xsc.data_ptr(), ys.data_ptr(), b, m, t, hop,
+            nib, u, s_cap, seg, float(mag_threshold), float(mu), float(lam),
             stream)
     check(lib, code, "gss_stream")
     gss_mega.launches += 1

@@ -23,12 +23,21 @@ which gives the same output. The half-spectrum synthesis (y[0] once,
 2 * y[k] for 0 < k < nfft / 2) is exact only for bands below the Nyquist
 bin: :func:`band_fits` refuses the others on every device.
 
+Streams: one launch serves B streams that share the control rows: the
+audio, carries, history and control index gain a leading stream axis
+((B, M, S), (B, M, hop), (B, hop), (B, W, M, NIB), (B, T)), and so do the
+outputs. The single-stream form is B = 1 of the same kernel. The kernel's
+scratch grows with B (:func:`scratch_bytes`); past a quarter of the card's
+memory the wrapper raises.
+
 Routing: a CPU tensor takes the plain version (float32 or float64); a CUDA
 tensor launches the kernel or raises. ``mega_stream.launches`` counts
 launches.
 """
 
 from __future__ import annotations
+
+from functools import lru_cache
 
 import numpy as np
 import torch
@@ -51,6 +60,28 @@ SEG_FRAMES = 96
 #: stage A's analysis holds 256 / (nfft / 16) channel pairs of one frame a
 #: block, each in nfft + nfft / 16 padded points: 17 x 256 for every nfft
 _ANALYSIS_ELEMS = 17 * 256
+
+
+def scratch_bytes(b: int, m: int, nib: int, w_hist: int, seg: int) -> int:
+    """Device scratch of one call on ``b`` streams: each stream's ring of
+    SEG + W in-band frames, its segment's output and its bin-0 values."""
+    return b * ((seg + w_hist) * m * nib * 8 + seg * nib * 8 + 2 * seg * 4)
+
+
+@lru_cache(maxsize=8)
+def _scratch_limit(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).total_memory // 4
+
+
+def check_scratch(what: str, nbytes: int, device: torch.device):
+    """Raise a ValueError naming the limit when a fused kernel's scratch
+    exceeds a quarter of the card's memory."""
+    limit = _scratch_limit(device)
+    if nbytes > limit:
+        raise ValueError(f"the CUDA {what} kernel's scratch for this batch "
+                         f"({nbytes} bytes) exceeds a quarter of the card's "
+                         f"memory ({limit} bytes); serve fewer streams a "
+                         "call")
 
 
 def band_fits(ib, nfft: int) -> bool:
@@ -125,8 +156,15 @@ def mega_plain(x: torch.Tensor, tail: torch.Tensor, out_prev: torch.Tensor,
     Returns ((T*hop,) audio, new hist, new out_prev). The solve is the
     stream solve's plain version with the refinement off; at S = 1 its
     constraint-space form is MVDR's w = R^-1 d / (d^H R^-1 d), with 0
-    where d is all zero.
+    where d is all zero. With a stream axis (x (B, M, T*hop), tail
+    (B, M, hop), out_prev (B, hop), hist (B, W, M, NIB), idx (B, T)) each
+    stream's plain version, stacked.
     """
+    if x.dim() == 3:
+        outs = [mega_plain(x[b], tail[b], out_prev[b], hist[b], ctrl,
+                           idx[b], ib, mag_threshold, refine)
+                for b in range(x.shape[0])]
+        return tuple(torch.stack(parts) for parts in zip(*outs))
     w = hist.shape[0]
     spec, mag, _ = wola_analysis_plain(x, tail, with_mag=True)
     gate = mag.index_select(1, ib) > mag_threshold
@@ -146,23 +184,27 @@ def mega_stream(x: torch.Tensor, tail: torch.Tensor, out_prev: torch.Tensor,
                 hist: torch.Tensor, ctrl: torch.Tensor, idx: torch.Tensor,
                 ib: torch.Tensor, mag_threshold: float, refine: bool = False,
                 lcmv: bool = True):
-    """The fused kernel; see :func:`mega_plain` for the contract
-    (``lcmv`` False takes ``ctrl`` (U, 1, M, NIB) as MVDR steering). On
-    CUDA: float32 audio and carries, complex64 hist and ctrl, int64 idx and
-    ib, contiguous, within :func:`mega_fits` (the bins are checked on the
-    card: one outside [1, nfft / 2) gives NaN output, so the call never
+    """The fused kernel; see :func:`mega_plain` for the contract, with or
+    without a stream axis: one launch either way (``lcmv`` False takes
+    ``ctrl`` (U, 1, M, NIB) as MVDR steering). On CUDA: float32 audio and
+    carries, complex64 hist and ctrl, int64 idx and ib, contiguous, within
+    :func:`mega_fits` and :func:`check_scratch` (the bins are checked on
+    the card: one outside [1, nfft / 2) gives NaN output, so the call never
     synchronises)."""
     if not x.is_cuda:
         return mega_plain(x, tail, out_prev, hist, ctrl, idx, ib,
                           mag_threshold, refine)
-    m, s = x.shape
+    m, s = x.shape[-2:]
+    lead = tuple(x.shape[:-2])              # (B,), or () for one stream
+    b = lead[0] if lead else 1
     hop = tail.shape[-1]
-    w, _, nib = hist.shape
+    w, _, nib = hist.shape[-3:]
     u, s_cap = ctrl.shape[:2]
     t = s // hop
-    if t == 0 or s % hop or w == 0 or nib == 0 or u == 0:
-        raise ValueError(f"empty or ragged chunk, history, band or control "
-                         f"rows: S={s} (hop {hop}), W={w}, NIB={nib}, U={u}")
+    if t == 0 or s % hop or w == 0 or nib == 0 or u == 0 or b == 0:
+        raise ValueError(f"empty or ragged chunk, history, band, control "
+                         f"rows or batch: S={s} (hop {hop}), W={w}, "
+                         f"NIB={nib}, U={u}, B={b}")
     if not (lcmv or s_cap == 1):
         raise ValueError(f"MVDR steering has one slot, got S={s_cap}")
     if not _kernel_fits(m, 2 * hop, s_cap if lcmv else 0, w):
@@ -172,22 +214,24 @@ def mega_stream(x: torch.Tensor, tail: torch.Tensor, out_prev: torch.Tensor,
             f"and a tile within {MAX_SMEM} bytes of shared memory, got "
             f"nfft={2 * hop}, M={m}, S={s_cap}, W={w}")
     dev = x.device
-    check_tensor(x, "x", torch.float32, (m, s), dev)
-    check_tensor(tail, "tail", torch.float32, (m, hop), dev)
-    check_tensor(out_prev, "out_prev", torch.float32, (hop,), dev)
-    check_tensor(hist, "hist", torch.complex64, (w, m, nib), dev)
+    check_tensor(x, "x", torch.float32, lead + (m, s), dev)
+    check_tensor(tail, "tail", torch.float32, lead + (m, hop), dev)
+    check_tensor(out_prev, "out_prev", torch.float32, lead + (hop,), dev)
+    check_tensor(hist, "hist", torch.complex64, lead + (w, m, nib), dev)
     check_tensor(ctrl, "ctrl", torch.complex64, (u, s_cap, m, nib), dev)
-    check_tensor(idx, "idx", torch.int64, (t,), dev)
+    check_tensor(idx, "idx", torch.int64, lead + (t,), dev)
     check_tensor(ib, "ib", torch.int64, (nib,), dev)
     seg = min(SEG_FRAMES, t)
+    check_scratch("fused MVDR/LCMV", scratch_bytes(b, m, nib, w, seg), dev)
     win, tw = _tables(2 * hop, dev)
     ptw = _analysis_tables(2 * hop, dev)[1]
-    out = torch.empty((t * hop,), dtype=torch.float32, device=dev)
-    new_prev = torch.empty((hop,), dtype=torch.float32, device=dev)
+    out = torch.empty(lead + (t * hop,), dtype=torch.float32, device=dev)
+    new_prev = torch.empty(lead + (hop,), dtype=torch.float32, device=dev)
     new_hist = torch.empty_like(hist)
-    ring = torch.empty((seg + w, m, nib), dtype=torch.complex64, device=dev)
-    ys = torch.empty((seg, nib), dtype=torch.complex64, device=dev)
-    dc = torch.empty((2, seg), dtype=torch.float32, device=dev)
+    ring = torch.empty((b, seg + w, m, nib), dtype=torch.complex64,
+                       device=dev)
+    ys = torch.empty((b, seg, nib), dtype=torch.complex64, device=dev)
+    dc = torch.empty((b, 2, seg), dtype=torch.float32, device=dev)
     with device_guard(dev):
         lib, stream = launch_context(dev)
         code = lib.bf_mega_stream(
@@ -195,8 +239,8 @@ def mega_stream(x: torch.Tensor, tail: torch.Tensor, out_prev: torch.Tensor,
             hist.data_ptr(), ctrl.data_ptr(), idx.data_ptr(), ib.data_ptr(),
             win.data_ptr(), tw.data_ptr(), ptw.data_ptr(), out.data_ptr(),
             new_prev.data_ptr(), new_hist.data_ptr(), ring.data_ptr(),
-            ys.data_ptr(), dc.data_ptr(), m, t, hop, nib, w, u, s_cap, seg,
-            float(mag_threshold), int(refine), int(lcmv), stream)
+            ys.data_ptr(), dc.data_ptr(), b, m, t, hop, nib, w, u, s_cap,
+            seg, float(mag_threshold), int(refine), int(lcmv), stream)
     check(lib, code, "mega_stream")
     mega_stream.launches += 1
     return out, new_hist, new_prev
@@ -206,7 +250,7 @@ mega_stream.launches = 0
 
 
 def _empty_step(hist, out_prev):
-    return (out_prev.new_zeros((0,)), hist, out_prev)
+    return (out_prev.new_zeros(out_prev.shape[:-1] + (0,)), hist, out_prev)
 
 
 def mvdr_mega(x, tail, out_prev, hist, d_ib, w_idx, ib, nfft: int,
@@ -215,9 +259,10 @@ def mvdr_mega(x, tail, out_prev, hist, d_ib, w_idx, ib, nfft: int,
     x (M, S) audio, S a multiple of hop; tail (M, hop); out_prev (hop,);
     hist (W, M, NIB) complex history; d_ib (U, M, NIB) steering over the
     in-band bins ``ib``; w_idx (T,) steering index per frame. Returns
-    (audio (S,), hist', out_prev')."""
+    (audio (S,), hist', out_prev'). B streams take a leading stream axis
+    on x, tail, out_prev, hist and w_idx, and on the results."""
     _check_shape(x, tail, hist, nfft, w_hist)
-    if x.shape[1] < nfft // 2:           # no whole hop: nothing to march
+    if x.shape[-1] < nfft // 2:          # no whole hop: nothing to march
         return _empty_step(hist, out_prev)
     return mega_stream(x, tail, out_prev, hist, d_ib[:, None].contiguous(),
                        w_idx, ib, mag_threshold, refine, lcmv=False)
@@ -229,17 +274,17 @@ def lcmv_mega(x, tail, out_prev, hist, c_ib, idx, ib, nfft: int,
     constraint sets (inactive slots all zero, found per bin) and idx (T,)
     the control row per frame."""
     _check_shape(x, tail, hist, nfft, w_hist)
-    if x.shape[1] < nfft // 2:
+    if x.shape[-1] < nfft // 2:
         return _empty_step(hist, out_prev)
     return mega_stream(x, tail, out_prev, hist, c_ib, idx, ib,
                        mag_threshold, refine, lcmv=True)
 
 
 def _check_shape(x, tail, hist, nfft: int, w_hist: int):
-    if tail.shape[-1] != nfft // 2 or hist.shape[0] != w_hist:
+    if tail.shape[-1] != nfft // 2 or hist.shape[-3] != w_hist:
         raise ValueError(f"nfft {nfft} / past_windows {w_hist} disagree with "
                          f"tail {tuple(tail.shape)} / hist "
                          f"{tuple(hist.shape)}")
-    if x.shape[1] % (nfft // 2):
-        raise ValueError(f"x length {x.shape[1]} is not a multiple of hop "
+    if x.shape[-1] % (nfft // 2):
+        raise ValueError(f"x length {x.shape[-1]} is not a multiple of hop "
                          f"{nfft // 2}")

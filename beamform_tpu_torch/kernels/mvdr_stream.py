@@ -17,6 +17,12 @@ bin) rather than per frame; the gated outputs are the same. Each window
 sum is computed directly, so a chunk's output does not depend on where
 the chunk starts.
 
+Streams: one launch serves B streams (the kernel's grid carries a stream
+index). The spectra are then (T, B, M, NB), the analysis output of all
+B * M channels, and hist, the steering index, the gate and the output
+gain a leading stream axis; the steering d is shared. The single-stream
+form is B = 1 of the same kernel.
+
 Routing: a CPU tensor takes the plain version (float32 or float64); a CUDA
 tensor launches the kernel or raises. ``mvdr_stream.launches`` counts
 launches.
@@ -38,6 +44,8 @@ MAX_MICS, MAX_SLOTS = 32, 16
 _TILE_FRAMES, _TILE_BINS, MAX_SMEM, _THREADS = 32, 8, 232448, 256
 #: problems per plain-version batch (bounds its memory on the card)
 _PLAIN_CHUNK = 1 << 16
+#: streams one launch takes (the grid's z extent)
+MAX_STREAMS = 65535
 
 
 def _lanes(n: int) -> int:
@@ -124,7 +132,15 @@ def mvdr_stream_plain(x: torch.Tensor, hist: torch.Tensor, d: torch.Tensor,
     gate  (T, NIB) bool energy gate; ib (NIB,) int bins of x in the band
     -> y  (T, NIB): the MVDR output where the gate passes, 0.01 * x[:, 0]
     where it fails.
+
+    With a stream axis (x (T, B, M, NB), hist (B, W, M, NIB), w_idx
+    (B, T), gate (B, T, NIB)) -> y (B, T, NIB): each stream's plain
+    version, stacked.
     """
+    if x.dim() == 4:
+        return torch.stack([
+            mvdr_stream_plain(x[:, b], hist[b], d, w_idx[b], gate[b], ib)
+            for b in range(x.shape[1])])
     x_ib, batches = gated_problems(x, hist, gate, ib)
     y = 0.01 * x_ib[:, 0, :]
     for t, b, r in batches:
@@ -140,36 +156,41 @@ def mvdr_stream(x: torch.Tensor, hist: torch.Tensor, d: torch.Tensor,
                 w_idx: torch.Tensor, gate: torch.Tensor,
                 ib: torch.Tensor) -> torch.Tensor:
     """Streaming MVDR solve; see :func:`mvdr_stream_plain` for the
-    contract. On CUDA: complex64 x, hist and d, int64 w_idx and ib, bool
-    gate, all contiguous, within :func:`stream_fits`. The kernel checks the
-    index tensors' bounds itself, so the call never synchronises: an index
-    out of range gives NaN where the plain version raises."""
+    contract, with or without a stream axis: one launch either way. On
+    CUDA: complex64 x, hist and d, int64 w_idx and ib, bool gate, all
+    contiguous, within :func:`stream_fits` and at most
+    :data:`MAX_STREAMS` streams. The kernel checks the index tensors'
+    bounds itself, so the call never synchronises: an index out of range
+    gives NaN where the plain version raises."""
     if not x.is_cuda:
         return mvdr_stream_plain(x, hist, d, w_idx, gate, ib)
-    t, m, nb = x.shape
-    w, _, nib = hist.shape
+    t, m, nb = x.shape[0], x.shape[-2], x.shape[-1]
+    lead = tuple(x.shape[1:-2])             # (B,), or () for one stream
+    b = lead[0] if lead else 1
+    w, nib = hist.shape[-3], hist.shape[-1]
     u = d.shape[0]
-    if t == 0 or w == 0 or nib == 0:
-        raise ValueError(f"empty chunk, history or band: T={t}, W={w}, "
-                         f"NIB={nib}")
+    if t == 0 or w == 0 or nib == 0 or not 1 <= b <= MAX_STREAMS:
+        raise ValueError(f"empty chunk, history or band, or streams "
+                         f"outside 1..{MAX_STREAMS}: T={t}, W={w}, "
+                         f"NIB={nib}, B={b}")
     if not stream_fits(m, w):
         raise ValueError(f"the CUDA MVDR stream kernel takes M <= "
                          f"{MAX_MICS} and a tile within {MAX_SMEM} bytes "
                          f"of shared memory, got M={m}, W={w}")
     dev = x.device
-    check_tensor(x, "x", torch.complex64, (t, m, nb), dev)
-    check_tensor(hist, "hist", torch.complex64, (w, m, nib), dev)
+    check_tensor(x, "x", torch.complex64, (t,) + lead + (m, nb), dev)
+    check_tensor(hist, "hist", torch.complex64, lead + (w, m, nib), dev)
     check_tensor(d, "d", torch.complex64, (u, m, nib), dev)
-    check_tensor(w_idx, "w_idx", torch.int64, (t,), dev)
-    check_tensor(gate, "gate", torch.bool, (t, nib), dev)
+    check_tensor(w_idx, "w_idx", torch.int64, lead + (t,), dev)
+    check_tensor(gate, "gate", torch.bool, lead + (t, nib), dev)
     check_tensor(ib, "ib", torch.int64, (nib,), dev)
-    y = torch.empty((t, nib), dtype=torch.complex64, device=dev)
+    y = torch.empty(lead + (t, nib), dtype=torch.complex64, device=dev)
     with device_guard(dev):
         lib, stream = launch_context(dev)
         code = lib.bf_mvdr_stream(
             x.data_ptr(), ib.data_ptr(), hist.data_ptr(), d.data_ptr(),
-            w_idx.data_ptr(), gate.data_ptr(), y.data_ptr(), t, m, nb, nib,
-            w, u, stream)
+            w_idx.data_ptr(), gate.data_ptr(), y.data_ptr(), b, t, m, nb,
+            nib, w, u, stream)
     check(lib, code, "mvdr_stream")
     mvdr_stream.launches += 1
     return y

@@ -1,7 +1,22 @@
-"""Per-chunk control plumbing shared by the models (the part of
-``beamform_tpu/models/batching.py`` that single-stream models need; the
-multi-stream batching protocol, ``batch_controls`` included, is queued in
-ROADMAP.md §1)."""
+"""Per-chunk control plumbing and the declared multi-stream batching
+protocol (counterpart of ``beamform_tpu/models/batching.py``).
+
+Every model declares how it serves B streams at once, so that
+``runtime/batch.BatchRunner`` never reaches into model privates:
+
+* ``batch_axes``: for each control argument of ``_forward`` between ``x``
+  and ``state``, 0 when it has a leading stream axis, None when the
+  streams share it;
+* ``batch_controls(thetas_bt, interference=None)``: those control
+  arguments from per-stream ``(B, T)`` theta timelines;
+* ``batched_forward(x, ctrl, state)``: the batched step, x (B, M, S) ->
+  ((B, S) output, new state). Models whose kernels take a stream axis
+  (DAS, MVDR, LCMV, GSS, GSC) override it to serve every stream in one
+  launch of each kernel; the default runs ``_forward`` once per stream;
+* ``batched_state_init(batch)``: ``stream_init()`` stacked with a leading
+  B, leaves in the JAX package's order, so states convert between the two
+  (``convert.state_from_jax``).
+"""
 
 from __future__ import annotations
 
@@ -9,6 +24,7 @@ from collections import OrderedDict
 
 import numpy as np
 import torch
+from torch.utils import _pytree as pytree
 
 from beamform_tpu_torch.models import common
 from beamform_tpu_torch.runtime.timeline import (InterferenceTimeline,
@@ -19,7 +35,16 @@ CTRL_CACHE_SIZE = 16
 
 
 class BatchableModel:
-    """Mixin for carry-style models with ``rdtype`` and a ``device``."""
+    """Mixin for carry-style models with ``rdtype``, a ``device``,
+    ``stream_init()`` and ``_forward(x, *controls, state)``."""
+
+    #: control args of ``_forward`` between x and state: unique thetas
+    #: shared, the per-frame index per stream
+    batch_axes = (None, 0)
+    #: whether ``batched_forward`` takes a per-stream constant steering as
+    #: a (B, 1) index, which broadcasts instead of gathering a (B, T, M, NB)
+    #: weight tensor
+    collapse_constant_steering = False
 
     def _cached(self, key, builder):
         """Small LRU memo of device-resident control tensors, so a stream
@@ -49,6 +74,70 @@ class BatchableModel:
 
         return self._cached(key, build)
 
+    def batch_controls(self, thetas_bt, interference=None):
+        """(B, T) per-stream theta timelines -> the ``_forward`` controls:
+        (unique thetas (U,) in ``rdtype``, per-(stream, frame) index (B, T)
+        int64; (B, 1) for one steering a stream where the model has
+        ``collapse_constant_steering``, found on the host), on the model's
+        device and cached like ``_theta_ctrl``."""
+        if interference is not None:
+            raise ValueError(
+                f"{type(self).__name__} takes no interference timeline")
+        th = np.asarray(thetas_bt, np.float64)
+        key = ("thb", th.tobytes(), th.shape)
+
+        def build():
+            uniq, idx = unique_thetas_bt(th)
+            if (self.collapse_constant_steering
+                    and (idx == idx[:, :1]).all()):
+                idx = idx[:, :1]
+            return (torch.as_tensor(uniq, dtype=self.rdtype,
+                                    device=self.device),
+                    torch.as_tensor(idx, device=self.device))
+
+        return self._cached(key, build)
+
+    @torch.no_grad()
+    def batched_forward(self, x, ctrl, state):
+        """One batched step: x (B, M, S), ctrl from :meth:`batch_controls`,
+        state from :meth:`batched_state_init` -> ((B, S) output, new
+        state). The default runs ``_forward`` on each stream in turn, with
+        its slice of the per-stream controls (``batch_axes``), and stacks
+        the outputs and states: every kernel of the model then launches
+        once per stream. Models whose kernels take a stream axis override
+        it."""
+        outs, states = [], []
+        for b in range(x.shape[0]):
+            args = [c if ax is None else c[b]
+                    for c, ax in zip(ctrl, self.batch_axes)]
+            st = pytree.tree_map(lambda a, b=b: a[b], state)
+            out, st = self._forward(x[b], *args, st)
+            outs.append(out)
+            states.append(st)
+        return torch.stack(outs), stack_states(states)
+
+    def batched_state_init(self, batch: int):
+        """``stream_init()`` with a leading stream axis on every leaf
+        (contiguous copies, which the kernels take)."""
+        return stack_states([self.stream_init()] * batch)
+
+
+def stack_states(states):
+    """Per-stream states of one structure -> one state whose leaves stack
+    them on a leading axis."""
+    leaves = [pytree.tree_flatten(s)[0] for s in states]
+    spec = pytree.tree_flatten(states[0])[1]
+    return pytree.tree_unflatten([torch.stack(ls) for ls in zip(*leaves)],
+                                 spec)
+
+
+def unique_thetas_bt(thetas_bt):
+    """(B, T) theta timelines -> (unique thetas (U,) float64, per-(stream,
+    frame) index (B, T) int64)."""
+    th = np.asarray(thetas_bt, dtype=np.float64)
+    uniq, idx = common.unique_thetas(th.ravel())
+    return uniq, idx.reshape(th.shape)
+
 
 class BatchableConstrainedModel(BatchableModel):
     """Control rows of the interference-constrained models (LCMV, GSS): a
@@ -57,7 +146,11 @@ class BatchableConstrainedModel(BatchableModel):
     timeline and each frame's row index, and turns the rows into its device
     constants with ``_control_tensors``. A model with a ``capacity``
     attribute (GSS: its state holds that many interference slots) keeps
-    every slot; the others drop the slots no row uses."""
+    every slot; the others drop the slots no row uses.
+
+    Batched serving shares one static interference set (one array design,
+    many recordings): the unique (theta, interference) control rows are
+    shared, the per-frame row index is per stream."""
 
     def _interf_ctrl(self, theta, t: int, interference=None):
         """(``self._control_tensors(theta (U,), angles (U, K), active
@@ -106,6 +199,36 @@ class BatchableConstrainedModel(BatchableModel):
                                     device=self.device),
                     torch.as_tensor(np.asarray(tl.reset, bool),
                                     device=self.device))
+
+        return self._cached(key, build)
+
+    def batch_controls(self, thetas_bt, interference=None):
+        """(B, T) per-stream theta timelines -> (the control tensors of the
+        unique thetas under the static interference set, the per-(stream,
+        frame) row index (B, T) int64), cached by the timelines."""
+        if interference is not None:
+            raise ValueError(
+                "batched serving shares one static interference set; replay "
+                "per-stream event timelines through per-stream sessions")
+        th = np.asarray(thetas_bt, np.float64)
+        capacity = getattr(self, "capacity", None)
+        key = ("ctrlb", th.tobytes(), th.shape, capacity)
+
+        def build():
+            uniq, idx = unique_thetas_bt(th)
+            tl = static_interference(len(uniq), self.interf,
+                                     capacity=capacity)
+            ang, act = tl.angles, tl.active
+            if capacity is None:
+                ang, act = trim_inactive_slots(ang, act)
+
+            def dev(a):
+                return torch.as_tensor(np.asarray(a, np.float64),
+                                       dtype=self.rdtype, device=self.device)
+
+            return (self._control_tensors(dev(uniq), dev(ang), dev(act),
+                                          dev(tl.row0)),
+                    torch.as_tensor(idx, device=self.device))
 
         return self._cached(key, build)
 

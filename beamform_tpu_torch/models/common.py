@@ -135,6 +135,33 @@ def stft_ext_carry_mag(x: torch.Tensor, engine: EngineConfig,
     return spec, mag_mean_over_mics(spec, engine.fft_win), new_tail
 
 
+def stft_streams_carry(x: torch.Tensor, engine: EngineConfig,
+                       window: torch.Tensor, cdtype, tail: torch.Tensor,
+                       with_mag: bool = False):
+    """Analysis of B streams at once: x (B, M, C*hop) + tail (B, M, hop) ->
+    ((T, B, M, NB) spectra, the gate statistic of each stream (T, B, NB)
+    or None, new tail (B, M, hop)). The B*M channels go through one
+    analysis: on CUDA one launch of the kernel, each stream's statistic in
+    the same launch."""
+    b, m, s = x.shape
+    hop = engine.hop
+    xf, tf = x.reshape(b * m, s), tail.reshape(b * m, hop)
+    mag = None
+    if x.is_cuda:
+        _require_kernel_layout(engine)
+        spec, mag, new_tail = wola_analysis(xf.contiguous(), tf.contiguous(),
+                                            with_mag=with_mag, streams=b)
+    else:
+        frames, new_tail = frame_signal_carry(xf, hop, tf)
+        spec = _analysis_bins(frames * window, engine, cdtype).movedim(0, 1)
+    t = spec.shape[0]
+    spec = spec.reshape(t, b, m, spec.shape[-1])
+    if with_mag:
+        mag = (mag_mean_over_mics(spec, engine.fft_win) if mag is None
+               else mag.view(t, b, -1))
+    return spec, mag, new_tail.reshape(b, m, hop)
+
+
 def istft_ext_carry(y_ext: torch.Tensor, engine: EngineConfig,
                     window: torch.Tensor, out_prev: torch.Tensor):
     """Streaming synthesis: (T, NB) + out_prev (hop,) -> ((T*hop,) stream,

@@ -7,6 +7,11 @@ Counterpart of ``beamform_tpu/models/das.py``. On CUDA the WOLA analysis and
 synthesis run in the hand-written kernels (``kernels/wola.py``); the
 weight-and-sum over mics stays plain torch, as the JAX package leaves it to
 XLA outside any Pallas kernel. Streaming state is the WOLA boundary carry.
+
+Batched serving (:meth:`DasModel.batched_forward`) flattens the (B, M)
+channels through one analysis launch and synthesises the B outputs in one
+synthesis launch, steering per (stream, frame); one steering a stream
+broadcasts.
 """
 
 from __future__ import annotations
@@ -22,6 +27,7 @@ from beamform_tpu_torch.models.batching import BatchableModel
 
 class DasModel(BatchableModel, nn.Module):
     name = "das"
+    collapse_constant_steering = True
 
     def __init__(self, engine: EngineConfig, geom: ArrayGeometry,
                  params: DasParams = DasParams(), device="cuda"):
@@ -56,6 +62,23 @@ class DasModel(BatchableModel, nn.Module):
         y = (w.conj() * spec).sum(dim=1) / m               # (T, NB)
         out, prev = common.istft_ext_carry(y, self.engine, self.window,
                                            carry.out_prev)
+        return out, common.WolaCarry(tail, prev)
+
+    @torch.no_grad()
+    def batched_forward(self, x, ctrl, state: common.WolaCarry):
+        """x (B, M, T*hop), (unique thetas (U,), index (B, T) or (B, 1)),
+        carries with a leading B -> ((B, T*hop) output, new carries), as
+        JAX ``das.py:_forward_batched``."""
+        thetas, idx = ctrl
+        w_uniq = common.weights_for_thetas(self.geom, self.freqs, thetas,
+                                           self.rdtype, self.cdtype)
+        spec, _, tail = common.stft_streams_carry(
+            x, self.engine, self.window, self.cdtype, state.tail)
+        m = spec.shape[2]                                  # (T, B, M, NB)
+        w = w_uniq[idx]                                    # (B, T|1, M, NB)
+        y = (w.conj() * spec.movedim(0, 1)).sum(dim=2) / m  # (B, T, NB)
+        out, prev = common.istft_channels_carry(y, self.engine, self.window,
+                                                state.out_prev)
         return out, common.WolaCarry(tail, prev)
 
     @torch.no_grad()

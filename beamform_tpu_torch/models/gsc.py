@@ -26,6 +26,11 @@ reference's mean-mu trace (gsc.cpp:181-184) to ``mu_file_path``.
 Streaming state: ``(WolaCarry(tail (M, hop), out_prev (M, hop)),
 GscState)``, the JAX package's leaves in its order, so ``.npz`` checkpoints
 move between the packages.
+
+Batched serving (:meth:`GscModel.batched_forward`, JAX ``gsc.py:248-340``)
+runs stage 1 on the flattened (B, M) channels, one analysis and one
+synthesis launch, and the adaptive stage on the B streams in one launch of
+its kernel; it writes no mu trace.
 """
 
 from __future__ import annotations
@@ -114,6 +119,7 @@ def gsc_sample_step(state: GscState, a_t, p: GscParams,
 
 class GscModel(BatchableModel, nn.Module):
     name = "gsc"
+    collapse_constant_steering = True
 
     def __init__(self, engine: EngineConfig, geom: ArrayGeometry,
                  params: GscParams = GscParams(), device="cuda"):
@@ -207,29 +213,63 @@ class GscModel(BatchableModel, nn.Module):
         (mu of channel 0, update flags), each (T*hop,), or None)."""
         carry, gs = state
         aligned, carry = self.aligned_streams(x, w_conj, w_idx, carry)
+        out, gs, trace = self._adaptive(
+            aligned[None], GscState(*(a[None] for a in gs)),
+            self.params.write_mu)
+        return out[0], (carry, GscState(*(a[0] for a in gs))), trace
+
+    def _adaptive(self, aligned, gs: GscState, with_mu: bool):
+        """Stage 2 on B streams in one launch: aligned (B, M, S), state
+        leaves with a leading B -> ((B, S) output, new state, stream 0's mu
+        trace when ``with_mu`` and the route is the per-sample one, else
+        None)."""
         strategy = self._strategy(aligned.shape[-1])
-        args = (aligned[None], gs.block[None], gs.filt[None],
-                gs.last_out[None], self.params)
+        args = (aligned, gs.block, gs.filt, gs.last_out, self.params)
         trace = None
         if strategy == "block":
             out, blk, flt, lo, gram, uold = gsc_block(
-                *args[:4], gs.gram[None], gs.uold[None], self.params)
-            return (out[0], (carry, GscState(blk[0], flt[0], lo[0], gram[0],
-                                             uold[0])), None)
+                *args[:4], gs.gram, gs.uold, self.params)
+            return out, GscState(blk, flt, lo, gram, uold), None
         if strategy == "blocklms":
             out, blk, flt, lo = gsc_blocklms(*args)
         elif strategy == "xmu":
             out, blk, flt, lo = gsc_xmu(*args)
-        elif self.params.write_mu:
+        elif with_mu:
             out, blk, flt, lo, (mu0, upd) = gsc_sample(*args, with_mu=True)
             trace = (mu0[0], upd[0])
         else:
             out, blk, flt, lo = gsc_sample(*args)
         k = self.params.filter_size
-        tail = aligned[:, -(k + 9):]
-        gram, uold = gram_refresh(gs.block, gs.uold, tail[1:] - tail[:-1], k)
-        return (out[0], (carry, GscState(blk[0], flt[0], lo[0], gram, uold)),
-                trace)
+        tail = aligned[..., -(k + 9):]
+        gram, uold = gram_refresh(gs.block, gs.uold,
+                                  tail[..., 1:, :] - tail[..., :-1, :], k)
+        return out, GscState(blk, flt, lo, gram, uold), trace
+
+    @torch.no_grad()
+    def batched_forward(self, x, ctrl, state):
+        """x (B, M, T*hop), (unique thetas (U,), index (B, T) or (B, 1)),
+        state leaves with a leading B -> ((B, T*hop) output, new state).
+        Stage 1 on the B*M channels in one analysis and one synthesis
+        launch, steered per (stream, frame); stage 2 in one launch of the
+        solver's kernel; no mu trace (JAX ``gsc.py:_forward_batched``)."""
+        thetas, idx = ctrl
+        carry, gs = state
+        b, m, s = x.shape
+        hop = self.engine.hop
+        t = s // hop
+        if t == 0:
+            return x.new_zeros((b, 0)), state
+        w_conj = common.weights_for_thetas(
+            self.geom, self.freqs, thetas, self.rdtype,
+            self.cdtype).conj().resolve_conj()
+        spec, _, tail = common.stft_streams_carry(
+            x, self.engine, self.window, self.cdtype, carry.tail)
+        aligned_spec = (spec.movedim(0, 1) * w_conj[idx]).movedim(1, 2)
+        streams, prev = common.istft_channels_carry(
+            aligned_spec.reshape(b * m, t, -1), self.engine, self.window,
+            carry.out_prev.reshape(b * m, hop))
+        out, gs, _ = self._adaptive(streams.reshape(b, m, -1), gs, False)
+        return out, (common.WolaCarry(tail, prev.reshape(b, m, hop)), gs)
 
     @torch.no_grad()
     def process_chunk(self, x_chunk, theta, state):

@@ -26,7 +26,8 @@ its MVDR form); ``dense`` the block pipeline with the Gauss-Jordan inverse
 no row of a chunk activates are dropped before any of them
 (``models/batching.trim_inactive_slots``). Streaming
 state is MVDR's ``(WolaCarry, hist)``, so checkpoints move between the two
-packages.
+packages. Batched serving is MVDR's: the B streams share the control rows
+(one static interference set) and each has its row index.
 """
 
 from __future__ import annotations
@@ -89,6 +90,8 @@ def build_constraints_masked(geom: ArrayGeometry, freqs: torch.Tensor,
 
 class LcmvModel(BatchableConstrainedModel, MvdrModel):
     name = "lcmv"
+    #: constraints and inactive slots shared, the row index per stream
+    batch_axes = (None, None, 0)
 
     def __init__(self, engine: EngineConfig, geom: ArrayGeometry,
                  params: LcmvParams = LcmvParams(), interference_angles=(),
@@ -125,6 +128,30 @@ class LcmvModel(BatchableConstrainedModel, MvdrModel):
                                          inact[idx[sl]][:, None, :]))
 
         return self._gated_forward(x, state, solve)
+
+    def batch_controls(self, thetas_bt, interference=None):
+        """(B, T) theta timelines -> (constraints (U, S, M, NIB), inactive
+        slots (U, S), row index (B, T)) under the static interference
+        set."""
+        (c_k, inact), idx = super().batch_controls(thetas_bt, interference)
+        return c_k, inact, idx
+
+    @torch.no_grad()
+    def batched_forward(self, x, ctrl, state):
+        """x (B, M, T*hop), the controls of :meth:`batch_controls`, state
+        with a leading B -> ((B, T*hop) output, new state): ``stream`` and
+        ``mega`` in one launch of each kernel for the B streams, ``dense``
+        once per stream."""
+        c_k, _, idx = ctrl
+        strategy = self._strategy(c_k.shape[1])
+        if strategy == "dense":
+            return BatchableConstrainedModel.batched_forward(self, x, ctrl,
+                                                             state)
+        if strategy == "mega":
+            return self._forward_mega(lcmv_mega, x, c_k, idx, state)
+        return self._gated_forward_batched(
+            x, state, lambda spec, hist0, gate: lcmv_stream(
+                spec, hist0, c_k, idx, gate, self.ib))
 
     @torch.no_grad()
     def process_chunk(self, x_chunk, theta, state, interference=None):

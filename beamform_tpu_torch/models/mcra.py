@@ -84,8 +84,9 @@ class McraModel(BatchableModel, nn.Module):
                 mcra_init_state(common.num_bins(self.engine), self.rdtype,
                                 self.device))
 
-    def _forward(self, x, state):
-        """x (M, T*hop) -> ((T*hop,) output, new state); mic 0 only."""
+    def _forward(self, x, thetas, w_idx, state):
+        """x (M, T*hop) -> ((T*hop,) output, new state); mic 0 only. The
+        steering controls are unused: mcra has no steering (mcra.cpp)."""
         carry, mstate = state
         spec, tail = common.stft_ext_carry(x[:1], self.engine, self.window,
                                            self.cdtype, carry.tail)
@@ -104,7 +105,7 @@ class McraModel(BatchableModel, nn.Module):
         ``theta`` is ignored: mcra has no steering (mcra.cpp)."""
         del theta
         x = torch.as_tensor(x_chunk).to(device=self.device, dtype=self.rdtype)
-        return self._forward(x, state)
+        return self._forward(x, None, None, state)
 
     def process(self, x, theta=0.0) -> torch.Tensor:
         """x: (M, S) -> (S',), S' = S rounded up to a hop multiple."""

@@ -28,6 +28,13 @@ Streaming state is ``(WolaCarry, hist)``: hist is the (W, M, NIB) complex
 history of in-band spectra, as in the JAX package, so checkpoints move
 between the two. Singular cold-start covariances give non-finite weights,
 like the reference; parity scenes keep the first W hops below the gate.
+
+Batched serving (:meth:`MvdrModel.batched_forward`): ``stream`` and
+``mega`` serve the B streams in one launch of each kernel (the analysis of
+the B*M channels with each stream's gate statistic, the stream solve, the
+synthesis of the B outputs; or the fused kernel), the kernels a single
+stream runs at B = 1. ``dense`` runs once per stream (the protocol's
+default).
 """
 
 from __future__ import annotations
@@ -197,12 +204,16 @@ class MvdrModel(BatchableModel, nn.Module):
                                       s_cap=s_cap, ib=self.ib_host,
                                       nfft=self.engine.fft_win)
 
+    def _steering_ib(self, thetas):
+        """(U, M, NIB) steering of the unique thetas over the band."""
+        w_uniq = common.weights_for_thetas(self.geom, self.freqs, thetas,
+                                           self.rdtype, self.cdtype)
+        return w_uniq.index_select(2, self.ib)
+
     def _forward(self, x, thetas, w_idx, state):
         """x (M, T*hop), unique thetas (U,), per-frame index (T,) ->
         ((T*hop,) output, new state)."""
-        w_uniq = common.weights_for_thetas(self.geom, self.freqs, thetas,
-                                           self.rdtype, self.cdtype)
-        d_ib = w_uniq.index_select(2, self.ib)              # (U, M, NIB)
+        d_ib = self._steering_ib(thetas)                    # (U, M, NIB)
         strategy = self._strategy()
         if strategy == "mega":
             return self._forward_mega(mvdr_mega, x, d_ib, w_idx, state)
@@ -216,19 +227,38 @@ class MvdrModel(BatchableModel, nn.Module):
 
         return self._gated_forward(x, state, solve)
 
+    @torch.no_grad()
+    def batched_forward(self, x, ctrl, state):
+        """x (B, M, T*hop), (unique thetas (U,), index (B, T)), state with
+        a leading B -> ((B, T*hop) output, new state): ``stream`` and
+        ``mega`` in one launch of each kernel for the B streams, ``dense``
+        once per stream."""
+        thetas, idx = ctrl
+        strategy = self._strategy()
+        if strategy == "dense":
+            return super().batched_forward(x, ctrl, state)
+        d_ib = self._steering_ib(thetas)
+        if strategy == "mega":
+            return self._forward_mega(mvdr_mega, x, d_ib, idx, state)
+        return self._gated_forward_batched(
+            x, state, lambda spec, hist0, gate: mvdr_stream(
+                spec, hist0, d_ib, idx, gate, self.ib))
+
     def _forward_mega(self, fused, x, ctrl, idx, state):
         """The fused path (``fused`` is ``mvdr_mega`` or ``lcmv_mega``): raw
         audio in, beamformed audio out in one kernel launch, as
-        ``beamform_tpu/models/mvdr.py:_forward_mega``. A chunk shorter than
-        a hop marches nothing and keeps the carried tail."""
+        ``beamform_tpu/models/mvdr.py:_forward_mega``; one stream (x (M,
+        T*hop), idx (T,)) or B (x (B, M, T*hop), idx (B, T), the state with
+        a leading B). A chunk shorter than a hop marches nothing and keeps
+        the carried tail."""
         p = self.params
         carry, hist0 = state
         audio, hist, prev = fused(
             x.contiguous(), carry.tail, carry.out_prev, hist0, ctrl, idx,
             self.ib, self.engine.fft_win, p.past_windows,
             p.freq_mag_threshold)
-        tail = (carry.tail if x.shape[1] < self.engine.hop
-                else x[:, -self.engine.hop:].contiguous())
+        tail = (carry.tail if x.shape[-1] < self.engine.hop
+                else x[..., -self.engine.hop:].contiguous())
         return audio * p.out_amp, (common.WolaCarry(tail, prev), hist)
 
     def _gated_forward(self, x, state, solve):
@@ -255,6 +285,36 @@ class MvdrModel(BatchableModel, nn.Module):
         y[:, 0] = spec[:, 0, 0]                               # mvdr.cpp:76
         out, prev = common.istft_ext_carry(y, self.engine, self.window,
                                            carry.out_prev)
+        return out * p.out_amp, (common.WolaCarry(tail, prev), hist)
+
+    def _gated_forward_batched(self, x, state, solve):
+        """:meth:`_gated_forward` on B streams: analysis of the B*M channels
+        with each stream's gate statistic in one launch, ``solve(spec (T, B,
+        M, NB), hist0 (B, W, M, NIB), gate (B, T, NIB)) -> (B, T, NIB)``,
+        the history update, bin 0 passed through, one synthesis launch of
+        the B outputs. x (B, M, T*hop) -> ((B, T*hop) output, new state).
+        The single-stream pipeline stays apart: at B = 1 these reshapes
+        would cost each call host time that its launches wait for."""
+        p = self.params
+        carry, hist0 = state
+        spec, mag, tail = common.stft_streams_carry(
+            x, self.engine, self.window, self.cdtype, carry.tail,
+            with_mag=True)
+        gate = (mag.index_select(2, self.ib)
+                > p.freq_mag_threshold).transpose(0, 1).contiguous()
+        y_ib = solve(spec, hist0, gate)
+        # history: the last W in-band frames seen (mvdr.cpp:100-101)
+        t, b, w = spec.shape[0], spec.shape[1], p.past_windows
+        new = spec[max(t - w, 0):].index_select(3, self.ib).movedim(0, 1)
+        hist = (new.contiguous() if t >= w
+                else torch.cat([hist0[:, t:], new], dim=1))
+
+        y = torch.zeros((b, t, spec.shape[3]), dtype=self.cdtype,
+                        device=spec.device)                  # (B, T, NB)
+        y.index_copy_(2, self.ib, y_ib)
+        y[:, :, 0] = spec[:, :, 0, 0].T                       # mvdr.cpp:76
+        out, prev = common.istft_channels_carry(y, self.engine, self.window,
+                                                carry.out_prev)
         return out * p.out_amp, (common.WolaCarry(tail, prev), hist)
 
     def _solve_dense(self, x_ib, hist0, gate, weights):

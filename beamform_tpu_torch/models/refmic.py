@@ -58,6 +58,11 @@ class RefModel(BatchableModel, nn.Module):
         x = torch.as_tensor(x_chunk).to(device=self.device, dtype=self.rdtype)
         if x.dim() == 1:
             x = x[None, :]
+        return self._forward(x, None, None, state)
+
+    def _forward(self, x, thetas, w_idx, state: common.WolaCarry):
+        """x (M, T*hop) -> ((T*hop,) output, new state); the steering
+        controls are unused."""
         frames, tail = frame_signal_carry(x[0], self.engine.hop, state.tail)
         p = frames * self.window * self.window             # hann, no FFT
         out, prev = overlap_add_carry(p, self.engine.hop, state.out_prev)
@@ -95,6 +100,11 @@ class ReadModel(BatchableModel, nn.Module):
         ``theta`` is ignored (no steering, jack_read.cpp)."""
         del theta
         x = torch.as_tensor(x_chunk).to(device=self.device, dtype=self.rdtype)
+        return self._forward(x, None, None, state)
+
+    def _forward(self, x, thetas, w_idx, state: torch.Tensor):
+        """x (M, T*hop) -> ((T*hop,) output, the last pick); the steering
+        controls are unused."""
         h = self.engine.hop
         m, s = x.shape
         t = s // h

@@ -27,7 +27,11 @@ event timeline; the GSS node on the same scenes; the phase, phasempf and
 mcra nodes on noise and on a steered source; the GSC node's
 ``sample``, ``xmu``, ``blocklms``, ``block`` and ``write_mu`` paths on
 noise and speech; and the ``ref`` and ``read`` nodes on noise (with DAS
-against ``ref`` on the steered source). It checks each output
+against ``ref`` on the steered source). Last, batched serving through
+``BatchRunner`` at bench.py's bench_batched shape (8 streams, GSC 32, of
+10 s in 2 s chunks: DAS, MVDR and LCMV ``auto`` and ``mega``, GSS, GSC
+``sample`` and ``blocklms``), each stream against its single-stream run
+on the card, one launch of each kernel a chunk. It checks each output
 against the float64 CPU path, counts each path's own kernel launches, and
 measures each path's xRT and device time per call (CUDA events). Each
 phase logs ``phase <name>: start`` and ``phase <name>: ok`` and raises on
@@ -2148,6 +2152,261 @@ def phase_das_vs_ref(xsrc: np.ndarray):
         raise AssertionError(f"das vs ref correlation {corr}")
 
 
+# ------------------------------------------------------------ batched serving
+
+# bench.py's bench_batched: B streams of 10 s of 0.1 N(0, 1) from seed 2 at
+# thetas linspace(-60, 60, B), through the runner in 2 s chunks (93 hops)
+BATCH_SECONDS = 10.0
+BATCH_SEED = 2
+BATCH_CHUNK = 2 * FS // HOP * HOP
+# each stream of a batched path against the same model's single-stream run
+# on the card: bit for bit, or, where the fused kernels' overlap-add adds
+# with atomics (the first hop's three addends in another order), within
+# this of the stream's peak
+BATCH_PEAK_TOL = 1e-6
+# (label, node, preset overrides, static interferers, streams, bit for bit,
+# the kernels one chunk launches once)
+BATCH, GSC_BATCH = 8, 32
+BATCH_PATHS = (
+    ("das", "das", None, (), BATCH, True, ("wola_analysis",
+                                           "wola_synthesis")),
+    ("mvdr auto", "mvdr", {}, (), BATCH, True,
+     ("wola_analysis", "wola_synthesis", "mvdr_stream")),
+    ("mvdr mega", "mvdr", {"solver": "mega"}, (), BATCH, False,
+     ("mega_stream",)),
+    ("lcmv auto S=1", "lcmv", {}, (), BATCH, True,
+     ("wola_analysis", "wola_synthesis", "lcmv_stream")),
+    ("lcmv auto S=3", "lcmv", {}, INTERFERERS, BATCH, True,
+     ("wola_analysis", "wola_synthesis", "lcmv_stream")),
+    ("lcmv mega S=1", "lcmv", {"solver": "mega"}, (), BATCH, False,
+     ("mega_stream",)),
+    ("lcmv mega S=3", "lcmv", {"solver": "mega"}, INTERFERERS, BATCH, False,
+     ("mega_stream",)),
+    ("gss S=1", "gss", {}, (), BATCH, False, ("gss_stream",)),
+    ("gsc sample", "gsc", {"write_mu": False}, (), GSC_BATCH, True,
+     ("wola_analysis", "wola_synthesis", "gsc_sample")),
+    ("gsc blocklms", "gsc", {"write_mu": False, "solver": "blocklms"}, (),
+     GSC_BATCH, True, ("wola_analysis", "wola_synthesis", "gsc_blocklms")))
+
+
+def make_batch_input(b: int) -> np.ndarray:
+    """(B, 16, S) float32: bench_batched's streams, S the whole hops of
+    BATCH_SECONDS; stream 0 is the same for every B."""
+    rng = np.random.default_rng(BATCH_SEED)
+    s = int(BATCH_SECONDS * FS) // HOP * HOP
+    return 0.1 * rng.standard_normal((b, 16, s), dtype=np.float32)
+
+
+def checked_stream(b: int, interf) -> int:
+    """The stream a batched path holds to float64: stream 0, or where it
+    looks where a static interferer is (stream 0's -60 deg is one of
+    INTERFERERS: LCMV's constraint set is singular there and its output
+    NaN, in every package), the first stream that does not."""
+    return next(i for i, th in enumerate(np.linspace(-60.0, 60.0, b))
+                if th not in interf)
+
+
+def batch_reference(node: str, over, interf, b: int, hops: int):
+    """The float64 CPU path on the first ``hops`` hops of the first chunk
+    of :func:`checked_stream`, run in a worker process beside the card's
+    phases."""
+    import torch
+    from beamform_tpu_torch.models import get_model
+    torch.set_num_threads(2)
+    k = checked_stream(b, interf)
+    xk = make_batch_input(k + 1)[k, :, :hops * HOP]
+    params = None if over is None else preset(node, **over)
+    model = get_model(node, engine("float64"), aira16(interf), params,
+                      device="cpu")
+    return model.process(xk, np.linspace(-60.0, 60.0, b)[k]).numpy()
+
+
+def batch_refs(pool) -> dict:
+    """The pending float64 references of every batched path: the first
+    chunk, GSC's per-sample recurrence (a serial float64 loop) over its
+    first GSC_CHECK_HOPS hops."""
+    refs = {}
+    for label, node, over, interf, b, *_ in BATCH_PATHS:
+        hops = (GSC_CHECK_HOPS if label == "gsc sample"
+                else BATCH_CHUNK // HOP)
+        refs[label] = pool.apply_async(batch_reference,
+                                       (node, over, interf, b, hops))
+    return refs
+
+
+def same(a: np.ndarray, b: np.ndarray, exact: bool) -> str:
+    """'' when ``a`` equals ``b`` (NaN where it has NaN) bit for bit, or
+    within BATCH_PEAK_TOL of b's finite peak; else what differs."""
+    if exact:
+        return "" if np.array_equal(a, b, equal_nan=True) else \
+            f"differs (max {np.nanmax(np.abs(a - b)):.3e})"
+    fin = np.isfinite(b)
+    if not np.array_equal(np.isfinite(a), fin):
+        return "non-finite samples differ"
+    if not fin.any():
+        return ""
+    rel = float(np.abs(a[fin] - b[fin]).max() / np.abs(b[fin]).max())
+    return "" if rel <= BATCH_PEAK_TOL else f"{rel:.3e} of peak"
+
+
+def phase_batch(card: str, refs: dict):
+    """Batched multi-stream serving through BatchRunner on the card, as
+    bench.py's bench_batched shapes it: for each of BATCH_PATHS, 8 streams
+    (GSC 32) of 10 s in 2 s chunks. Checks: each chunk launches each
+    kernel of its path exactly once; each stream equals the same model's
+    single-stream streaming run on the card over the same chunks (bit for
+    bit, the fused kernels within BATCH_PEAK_TOL of the stream's peak);
+    stream 0's first chunk (:func:`checked_stream`) within DAS_ABS_TOL of
+    the float64 CPU path.
+    Logs the aggregate audio-seconds per second of a batched chunk against
+    B single-stream calls (CUDA events, median of 10 after 3 warm-ups; GSC
+    of 3 after 1), then times rows 3-6 at B = 8: one batched launch
+    against 8 single-stream launches."""
+    import torch
+    from beamform_tpu_torch.models import get_model
+    from beamform_tpu_torch.runtime.batch import BatchRunner
+    from beamform_tpu_torch.runtime.streaming import StreamingSession
+    inputs = {}
+    for label, node, over, interf, b, exact, kernels in BATCH_PATHS:
+        if b not in inputs:
+            inputs[b] = torch.as_tensor(make_batch_input(b), device=DEVICE)
+        xd = inputs[b]
+        n = xd.shape[-1] // BATCH_CHUNK
+        chunks = [xd[..., i * BATCH_CHUNK:(i + 1) * BATCH_CHUNK].contiguous()
+                  for i in range(n)]
+        thetas = np.linspace(-60.0, 60.0, b)
+        params = None if over is None else preset(node, **over)
+        cfg = aira16(interf)
+        runner = BatchRunner(node, engine(), cfg, params, batch=b,
+                             device=DEVICE)
+        outs = []
+        want = {k: int(k in kernels) for k in counters()}
+        for c in chunks:
+            reset_launches()
+            outs.append(runner.process(c, thetas))
+            got = read_launches()
+            if got != want:
+                raise AssertionError(f"batch {label}: a chunk's launches "
+                                     f"{got}, expected {want}")
+        y = torch.cat(outs, dim=1).cpu().numpy()
+        # each stream against its single-stream streaming run
+        model = get_model(node, engine(), cfg, params, device=DEVICE)
+        for i in range(b):
+            sess = StreamingSession(model)
+            one = torch.cat([sess.process(c[i], float(thetas[i]))
+                             for c in chunks]).cpu().numpy()
+            why = same(y[i], one, exact)
+            if why:
+                raise AssertionError(f"batch {label}: stream {i} vs its "
+                                     f"single-stream run: {why}")
+        ref = refs[label].get()[:y.shape[1]]
+        k = checked_stream(b, interf)
+        check_scene(f"batch {label} stream {k}, first {len(ref) // HOP} "
+                    f"hops vs float64 CPU", y[k, :len(ref)], ref, len(ref),
+                    node in ("mvdr", "lcmv"))
+        # aggregate throughput: one batched chunk against B single calls
+        # (cuda_ms adds the last warm-up)
+        reps, warm = (3, 1) if node == "gsc" else (10, 3)
+        timer = BatchRunner(node, engine(), cfg, params, batch=b,
+                            device=DEVICE)
+        sessions = [StreamingSession(model) for _ in range(b)]
+
+        def singles():
+            for i, s in enumerate(sessions):
+                s.process(chunks[0][i], float(thetas[i]))
+
+        for _ in range(warm - 1):
+            timer.process(chunks[0], thetas)
+            singles()
+        t_b = cuda_ms(lambda: timer.process(chunks[0], thetas), reps)
+        t_s = cuda_ms(singles, reps)
+        audio = b * BATCH_CHUNK / FS
+        match = ("bit for bit" if exact
+                 else f"within {BATCH_PEAK_TOL:g} of its peak")
+        log(f"batch {label}, {b} streams, 2 s chunks: "
+            f"{1e3 * audio / t_b:.1f} audio-s/s batched ({t_b:.3f} ms a "
+            f"chunk) vs {1e3 * audio / t_s:.1f} as {b} single-stream calls "
+            f"({t_s:.3f} ms), x{t_s / t_b:.2f} (CUDA events, median of "
+            f"{reps}); one launch a chunk of {', '.join(kernels)}; each "
+            f"stream {match} of its single-stream run; on {card}")
+    batch_kernel_times(inputs[BATCH], card)
+
+
+def batch_kernel_times(xd, card: str):
+    """Rows 3-6 at B = 8 on the first chunk's operands (zero state, the
+    presets, thetas linspace(-60, 60, 8); LCMV with INTERFERERS, S = 3):
+    one batched launch against 8 single-stream launches, each through its
+    wrapper (cuda_ms), the single streams' operands made contiguous
+    beforehand."""
+    import torch
+    from beamform_tpu_torch.kernels import gss_stream as kgss
+    from beamform_tpu_torch.kernels import lcmv_stream as kl
+    from beamform_tpu_torch.kernels import mega_stream as kmega
+    from beamform_tpu_torch.kernels import mvdr_stream as km
+    from beamform_tpu_torch.models import common, get_model
+    b = xd.shape[0]
+    x = xd[..., :BATCH_CHUNK].contiguous()
+    t = BATCH_CHUNK // HOP
+    th = np.repeat(np.linspace(-60.0, 60.0, b)[:, None], t, axis=1)
+    mv = get_model("mvdr", engine(), aira16(), preset("mvdr"), device=DEVICE)
+    lc = get_model("lcmv", engine(), aira16(INTERFERERS), preset("lcmv"),
+                   device=DEVICE)
+    gs = get_model("gss", engine(), aira16(), preset("gss"), device=DEVICE)
+    m, w, ib = 16, mv.params.past_windows, mv.ib
+    tail = torch.zeros((b, m, HOP), device=DEVICE)
+    prev = torch.zeros((b, HOP), device=DEVICE)
+    spec, mag, _ = common.stft_streams_carry(x, mv.engine, mv.window,
+                                             mv.cdtype, tail, with_mag=True)
+    gate = (mag.index_select(2, ib) > mv.params.freq_mag_threshold
+            ).transpose(0, 1).contiguous()
+    hist = torch.zeros((b, w, m, len(ib)), dtype=torch.complex64,
+                       device=DEVICE)
+    uniq, idx = mv.batch_controls(th)
+    d_ib = mv._steering_ib(uniq)
+    c_k, _, lidx = lc.batch_controls(th)
+    (ah, _, _, bits), gidx, _ = gs.batch_controls(th)
+    w0 = torch.zeros((b, len(gs.ib), ah.shape[1], m), dtype=torch.complex64,
+                     device=DEVICE)
+    reset = torch.zeros((b, t), dtype=torch.bool, device=DEVICE)
+    reset[:, 0] = True
+    thr = mv.params.freq_mag_threshold
+    gp = gs.params
+    one = [dict(spec=spec[:, i].contiguous(), x=x[i], tail=tail[i],
+                prev=prev[i], hist=hist[i], idx=idx[i].contiguous(),
+                lidx=lidx[i].contiguous(), gidx=gidx[i].contiguous(),
+                gate=gate[i], w0=w0[i], reset=reset[i]) for i in range(b)]
+    rows = {
+        "row 3 mvdr_stream": (
+            lambda: km.mvdr_stream(spec, hist, d_ib, idx, gate, ib),
+            lambda o: km.mvdr_stream(o["spec"], o["hist"], d_ib, o["idx"],
+                                     o["gate"], ib)),
+        "row 5 lcmv_stream S=3": (
+            lambda: kl.lcmv_stream(spec, hist, c_k, lidx, gate, ib),
+            lambda o: kl.lcmv_stream(o["spec"], o["hist"], c_k, o["lidx"],
+                                     o["gate"], ib)),
+        "row 4 mega_stream MVDR": (
+            lambda: kmega.mvdr_mega(x, tail, prev, hist, d_ib, idx, ib,
+                                    2 * HOP, w, thr),
+            lambda o: kmega.mvdr_mega(o["x"], o["tail"], o["prev"],
+                                      o["hist"], d_ib, o["idx"], ib,
+                                      2 * HOP, w, thr)),
+        "row 6 gss_stream S=1": (
+            lambda: kgss.gss_mega(x, tail, prev, w0, ah, gidx, reset, gs.ib,
+                                  2 * HOP, gp.freq_mag_threshold, gp.mu,
+                                  gp.lam, act_bits=bits),
+            lambda o: kgss.gss_mega(o["x"], o["tail"], o["prev"], o["w0"],
+                                    ah, o["gidx"], o["reset"], gs.ib,
+                                    2 * HOP, gp.freq_mag_threshold, gp.mu,
+                                    gp.lam, act_bits=bits))}
+    for name, (batched, single) in rows.items():
+        t_b = cuda_ms(batched)
+        t_s = cuda_ms(lambda: [single(o) for o in one])
+        log(f"{name}, {b} streams x {t} frames x {len(ib)} bins, 16 mics: "
+            f"one batched launch {t_b:.4f} ms vs {b} single-stream launches "
+            f"{t_s:.4f} ms (x{t_s / t_b:.2f}; CUDA events, median of "
+            f"{REPS}) on {card}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2190,6 +2449,7 @@ def drive(pool, card: str, t_start: float) -> int:
     gsc_refs = {(inp, path): pool.apply_async(gsc_reference, (inp, path))
                 for path in ("per-sample", "blocklms128", "blocklms512")
                 for inp in ("noise", "speech")}
+    refs_batch = batch_refs(pool)
     y, das_launches = phase("das", phase_das, x)
     with tempfile.TemporaryDirectory(prefix=".chip_smoke_", dir=ROOT) as tmp:
         phase("das_streaming", phase_streaming, x, y, tmp)
@@ -2297,6 +2557,7 @@ def drive(pool, card: str, t_start: float) -> int:
                   ["--stream", "64"], seconds=4.0, tol=0.0)
         phase(f"{node}_xrt", phase_xrt, x, card, node, None, "noise")
     phase("das_vs_ref", phase_das_vs_ref, xsrc)
+    phase("batch", phase_batch, card, refs_batch)
 
     launches = {"wola_analysis": das_launches["wola_analysis"],
                 "wola_synthesis": das_launches["wola_synthesis"],

@@ -7,6 +7,7 @@ there, skip the JAX-based tests/conftest.py:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
 
+import dataclasses
 import os
 
 import numpy as np
@@ -1796,3 +1797,204 @@ def test_gsc_on_cuda_matches_float64_cpu(cuda, solver, tmp_path):
     chunks = [sess.process(x[:, f0 * 1024:(f0 + 8) * 1024], 20.0)
               for f0 in range(0, 48, 8)]
     assert np.array_equal(torch.cat(chunks).cpu().numpy(), got)
+
+
+# ------------------------------------------------- stream axis, rows 3-6
+
+NB16 = 3           # streams of the stream-axis cases
+
+
+def _preset_band(cuda):
+    """The launch presets' band (100 Hz .. 16 kHz) at 48 kHz, hop 1024:
+    bins 5 .. 682."""
+    cfg = load_array_config(os.path.join(ROOT, "beamform_tpu_torch",
+                                         "configs", "aira16.yaml"))
+    return get_model("mvdr", EngineConfig(), cfg, load_launch_params("mvdr"),
+                     device=cuda).ib
+
+
+@pytest.mark.parametrize("row,s", [("mvdr", 0), ("lcmv", 1), ("lcmv", 3)])
+def test_stream_kernels_take_a_stream_axis(cuda, row, s):
+    """Rows 3 and 5 at three streams of 16 mics over the presets' band: one
+    launch; each stream equals the same kernel on that stream alone bit for
+    bit, and the batched plain version within MVDR_REL."""
+    rng = np.random.default_rng(300 + s)
+    ib = _preset_band(cuda)
+    t, m, nb, w, u, nib = 45, 16, 1026, 10, 2, len(ib)
+    x = _cplx(rng, (t, NB16, m, nb), cuda)
+    hist = _cplx(rng, (NB16, w, m, nib), cuda)
+    idx = torch.as_tensor(rng.integers(0, u, (NB16, t)), device=cuda)
+    gate = torch.as_tensor(rng.random((NB16, t, nib)) < 0.7, device=cuda)
+    if row == "mvdr":
+        fn, plain, ctrl = (km.mvdr_stream, km.mvdr_stream_plain,
+                           _cplx(rng, (u, m, nib), cuda))
+    else:
+        fn, plain, ctrl = (klc.lcmv_stream, klc.lcmv_stream_plain,
+                           _constraints(rng, u, s, m, nib, cuda))
+    before = fn.launches
+    got = fn(x, hist, ctrl, idx, gate, ib)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    assert got.shape == (NB16, t, nib)
+    assert torch.isfinite(torch.view_as_real(got)).all()
+    for b in range(NB16):
+        one = fn(x[:, b].contiguous(), hist[b], ctrl, idx[b].contiguous(),
+                 gate[b].contiguous(), ib)
+        assert torch.equal(got[b], one)
+    ref = plain(*(a.cpu() for a in (x, hist, ctrl, idx, gate, ib)))
+    assert _rel(got.cpu(), ref) < MVDR_REL
+
+
+def _fused_batch_inputs(rng, b, m, t, hop, ib):
+    """B streams of audio with quiet hops, their carries, and a gate
+    threshold in the widest gap of the pooled statistic near its median
+    (a mixed gate that no rounding flips)."""
+    x = 0.1 * rng.standard_normal((b, m, t * hop))
+    x[:, :, 3 * hop:6 * hop] *= 1e-4
+    tail = 0.1 * rng.standard_normal((b, m, hop))
+    prev = rng.standard_normal((b, hop))
+    x, tail, prev = (torch.as_tensor(a, dtype=torch.float32, device=ib.device)
+                     for a in (x, tail, prev))
+    mag = torch.stack([kw.wola_analysis_plain(x[i], tail[i],
+                                              with_mag=True)[1]
+                       for i in range(b)])
+    v = mag.index_select(2, ib).flatten().sort().values.cpu().numpy()
+    k = len(v) * 2 // 5 + np.argmax(np.diff(v[len(v) * 2 // 5:
+                                                len(v) * 3 // 5]))
+    return x, tail, prev, float((v[k] + v[k + 1]) / 2)
+
+
+def _peak_rel(got, ref):
+    """Per stream, max |got - ref| over the stream's peak."""
+    return max(float((g - r).abs().max() / r.abs().max())
+               for g, r in zip(got, ref))
+
+
+@pytest.mark.parametrize("b", [NB16, 8])
+@pytest.mark.parametrize("s", [0, 1, 3])
+def test_mega_kernel_takes_a_stream_axis(cuda, b, s):
+    """Row 4 at three and eight streams of 16 mics over the presets' band,
+    two segments of frames: one launch; each stream within 1e-6 of its
+    peak of the same kernel on that stream alone (the overlap-add adds
+    with atomics), its history and carry bit for bit; and the batched
+    plain version within test_mega_kernel_matches_plain's bar."""
+    rng = np.random.default_rng(400 + 10 * b + s)
+    ib = _preset_band(cuda)
+    hop, t, m, w, u, nib = 1024, 120, 16, 10, 2, len(ib)
+    x, tail, prev, thr = _fused_batch_inputs(rng, b, m, t, hop, ib)
+    hist = _cplx(rng, (b, w, m, nib), cuda)
+    idx = torch.as_tensor(rng.integers(0, u, (b, t)), device=cuda)
+    if s == 0:
+        ctrl, fused = _cplx(rng, (u, m, nib), cuda), kmega.mvdr_mega
+    else:
+        ctrl, fused = _constraints(rng, u, s, m, nib, cuda), kmega.lcmv_mega
+    before = kmega.mega_stream.launches
+    got = fused(x, tail, prev, hist, ctrl, idx, ib, 2 * hop, w, thr)
+    torch.cuda.synchronize()
+    assert kmega.mega_stream.launches == before + 1
+    assert got[0].shape == (b, t * hop) and torch.isfinite(got[0]).all()
+    ones = [fused(x[i], tail[i], prev[i], hist[i], ctrl, idx[i], ib,
+                  2 * hop, w, thr) for i in range(b)]
+    assert _peak_rel(got[0], [o[0] for o in ones]) <= 1e-6
+    for i, o in enumerate(ones):
+        assert torch.equal(got[1][i], o[1]) and torch.equal(got[2][i], o[2])
+    if b == NB16:
+        ref = fused(*(a.cpu() for a in (x, tail, prev, hist, ctrl, idx, ib)),
+                    2 * hop, w, thr)
+        assert _rel(got[0].cpu(), ref[0]) < MVDR_REL
+        assert _rel(got[1].cpu(), ref[1]) < REL
+
+
+@pytest.mark.parametrize("b", [NB16, 8])
+@pytest.mark.parametrize("s", [1, 3])
+def test_gss_kernel_takes_a_stream_axis(cuda, b, s):
+    """Row 6 at three and eight streams of 16 mics over the presets' band
+    (eight streams' 5,424 (stream, bin) pairs take the marching blocks two
+    passes), two segments of frames, resets per stream: one launch; each
+    stream within 1e-6 of its peak of the same kernel on that stream
+    alone, W and the carry bit for bit; and the batched plain version
+    within test_gss_kernel_matches_plain's bar."""
+    rng = np.random.default_rng(500 + 10 * b + s)
+    ib = _preset_band(cuda)
+    hop, t, m, u, nib = 1024, 120, 16, 2, len(ib)
+    mu, lam = 0.01, 0.5
+    x, tail, prev, thr = _fused_batch_inputs(rng, b, m, t, hop, ib)
+    ah = _constraints(rng, u, s, m, nib, cuda)
+    ah = ah / ah.abs().clamp_min(1e-30) * (ah != 0)
+    w0 = _cplx(rng, (b, nib, s, m), cuda) * 0.1
+    idx = torch.as_tensor(rng.integers(0, u, (b, 1)).repeat(t, 1),
+                          device=cuda)
+    idx[:, 100:] = 1 - idx[:, 100:]
+    reset = torch.zeros((b, t), dtype=torch.bool, device=cuda)
+    reset[:, 0] = reset[:, 100] = True
+    before = kgss.gss_mega.launches
+    got = kgss.gss_mega(x, tail, prev, w0, ah, idx, reset, ib, 2 * hop, thr,
+                        mu, lam)
+    torch.cuda.synchronize()
+    assert kgss.gss_mega.launches == before + 1
+    assert got[0].shape == (b, t * hop) and torch.isfinite(got[0]).all()
+    ones = [kgss.gss_mega(x[i], tail[i], prev[i], w0[i], ah, idx[i],
+                          reset[i], ib, 2 * hop, thr, mu, lam)
+            for i in range(b)]
+    assert _peak_rel(got[0], [o[0] for o in ones]) <= 1e-6
+    for i, o in enumerate(ones):
+        assert torch.equal(got[1][i], o[1]) and torch.equal(got[2][i], o[2])
+    if b == NB16:
+        cpu = [a.cpu() for a in (x, tail, prev, w0, ah, idx, reset, ib)]
+        ref = kgss.gss_mega(*cpu, 2 * hop, thr, mu, lam)
+        assert _rel(got[0].cpu(), ref[0]) < MVDR_REL
+        assert _rel(got[1].cpu(), ref[1]) < MVDR_REL
+
+
+@pytest.mark.parametrize("node,solver,exact", [
+    ("das", None, True), ("mvdr", "auto", True), ("mvdr", "mega", False),
+    ("lcmv", "auto", True), ("lcmv", "mega", False), ("gss", None, False),
+    ("gsc", "sample", True), ("gsc", "blocklms", True)])
+def test_batch_runner_on_cuda_matches_single_streams(cuda, node, solver,
+                                                     exact):
+    """BatchRunner at three streams of 16 mics, two chunks: each stream
+    equals the same model's single-stream streaming run on the card (bit
+    for bit, or within 1e-6 of its peak where the fused kernels add with
+    atomics), with one launch of each kernel of the path per chunk."""
+    from beamform_tpu_torch.kernels import gsc as kg
+    from beamform_tpu_torch.kernels import gsc_blocklms as kb
+    from beamform_tpu_torch.runtime.batch import BatchRunner
+    cfg = load_array_config(os.path.join(ROOT, "beamform_tpu_torch",
+                                         "configs", "aira16.yaml"))
+    if node in ("lcmv", "gss"):
+        cfg = dataclasses.replace(cfg, interference_angles=(-60.0,))
+    params = dict(load_launch_params(node))
+    if node == "gsc":
+        params["write_mu"] = False
+    if solver:
+        params["solver"] = solver
+    rng = np.random.default_rng(7)
+    hop, t = 1024, 24
+    x = (0.1 * rng.standard_normal((NB16, 16, 2 * t * hop))).astype(
+        np.float32)
+    x[:, :, :12 * hop] *= 1e-4
+    thetas = np.array([-40.0, 5.0, 50.0])
+    runner = BatchRunner(node, EngineConfig(), cfg, params, batch=NB16,
+                         device=cuda)
+    fns = [kw.wola_analysis, kw.wola_synthesis, km.mvdr_stream,
+           klc.lcmv_stream, kmega.mega_stream, kgss.gss_mega, kg.gsc_sample,
+           kb.gsc_blocklms]
+    outs = []
+    for c in range(2):
+        before = [f.launches for f in fns]
+        outs.append(runner.process(x[:, :, c * t * hop:(c + 1) * t * hop],
+                                   thetas))
+        ran = [f.launches - b for f, b in zip(fns, before)]
+        assert set(ran) <= {0, 1} and sum(ran) >= 1, ran
+    got = torch.cat(outs, dim=1)
+    assert torch.isfinite(got).all()
+    for i in range(NB16):
+        sess = StreamingSession(get_model(node, EngineConfig(), cfg, params,
+                                          device=cuda))
+        one = torch.cat([sess.process(x[i, :, c * t * hop:(c + 1) * t * hop],
+                                      float(thetas[i])) for c in range(2)])
+        if exact:
+            assert torch.equal(got[i], one)
+        else:
+            assert float((got[i] - one).abs().max()
+                         / one.abs().max()) <= 1e-6

@@ -33,7 +33,12 @@ phase preset, one steering) and the marches
 ``kernels.phase_mask.mpf_march`` and ``mcra_march`` (the presets, one
 steering, zero state), and ``kernels.linalg.gj_inverse``, unpolished and
 polished, on chip_smoke.py's dense block (the windowed covariances of 82
-frames at 678 bins: 55,596 matrices of 16 x 16).
+frames at 678 bins: 55,596 matrices of 16 x 16). A checkout with the
+batched runner (``beamform_tpu_torch/runtime/batch.py``) also times one
+``BatchRunner.process`` of a 2 s chunk of chip_smoke.py's batched input
+(8 streams of 16 mics, thetas linspace(-60, 60, 8)) for MVDR ``auto``,
+LCMV ``auto``, MVDR ``mega`` and GSS, CUDA events, median of 10 after 3
+warm-ups; a checkout without it reports none of these.
 CHANGE_ROOT defaults to this checkout. Prints one line per process, then
 per metric both sides' medians and ranges; imports no JAX.
 """
@@ -69,6 +74,10 @@ PATHS = (("das", "das", None, 10, False), ("mvdr", "mvdr", {}, 10, False),
           3, False),
          ("gss", "gss", {}, 10, False),
          ("gss S=3", "gss", {}, 10, True))
+# (label, node, parameters over the launch preset) of the batched paths
+BATCHED = (("mvdr B=8", "mvdr", {}), ("lcmv B=8", "lcmv", {}),
+           ("mvdr mega B=8", "mvdr", {"solver": "mega"}),
+           ("gss B=8", "gss", {}))
 ANALYSIS_T = (1407, 64)
 SYNTHESIS_C = (1, 16)
 
@@ -130,6 +139,28 @@ def worker(root: str) -> dict:
                 lambda: kw.wola_synthesis(y, prev))
     out.update(solve_kernels(cs, x))
     out.update(gj_kernels(cs, x))
+    if os.path.exists(os.path.join(root, "beamform_tpu_torch", "runtime",
+                                   "batch.py")):
+        out.update(batched_paths(cs))
+    return out
+
+
+def batched_paths(cs) -> dict:
+    """One BatchRunner.process of the first 2 s chunk of chip_smoke.py's
+    batched input (ms), per path of BATCHED."""
+    import torch
+    from beamform_tpu_torch.runtime.batch import BatchRunner
+    xb = torch.as_tensor(cs.make_batch_input(cs.BATCH)[..., :cs.BATCH_CHUNK],
+                         device="cuda")
+    thetas = np.linspace(-60.0, 60.0, cs.BATCH)
+    out = {}
+    for label, node, over in BATCHED:
+        runner = BatchRunner(node, cs.engine(), cs.aira16(),
+                             cs.preset(node, **over), batch=cs.BATCH,
+                             device="cuda")
+        for _ in range(2):
+            runner.process(xb, thetas)
+        out[label] = cs.cuda_ms(lambda: runner.process(xb, thetas), reps=10)
     return out
 
 
@@ -299,9 +330,13 @@ def main() -> int:
                                        res.items()), flush=True)
     print(f"{args.pairs} pairs of processes on {card}; per metric: median "
           "[min, max] over the processes of each side, ms")
-    for key in runs["parent"][0]:
-        p = np.array([r[key] for r in runs["parent"]])
+    for key in runs["change"][0]:
         c = np.array([r[key] for r in runs["change"]])
+        if key not in runs["parent"][0]:
+            print(f"{key}: parent none -> change {np.median(c):.4f} "
+                  f"[{c.min():.4f}, {c.max():.4f}]")
+            continue
+        p = np.array([r[key] for r in runs["parent"]])
         print(f"{key}: parent {np.median(p):.4f} [{p.min():.4f}, "
               f"{p.max():.4f}] -> change {np.median(c):.4f} [{c.min():.4f},"
               f" {c.max():.4f}]; change < parent in "
