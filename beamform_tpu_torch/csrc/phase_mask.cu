@@ -71,6 +71,18 @@
 // The state is float32 rows, one per field; current_L and first_L (scalars
 // of the reference) are repeated in every bin, and read from bin 0. A w_idx
 // entry outside [0, U) is never dereferenced: its frame's outputs are NaN.
+//
+// Streams. Each kernel serves B streams in one launch, as the JAX
+// package's vmap gives each pallas_call a grid axis. The spectra are
+// (T, B, M, NB), the B streams' analysis of one launch, read in place;
+// w_idx (B, T) indexes one shared (U, M, NB) steering; the outputs are
+// (B, T, NB), which the synthesis takes as B channels. The front ends'
+// flat grid covers B T NB threads in the output's order; the marches' grid
+// is (bin groups, B), and the state's vectors are (B, NB) with current_L
+// and first_L (B,). MCRA's inputs are (T, B, NB), mic 0's analysis of the
+// B streams, a frame's rows B NB apart. One stream (B = 1) is the same
+// layout without the axis: each stream's output equals its own launch's
+// bit for bit.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -154,12 +166,22 @@ __device__ __forceinline__ float2 unit_phase(float2 x) {
   return make_float2(1.f, 0.f);
 }
 
-// Thread q of the flat grid takes (t, b) = (q / NB, q mod NB), q < T * NB.
-__device__ __forceinline__ bool flat_tb(int T, int NB, int& t, int& b) {
+// Thread q of the flat grid takes (stream s, frame t, bin b), q = (s T +
+// t) NB + b < B T NB: the output's (B, T, NB) order, consecutive threads
+// on consecutive bins. One stream skips the second division.
+__device__ __forceinline__ bool flat_stb(int B, int T, int NB, int& s,
+                                         int& t, int& b) {
   const unsigned q = blockIdx.x * kBinThreads + threadIdx.x;
-  if (q >= (unsigned)T * (unsigned)NB) return false;
-  t = (int)(q / (unsigned)NB);
-  b = (int)(q - (unsigned)t * NB);
+  if (q >= (unsigned)B * (unsigned)T * (unsigned)NB) return false;
+  const unsigned r = q / (unsigned)NB;
+  b = (int)(q - r * (unsigned)NB);
+  if (B == 1) {
+    s = 0;
+    t = (int)r;
+  } else {
+    s = (int)(r / (unsigned)T);
+    t = (int)(r - (unsigned)s * (unsigned)T);
+  }
   return true;
 }
 
@@ -169,11 +191,12 @@ __global__ void __launch_bounds__(kBinThreads)
                       const float2* __restrict__ w,
                       const int64_t* __restrict__ w_idx,
                       float2* __restrict__ y, int M, int T, int NB, int U,
-                      FrontCoef fc, PhaseCoef c) {
-  int t, b;
-  if (!flat_tb(T, NB, t, b)) return;
-  const int64_t u = w_idx[t];
-  float2* out = y + (size_t)t * NB + b;
+                      int B, FrontCoef fc, PhaseCoef c) {
+  int s, t, b;
+  if (!flat_stb(B, T, NB, s, t, b)) return;
+  const size_t st = (size_t)s * T + t;
+  const int64_t u = w_idx[st];
+  float2* out = y + st * NB + b;
   if (u < 0 || u >= U) {
     const float nan = __int_as_float(0x7fc00000);
     *out = make_float2(nan, nan);
@@ -181,7 +204,7 @@ __global__ void __launch_bounds__(kBinThreads)
   }
   float diff, mag;
   float2 x0;
-  front_end<MAXM, kExact>(spec + (size_t)t * M * NB + b,
+  front_end<MAXM, kExact>(spec + ((size_t)t * B + s) * M * NB + b,
                           w + (size_t)u * M * NB + b, M, NB, fc, diff, mag,
                           x0);
   if (b == 0) {                                   // phase.cpp:87
@@ -195,7 +218,7 @@ __global__ void __launch_bounds__(kBinThreads)
   *out = make_float2(m * e.x, m * e.y);
 }
 
-// planes (4, T, NB): SOI magnitude; interference power (0 at bin 0);
+// planes (4, B, T, NB): SOI magnitude; interference power (0 at bin 0);
 // mic 0's unit phase, re and im (X0[0] itself at bin 0)
 template <int MAXM, bool kExact>
 __global__ void __launch_bounds__(kBinThreads)
@@ -203,12 +226,14 @@ __global__ void __launch_bounds__(kBinThreads)
                      const float2* __restrict__ w,
                      const int64_t* __restrict__ w_idx,
                      float* __restrict__ planes, int M, int T, int NB, int U,
-                     FrontCoef fc, float min_phase_rad, float min_mag) {
-  int t, b;
-  if (!flat_tb(T, NB, t, b)) return;
-  const size_t o = (size_t)t * NB + b;
-  const size_t plane = (size_t)T * NB;
-  const int64_t u = w_idx[t];
+                     int B, FrontCoef fc, float min_phase_rad,
+                     float min_mag) {
+  int s, t, b;
+  if (!flat_stb(B, T, NB, s, t, b)) return;
+  const size_t st = (size_t)s * T + t;
+  const size_t o = st * NB + b;
+  const size_t plane = (size_t)B * T * NB;
+  const int64_t u = w_idx[st];
   if (u < 0 || u >= U) {
     const float nan = __int_as_float(0x7fc00000);
     for (int k = 0; k < 4; ++k) planes[k * plane + o] = nan;
@@ -216,7 +241,7 @@ __global__ void __launch_bounds__(kBinThreads)
   }
   float diff, mag;
   float2 x0;
-  front_end<MAXM, kExact>(spec + (size_t)t * M * NB + b,
+  front_end<MAXM, kExact>(spec + ((size_t)t * B + s) * M * NB + b,
                           w + (size_t)u * M * NB + b, M, NB, fc, diff, mag,
                           x0);
   const bool is_soi = diff < min_phase_rad;
@@ -268,18 +293,19 @@ struct MpfNode {
   float* vout[kVecs];
   int* cur_out;
   unsigned char* first_out;
-  int T, NB;
+  int T, NB, B;
   march::McraCoef c;
   float mpf_as, one_m_mpf_as, eta, gam, rev_c, amp, floor;
   int flags;
 
-  __device__ void load(float (*in)[kSeg][kLanes], int t0, int nf, int b0,
-                       int lane) const {
-    const size_t plane = (size_t)T * NB;
+  // stream s's frames of the (4, B, T, NB) planes
+  __device__ void load(float (*in)[kSeg][kLanes], int s, int t0, int nf,
+                       int b0, int lane) const {
+    const size_t plane = (size_t)B * T * NB;
+    const float* row = planes + ((size_t)s * T + t0) * NB;
 #pragma unroll
     for (int q = 0; q < kInPlanes; ++q)
-      march::load_rows(in[q], planes + q * plane + (size_t)t0 * NB, NB, nf,
-                       b0, lane);
+      march::load_rows(in[q], row + q * plane, NB, NB, nf, b0, lane);
   }
 
   // bin 0's s_f, |X0[0]|, of frame k
@@ -338,9 +364,9 @@ struct MpfNode {
   }
 };
 
-// The MCRA march (march.cuh's march_kernel). Inputs per (t, b): s_f, sq
-// and x (a float2 plane in the room of two); state vectors: s_prev, s_tmp,
-// s_min, lam. Output: (|x| - sqrt(lam))+ x / |x|.
+// The MCRA march (march.cuh's march_kernel). Inputs per (t, s, b), each
+// (T, B, NB): s_f, sq and x (a float2 plane in the room of two); state
+// vectors: s_prev, s_tmp, s_min, lam. Output: (|x| - sqrt(lam))+ x / |x|.
 struct McraNode {
   static constexpr int kInPlanes = 4, kVecs = 4;
   static constexpr bool kExtra = false;
@@ -354,7 +380,7 @@ struct McraNode {
   float* vout[kVecs];
   int* cur_out;
   unsigned char* first_out;
-  int T, NB;
+  int T, NB, B;
   march::McraCoef c;
   float amp;
   int flags;
@@ -363,12 +389,13 @@ struct McraNode {
     return reinterpret_cast<float2 (*)[kLanes]>(in[2]);
   }
 
-  __device__ void load(float (*in)[kSeg][kLanes], int t0, int nf, int b0,
-                       int lane) const {
-    const size_t o = (size_t)t0 * NB;
-    march::load_rows(in[0], s_f + o, NB, nf, b0, lane);
-    march::load_rows(in[1], sq + o, NB, nf, b0, lane);
-    march::load_rows(xs(in), x + o, NB, nf, b0, lane);
+  // stream s's frames: rows B NB apart
+  __device__ void load(float (*in)[kSeg][kLanes], int s, int t0, int nf,
+                       int b0, int lane) const {
+    const size_t ld = (size_t)B * NB, o = t0 * ld + (size_t)s * NB;
+    march::load_rows(in[0], s_f + o, ld, NB, nf, b0, lane);
+    march::load_rows(in[1], sq + o, ld, NB, nf, b0, lane);
+    march::load_rows(xs(in), x + o, ld, NB, nf, b0, lane);
   }
 
   __device__ float dc(float (*)[kSeg][kLanes], int) const { return 0.f; }
@@ -413,7 +440,7 @@ struct McraNode {
   }
 };
 
-// one block per kLanes bins, its rings in dynamic shared memory
+// one block per kLanes bins of a stream, its rings in dynamic shared memory
 template <class Node>
 cudaError_t launch_march(const Node& nd, cudaStream_t st) {
   constexpr int bytes = (int)sizeof(march::Smem<Node>);
@@ -421,9 +448,38 @@ cudaError_t launch_march(const Node& nd, cudaStream_t st) {
       march::march_kernel<Node>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       bytes);
   if (e != cudaSuccess) return e;
-  march::march_kernel<Node>
-      <<<(nd.NB + kLanes - 1) / kLanes, march::kThreads, bytes, st>>>(nd);
+  const dim3 grid((unsigned)((nd.NB + kLanes - 1) / kLanes), (unsigned)nd.B);
+  march::march_kernel<Node><<<grid, march::kThreads, bytes, st>>>(nd);
   return cudaGetLastError();
+}
+
+// A march kernel's resources: out = registers a thread, dynamic shared
+// memory a block (bytes), local memory a thread (bytes: spills), resident
+// blocks an SM.
+template <class Node>
+cudaError_t march_resources(int* out) {
+  constexpr int bytes = (int)sizeof(march::Smem<Node>);
+  cudaError_t e = cudaFuncSetAttribute(
+      march::march_kernel<Node>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      bytes);
+  if (e != cudaSuccess) return e;
+  cudaFuncAttributes a;
+  e = cudaFuncGetAttributes(&a, march::march_kernel<Node>);
+  if (e != cudaSuccess) return e;
+  int blocks = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &blocks, march::march_kernel<Node>, march::kThreads, bytes);
+  out[0] = a.numRegs;
+  out[1] = bytes;
+  out[2] = (int)a.localSizeBytes;
+  out[3] = blocks;
+  return e;
+}
+
+// the launch's sizes in range: 2^31 (stream, frame, bin) threads of the
+// flat grid, 65535 streams of the march's grid
+bool streams_fit(int B, int T, int NB) {
+  return B >= 1 && B <= 65535 && (size_t)B * T * NB < (1u << 31);
 }
 
 FrontCoef front_coef(int M) {
@@ -439,31 +495,33 @@ march::McraCoef mcra_coef(const float* v) {
 
 extern "C" {
 
-// spec (T, M, NB) complex64, w (U, M, NB) complex64, w_idx (T,) int64;
-// y (T, NB) complex64. coef: min_phase_rad, mag_threshold, mag_mult,
-// 1 / nfft. 2 <= M <= 32.
+// spec (T, B, M, NB) complex64, w (U, M, NB) complex64, w_idx (B, T)
+// int64; y (B, T, NB) complex64 (one stream: (T, M, NB), (T,), (T, NB)).
+// coef: min_phase_rad, mag_threshold, mag_mult, 1 / nfft. 2 <= M <= 32.
 int bf_phase_mask(const void* spec, const void* w, const int64_t* w_idx,
-                  void* y, int M, int T, int NB, int U, const float* coef,
-                  void* stream) {
-  if (M < 2 || M > 32 || T < 1 || NB < 1) return (int)cudaErrorInvalidValue;
+                  void* y, int M, int T, int NB, int U, int B,
+                  const float* coef, void* stream) {
+  if (M < 2 || M > 32 || T < 1 || NB < 1 || !streams_fit(B, T, NB))
+    return (int)cudaErrorInvalidValue;
   const PhaseCoef c{coef[0], coef[1], coef[2], coef[3]};
   const FrontCoef fc = front_coef(M);
   cudaStream_t st = (cudaStream_t)stream;
   const float2* s = (const float2*)spec;
   const float2* wv = (const float2*)w;
   float2* out = (float2*)y;
-  const dim3 grid((unsigned)(((size_t)T * NB + kBinThreads - 1) /
+  const dim3 grid((unsigned)(((size_t)B * T * NB + kBinThreads - 1) /
                              kBinThreads));
   return (int)by_mics(M, [&](auto m, auto exact) {
     phase_mask_kernel<decltype(m)::value, decltype(exact)::value>
-        <<<grid, kBinThreads, 0, st>>>(s, wv, w_idx, out, M, T, NB, U, fc, c);
+        <<<grid, kBinThreads, 0, st>>>(s, wv, w_idx, out, M, T, NB, U, B, fc,
+                                       c);
   });
 }
 
 // spec, w, w_idx as bf_phase_mask; the state: vec_in / vec_out 7 float32
-// (NB,) vectors (s_prev, s_tmp, s_min, lam_noise, z, lam_rev0, lam_rev1),
-// current_L int32 and first_L bool scalars, in and out; planes (4, T, NB)
-// float32 scratch; y (T, NB) complex64. coef: min_phase_rad, min_mag, the
+// (B, NB) vectors (s_prev, s_tmp, s_min, lam_noise, z, lam_rev0,
+// lam_rev1), current_L int32 and first_L bool (B,), in and out; planes
+// (4, B, T, NB) float32 scratch; y (B, T, NB) complex64. coef: min_phase_rad, min_mag, the
 // 7 MCRA constants (alphaS, 1 - alphaS, alphaD, 1 - alphaD, alphaD2,
 // delta, L), MPF alphaS, 1 - MPF alphaS, eta, gamma, 1 - gamma / delta,
 // out_amp, noise_floor. flags: 1 out_only_noise, 2 out_only_mcra, 4
@@ -473,19 +531,20 @@ int bf_mpf_march(const void* spec, const void* w, const int64_t* w_idx,
                  const unsigned char* first_in, float* planes, void* y,
                  float* const* vec_out, int* cur_out,
                  unsigned char* first_out, int M, int T, int NB, int U,
-                 const float* coef, int flags, void* stream) {
-  if (M < 2 || M > 32 || T < 1 || NB < 2) return (int)cudaErrorInvalidValue;
+                 int B, const float* coef, int flags, void* stream) {
+  if (M < 2 || M > 32 || T < 1 || NB < 2 || !streams_fit(B, T, NB))
+    return (int)cudaErrorInvalidValue;
   const FrontCoef fc = front_coef(M);
   const float mp = coef[0], mm = coef[1];
   cudaStream_t st = (cudaStream_t)stream;
   const float2* s = (const float2*)spec;
   const float2* wv = (const float2*)w;
-  const dim3 grid((unsigned)(((size_t)T * NB + kBinThreads - 1) /
+  const dim3 grid((unsigned)(((size_t)B * T * NB + kBinThreads - 1) /
                              kBinThreads));
   const cudaError_t err = by_mics(M, [&](auto m, auto exact) {
     mpf_beams_kernel<decltype(m)::value, decltype(exact)::value>
-        <<<grid, kBinThreads, 0, st>>>(s, wv, w_idx, planes, M, T, NB, U, fc,
-                                       mp, mm);
+        <<<grid, kBinThreads, 0, st>>>(s, wv, w_idx, planes, M, T, NB, U, B,
+                                       fc, mp, mm);
   });
   if (err != cudaSuccess) return (int)err;
   MpfNode nd{};
@@ -501,6 +560,7 @@ int bf_mpf_march(const void* spec, const void* w, const int64_t* w_idx,
   nd.first_out = first_out;
   nd.T = T;
   nd.NB = NB;
+  nd.B = B;
   nd.c = mcra_coef(coef + 2);
   nd.mpf_as = coef[9];
   nd.one_m_mpf_as = coef[10];
@@ -513,17 +573,19 @@ int bf_mpf_march(const void* spec, const void* w, const int64_t* w_idx,
   return (int)launch_march(nd, st);
 }
 
-// s_f, sq (T, NB) float32, x (T, NB) complex64; the state: vec_in /
-// vec_out 4 float32 (NB,) vectors (s_prev, s_tmp, s_min, lam), current_L
-// int32 and first_L bool scalars, in and out; y (T, NB) complex64. coef:
-// the 7 MCRA constants, out_amp. flags: 1 out_only_noise, 4 bug_dc_zero.
+// s_f, sq (T, B, NB) float32, x (T, B, NB) complex64; the state: vec_in /
+// vec_out 4 float32 (B, NB) vectors (s_prev, s_tmp, s_min, lam),
+// current_L int32 and first_L bool (B,), in and out; y (B, T, NB)
+// complex64 (one stream: (T, NB) inputs and output, scalars). coef: the 7
+// MCRA constants, out_amp. flags: 1 out_only_noise, 4 bug_dc_zero.
 int bf_mcra_march(const float* s_f, const float* sq, const void* x,
                   const float* const* vec_in, const int* cur_in,
                   const unsigned char* first_in, void* y,
                   float* const* vec_out, int* cur_out,
-                  unsigned char* first_out, int T, int NB, const float* coef,
-                  int flags, void* stream) {
-  if (T < 1 || NB < 1) return (int)cudaErrorInvalidValue;
+                  unsigned char* first_out, int T, int NB, int B,
+                  const float* coef, int flags, void* stream) {
+  if (T < 1 || NB < 1 || !streams_fit(B, T, NB))
+    return (int)cudaErrorInvalidValue;
   McraNode nd{};
   nd.s_f = s_f;
   nd.sq = sq;
@@ -539,10 +601,17 @@ int bf_mcra_march(const float* s_f, const float* sq, const void* x,
   nd.first_out = first_out;
   nd.T = T;
   nd.NB = NB;
+  nd.B = B;
   nd.c = mcra_coef(coef);
   nd.amp = coef[7];
   nd.flags = flags;
   return (int)launch_march(nd, (cudaStream_t)stream);
+}
+
+// march_resources of the MPF (node 0) or the MCRA march (node 1): out[4]
+int bf_march_resources(int node, int* out) {
+  return (int)(node == 0 ? march_resources<MpfNode>(out)
+                         : march_resources<McraNode>(out));
 }
 
 }  // extern "C"

@@ -133,12 +133,14 @@ def _declare(lib):
     lib.bf_gss_stream.argtypes = [p] * 17 + [i] * 8 + [f, f, f, p]
     lib.bf_gss_stream.restype = i
     fp = ctypes.POINTER(ctypes.c_float)        # a host array of constants
-    lib.bf_phase_mask.argtypes = [p] * 4 + [i] * 4 + [fp, p]
+    lib.bf_phase_mask.argtypes = [p] * 4 + [i] * 5 + [fp, p]
     lib.bf_phase_mask.restype = i
-    lib.bf_mpf_march.argtypes = [p] * 11 + [i] * 4 + [fp, i, p]
+    lib.bf_mpf_march.argtypes = [p] * 11 + [i] * 5 + [fp, i, p]
     lib.bf_mpf_march.restype = i
-    lib.bf_mcra_march.argtypes = [p] * 10 + [i] * 2 + [fp, i, p]
+    lib.bf_mcra_march.argtypes = [p] * 10 + [i] * 3 + [fp, i, p]
     lib.bf_mcra_march.restype = i
+    lib.bf_march_resources.argtypes = [i, p]
+    lib.bf_march_resources.restype = i
     lib.bf_gsc_sample.argtypes = [p] * 10 + [i] * 5 + [fp, p]
     lib.bf_gsc_sample.restype = i
     lib.bf_gsc_blocklms.argtypes = [p] * 8 + [i] * 8 + [fp, p]

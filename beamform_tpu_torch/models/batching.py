@@ -10,9 +10,14 @@ Every model declares how it serves B streams at once, so that
 * ``batch_controls(thetas_bt, interference=None)``: those control
   arguments from per-stream ``(B, T)`` theta timelines;
 * ``batched_forward(x, ctrl, state)``: the batched step, x (B, M, S) ->
-  ((B, S) output, new state). Models whose kernels take a stream axis
-  (DAS, MVDR, LCMV, GSS, GSC) override it to serve every stream in one
-  launch of each kernel; the default runs ``_forward`` once per stream;
+  ((B, S) output, new state). Every node overrides it to serve the B
+  streams with the launches one stream's call makes: DAS, MVDR and LCMV
+  (each solver; ``dense`` one Gauss-Jordan launch a block), GSS (``mega``),
+  GSC, phase, phasempf and mcra launch each kernel once a chunk, whose
+  kernels take a stream axis; ``ref`` and ``read``, which have no kernel,
+  run their torch ops over a leading stream axis. The default, which runs
+  ``_forward`` once per stream, is kept for a future model; GSS's CPU-only
+  ``scan`` solver takes it;
 * ``batched_state_init(batch)``: ``stream_init()`` stacked with a leading
   B, leaves in the JAX package's order, so states convert between the two
   (``convert.state_from_jax``).
@@ -104,8 +109,8 @@ class BatchableModel:
         state). The default runs ``_forward`` on each stream in turn, with
         its slice of the per-stream controls (``batch_axes``), and stacks
         the outputs and states: every kernel of the model then launches
-        once per stream. Models whose kernels take a stream axis override
-        it."""
+        once per stream. Every node of the package overrides it (GSS only
+        on its ``mega`` path)."""
         outs, states = [], []
         for b in range(x.shape[0]):
             args = [c if ax is None else c[b]

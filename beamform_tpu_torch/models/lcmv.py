@@ -26,8 +26,10 @@ its MVDR form); ``dense`` the block pipeline with the Gauss-Jordan inverse
 no row of a chunk activates are dropped before any of them
 (``models/batching.trim_inactive_slots``). Streaming
 state is MVDR's ``(WolaCarry, hist)``, so checkpoints move between the two
-packages. Batched serving is MVDR's: the B streams share the control rows
-(one static interference set) and each has its row index.
+packages. Batched serving is MVDR's, each strategy with one stream's
+launches: the B streams share the control rows (one static interference
+set) and each has its row index; ``dense`` inverts R and the S x S inner
+matrix of the B streams' block in one launch each.
 """
 
 from __future__ import annotations
@@ -41,11 +43,12 @@ from beamform_tpu_torch.kernels.lcmv_stream import lcmv_stream
 from beamform_tpu_torch.kernels.mega_stream import lcmv_mega
 from beamform_tpu_torch.models import common
 from beamform_tpu_torch.models.batching import BatchableConstrainedModel
-from beamform_tpu_torch.models.mvdr import MvdrModel, batched_inv
+from beamform_tpu_torch.models.mvdr import (MvdrModel, batched_inv,
+                                            stream_matmul)
 
 
-def lcmv_solve(r: torch.Tensor, c: torch.Tensor,
-               inactive_diag=None) -> torch.Tensor:
+def lcmv_solve(r: torch.Tensor, c: torch.Tensor, inactive_diag=None,
+               streams: bool = False) -> torch.Tensor:
     """w = R^-1 C (C^H R^-1 C)^-1, output column 0 (lcmv.cpp:116-119).
     r (..., M, M); c (..., M, S) -> (..., M).
 
@@ -55,15 +58,20 @@ def lcmv_solve(r: torch.Tensor, c: torch.Tensor,
     leave zero rows and columns in the inner matrix; the identity added
     there makes it block-diagonal, so the active block's inverse (hence
     column 0 of w) is the smaller problem's. The S x S inner matrix is
-    inverted with the polish.
+    inverted with the polish. ``streams``: r and c lead with a stream axis;
+    each inverse is one launch for every stream, the products
+    ``models/mvdr.stream_matmul``'s.
     """
+    def mm(a, b):
+        return stream_matmul(a, b, streams)
+
     inv = batched_inv(r, polish=False)
-    ric0 = inv @ c
-    ric = ric0 + inv @ (c - r @ ric0)
-    inner = c.conj().transpose(-1, -2) @ ric                 # (..., S, S)
+    ric0 = mm(inv, c)
+    ric = ric0 + mm(inv, c - mm(r, ric0))
+    inner = mm(c.conj().transpose(-1, -2), ric)               # (..., S, S)
     if inactive_diag is not None:
         inner = inner + torch.diag_embed(inactive_diag.to(inner.dtype))
-    return (ric @ batched_inv(inner)[..., :1])[..., 0]
+    return mm(ric, batched_inv(inner)[..., :1])[..., 0]
 
 
 def build_constraints_masked(geom: ArrayGeometry, freqs: torch.Tensor,
@@ -125,7 +133,7 @@ class LcmvModel(BatchableConstrainedModel, MvdrModel):
             return self._solve_dense(
                 spec.index_select(2, self.ib), hist0, gate,
                 lambda r, sl: lcmv_solve(r, c_ib[idx[sl]],
-                                         inact[idx[sl]][:, None, :]))
+                                         inact[idx[sl]][..., None, :]))
 
         return self._gated_forward(x, state, solve)
 
@@ -141,17 +149,24 @@ class LcmvModel(BatchableConstrainedModel, MvdrModel):
         """x (B, M, T*hop), the controls of :meth:`batch_controls`, state
         with a leading B -> ((B, T*hop) output, new state): ``stream`` and
         ``mega`` in one launch of each kernel for the B streams, ``dense``
-        once per stream."""
-        c_k, _, idx = ctrl
+        in one launch of each Gauss-Jordan inverse a block for the B
+        streams."""
+        c_k, inact, idx = ctrl
         strategy = self._strategy(c_k.shape[1])
-        if strategy == "dense":
-            return BatchableConstrainedModel.batched_forward(self, x, ctrl,
-                                                             state)
         if strategy == "mega":
             return self._forward_mega(lcmv_mega, x, c_k, idx, state)
-        return self._gated_forward_batched(
-            x, state, lambda spec, hist0, gate: lcmv_stream(
-                spec, hist0, c_k, idx, gate, self.ib))
+
+        def solve(spec, hist0, gate):
+            if strategy == "stream":
+                return lcmv_stream(spec, hist0, c_k, idx, gate, self.ib)
+            c_ib = c_k.permute(0, 3, 2, 1)                 # (U, NIB, M, S)
+            return self._solve_dense(
+                spec.index_select(3, self.ib).movedim(0, 1), hist0, gate,
+                lambda r, sl: lcmv_solve(r, c_ib[idx[:, sl]],
+                                         inact[idx[:, sl]][..., None, :],
+                                         streams=True))
+
+        return self._gated_forward_batched(x, state, solve)
 
     @torch.no_grad()
     def process_chunk(self, x_chunk, theta, state, interference=None):

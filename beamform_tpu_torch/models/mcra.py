@@ -16,6 +16,11 @@ WOLA kernel on CUDA), the 3-tap smoothing in plain torch, the per-frame
 recurrence in the MCRA march (``kernels/phase_mask.mcra_march``: the CUDA
 kernel, or its plain version on the CPU, in float32 or float64) and the
 synthesis. Streaming state is ``(WolaCarry of 1 mic, McraState)``.
+
+Batched serving (:meth:`McraModel.batched_forward`): one analysis launch
+of the B streams' mic 0 (each beside a zero channel, so that its spectrum
+rounds as one stream's does), one launch of the march for the B streams,
+one synthesis launch of the B outputs.
 """
 
 from __future__ import annotations
@@ -98,6 +103,34 @@ class McraModel(BatchableModel, nn.Module):
         out, prev = common.istft_ext_carry(y, self.engine, self.window,
                                            carry.out_prev)
         return out, (common.WolaCarry(tail, prev), mstate)
+
+    @torch.no_grad()
+    def batched_forward(self, x, ctrl, state):
+        """x (B, M, T*hop), the (unused) steering controls, state with a
+        leading B -> ((B, T*hop) output, new state); mic 0 of each stream.
+        The single-stream :meth:`_forward` stays apart: at B = 1 this
+        pipeline's reshapes would cost each call host time that its
+        launches wait for."""
+        carry, mstate = state
+        # the analysis pairs two real channels in one complex FFT, and a
+        # channel's spectrum rounds with its partner: mic 0 of each stream
+        # goes in beside a zero channel, as one stream's lone channel does
+        b, _, s = x.shape
+        x0 = x.new_zeros((b, 2, s))
+        x0[:, 0] = x[:, 0]
+        tail0 = carry.tail.new_zeros((b, 2, carry.tail.shape[-1]))
+        tail0[:, :1] = carry.tail
+        spec, _, tail = common.stft_streams_carry(
+            x0, self.engine, self.window, self.cdtype, tail0)
+        x_spec = spec[:, :, 0].contiguous()             # (T, B, NB) mic 0
+        sq = x_spec.abs() ** 2
+        s_f = freq_smooth(sq, x_spec[..., 0].abs())
+        y, mstate = mcra_march(s_f, sq, x_spec, mstate, self.params,
+                               self.engine.bug_dc_zero)    # (B, T, NB)
+        out, prev = common.istft_channels_carry(y, self.engine, self.window,
+                                                carry.out_prev)
+        return out, (common.WolaCarry(tail[:, :1].contiguous(), prev),
+                     mstate)
 
     @torch.no_grad()
     def process_chunk(self, x_chunk, theta, state):

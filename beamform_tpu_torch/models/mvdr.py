@@ -29,12 +29,13 @@ history of in-band spectra, as in the JAX package, so checkpoints move
 between the two. Singular cold-start covariances give non-finite weights,
 like the reference; parity scenes keep the first W hops below the gate.
 
-Batched serving (:meth:`MvdrModel.batched_forward`): ``stream`` and
-``mega`` serve the B streams in one launch of each kernel (the analysis of
-the B*M channels with each stream's gate statistic, the stream solve, the
-synthesis of the B outputs; or the fused kernel), the kernels a single
-stream runs at B = 1. ``dense`` runs once per stream (the protocol's
-default).
+Batched serving (:meth:`MvdrModel.batched_forward`): every strategy serves
+the B streams with the launches one stream's call makes. ``stream`` and
+``mega`` launch each kernel once (the analysis of the B*M channels with
+each stream's gate statistic, the stream solve, the synthesis of the B
+outputs; or the fused kernel), the kernels a single stream runs at B = 1.
+``dense`` runs the block pipeline over a leading stream axis: one
+Gauss-Jordan launch a block for the B streams.
 """
 
 from __future__ import annotations
@@ -145,16 +146,37 @@ def batched_inv(a: torch.Tensor, polish: bool = True) -> torch.Tensor:
                       polish=polish).reshape(a.shape)
 
 
-def mvdr_solve(r: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
+def stream_matmul(a: torch.Tensor, b: torch.Tensor,
+                  streams: bool = False) -> torch.Tensor:
+    """a @ b for the solves' small matrices. ``streams``: a and b lead with
+    a stream axis, and each stream's product is a call of its own. On the
+    card a batched product's kernel, so its rounding, depends on how many
+    matrices the call takes: one call for B streams would not equal each
+    stream's own, and the ill-conditioned covariances amplify the last
+    bits (to ~1e-4 of a stream's peak at 16 mics and W = 10 on an NVIDIA
+    H100 80GB HBM3, 700 W). Elementwise products summed over an axis are
+    bit for bit too, but took twice as long there at M x 1."""
+    if streams:
+        return torch.stack([x @ y for x, y in zip(a, b)])
+    return a @ b
+
+
+def mvdr_solve(r: torch.Tensor, d: torch.Tensor,
+               streams: bool = False) -> torch.Tensor:
     """w = R^-1 d / (d^H R^-1 d) per bin; r (..., M, M), d (..., M).
 
     The unpolished Gauss-Jordan inverse is refined on the right-hand side:
     one residual step reproduces the Newton-polished solution exactly.
+    ``streams``: r and d lead with a stream axis; the inverse is one launch
+    for every stream, the products :func:`stream_matmul`'s.
     """
+    def mv(a, v):
+        return stream_matmul(a, v[..., None], streams)[..., 0]
+
     inv = batched_inv(r, polish=False)
-    x0 = (inv @ d[..., None])[..., 0]
-    resid = d - (r @ x0[..., None])[..., 0]
-    num = x0 + (inv @ resid[..., None])[..., 0]
+    x0 = mv(inv, d)
+    resid = d - mv(r, x0)
+    num = x0 + mv(inv, resid)
     den = (d.conj() * num).sum(-1)
     return num / den[..., None]
 
@@ -223,7 +245,7 @@ class MvdrModel(BatchableModel, nn.Module):
                 return mvdr_stream(spec, hist0, d_ib, w_idx, gate, self.ib)
             return self._solve_dense(
                 spec.index_select(2, self.ib), hist0, gate,
-                lambda r, sl: mvdr_solve(r, d_ib[w_idx[sl]].movedim(1, -1)))
+                lambda r, sl: mvdr_solve(r, d_ib[w_idx[sl]].movedim(-2, -1)))
 
         return self._gated_forward(x, state, solve)
 
@@ -232,17 +254,22 @@ class MvdrModel(BatchableModel, nn.Module):
         """x (B, M, T*hop), (unique thetas (U,), index (B, T)), state with
         a leading B -> ((B, T*hop) output, new state): ``stream`` and
         ``mega`` in one launch of each kernel for the B streams, ``dense``
-        once per stream."""
+        in one Gauss-Jordan launch a block for the B streams."""
         thetas, idx = ctrl
         strategy = self._strategy()
-        if strategy == "dense":
-            return super().batched_forward(x, ctrl, state)
         d_ib = self._steering_ib(thetas)
         if strategy == "mega":
             return self._forward_mega(mvdr_mega, x, d_ib, idx, state)
-        return self._gated_forward_batched(
-            x, state, lambda spec, hist0, gate: mvdr_stream(
-                spec, hist0, d_ib, idx, gate, self.ib))
+
+        def solve(spec, hist0, gate):
+            if strategy == "stream":
+                return mvdr_stream(spec, hist0, d_ib, idx, gate, self.ib)
+            return self._solve_dense(
+                spec.index_select(3, self.ib).movedim(0, 1), hist0, gate,
+                lambda r, sl: mvdr_solve(
+                    r, d_ib[idx[:, sl]].movedim(-2, -1), streams=True))
+
+        return self._gated_forward_batched(x, state, solve)
 
     def _forward_mega(self, fused, x, ctrl, idx, state):
         """The fused path (``fused`` is ``mvdr_mega`` or ``lcmv_mega``): raw
@@ -318,31 +345,39 @@ class MvdrModel(BatchableModel, nn.Module):
         return out * p.out_amp, (common.WolaCarry(tail, prev), hist)
 
     def _solve_dense(self, x_ib, hist0, gate, weights):
-        """The block pipeline: (T, M, NIB) in-band spectra -> (T, NIB)
-        gated output. ``weights(r (n, NIB, M, M), frames slice) -> (n, NIB,
-        M)`` turns a block's loaded covariances into beamformer weights."""
+        """The block pipeline: (T, M, NIB) in-band spectra, history (W, M,
+        NIB), gate (T, NIB) -> (T, NIB) gated output; or B streams, with a
+        leading B on each. ``weights(r (..., n, NIB, M, M), frames slice)
+        -> (..., n, NIB, M)`` turns a block's loaded covariances into
+        beamformer weights: the B streams' blocks go through it at once, so
+        its Gauss-Jordan inverse launches once a block for all of them. The
+        block is one stream's (:meth:`_block_frames`), as JAX's vmap keeps
+        it, so the block's workspaces grow B-fold (one stream's outer
+        products alone ~128 MB)."""
         w = self.params.past_windows
-        t = x_ib.shape[0]
+        t, m = x_ib.shape[-3], x_ib.shape[-2]
         cb = self._block_frames(t)
-        wr = white_r(x_ib.shape[1], self.rdtype, x_ib.device)
+        wr = white_r(m, self.rdtype, x_ib.device)
         # sliding-window selector: G[c] = sum of the W frames BEFORE frame c
         # (the reference updates history after solving, mvdr.cpp:87,100-101)
         ones = torch.ones((cb, cb + w), dtype=self.rdtype,
                           device=x_ib.device)
         band = (ones.tril(w - 1) - ones.tril(-1)).to(self.cdtype)
-        ext = torch.cat([hist0, x_ib], dim=0)               # (W+T, M, NIB)
-        y_ib = torch.empty((t, x_ib.shape[2]), dtype=self.cdtype,
-                           device=x_ib.device)
+        ext = torch.cat([hist0, x_ib], dim=-3)              # (W+T, M, NIB)
+        y_ib = torch.empty(x_ib.shape[:-2] + x_ib.shape[-1:],
+                           dtype=self.cdtype, device=x_ib.device)
         for c0 in range(0, t, cb):
             n = min(cb, t - c0)
-            e = ext[c0:c0 + n + w]                          # (W+n, M, NIB)
-            o = torch.einsum("tmn,tkn->tnmk", e, e.conj())
-            g = torch.einsum("ct,tnmk->cnmk", band[:n, :n + w], o)
+            e = ext[..., c0:c0 + n + w, :, :]               # (W+n, M, NIB)
+            o = torch.einsum("...tmn,...tkn->...tnmk", e, e.conj())
+            g = torch.einsum("ct,...tnmk->...cnmk", band[:n, :n + w], o)
             w_opt = weights(g * wr, slice(c0, c0 + n))
-            xb = x_ib[c0:c0 + n]
-            y_bf = torch.einsum("tnm,tmn->tn", w_opt.conj(), xb)
-            y_ib[c0:c0 + n] = torch.where(gate[c0:c0 + n], y_bf,
-                                          0.01 * xb[:, 0, :])
+            xb = x_ib[..., c0:c0 + n, :, :]
+            # w^H x per (frame, bin), products summed over the mics: each
+            # sum in one order however many streams the block holds
+            y_bf = (w_opt.conj() * xb.movedim(-1, -2)).sum(-1)
+            y_ib[..., c0:c0 + n, :] = torch.where(
+                gate[..., c0:c0 + n, :], y_bf, 0.01 * xb[..., 0, :])
         return y_ib
 
     @torch.no_grad()

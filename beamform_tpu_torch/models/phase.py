@@ -14,6 +14,11 @@ on CUDA (the mask's plain version on the CPU); ``xla``, the batched
 formulation :func:`phase_mask_spectral` in frame blocks, plain torch on
 either device. The node is stateless per frame: its streaming state is the
 WOLA boundary carry.
+
+Batched serving (:meth:`PhaseModel.batched_forward`): one analysis launch
+of the B*M channels, the mask over the B streams (``fused``: one launch of
+the phase-mask kernel; ``xla``: the streams' frames folded into one frame
+axis) and one synthesis launch of the B outputs.
 """
 
 from __future__ import annotations
@@ -154,6 +159,40 @@ class PhaseModel(BatchableModel, nn.Module):
                                         pairs=len(self.ia))
         out, prev = common.istft_ext_carry(y, self.engine, self.window,
                                            carry.out_prev)
+        return out, common.WolaCarry(tail, prev)
+
+    @torch.no_grad()
+    def batched_forward(self, x, ctrl, state: common.WolaCarry):
+        """x (B, M, T*hop), (unique thetas (U,), index (B, T)), carries
+        with a leading B -> ((B, T*hop) output, new carries). The
+        single-stream :meth:`_forward` stays apart: at B = 1 this
+        pipeline's reshapes would cost each call host time that its
+        launches wait for."""
+        thetas, idx = ctrl
+        p = self.params
+        nfft = self.engine.fft_win
+        spec, _, tail = common.stft_streams_carry(
+            x, self.engine, self.window, self.cdtype, state.tail)
+        w_uniq = common.weights_for_thetas(self.geom, self.freqs, thetas,
+                                           self.rdtype, self.cdtype)
+        if self._strategy() == "fused":
+            y = phase_mask(spec, w_uniq, idx, p.min_phase * math.pi / 180.0,
+                           p.mag_threshold, p.mag_mult, nfft)
+        else:
+            # stateless per frame: the (T, B) frames as one frame axis
+            t, b, m, nb = spec.shape
+
+            def mask_fn(args):
+                spec_b, idx_b = args
+                return phase_mask_spectral(spec_b, w_uniq[idx_b], p, nfft,
+                                           self.ia, self.ib,
+                                           bf16=p.spectra_bf16)
+
+            y = common.map_frame_blocks(
+                mask_fn, spec.reshape(t * b, m, nb), idx.T.reshape(-1),
+                pairs=len(self.ia)).reshape(t, b, nb).movedim(0, 1)
+        out, prev = common.istft_channels_carry(y, self.engine, self.window,
+                                                state.out_prev)
         return out, common.WolaCarry(tail, prev)
 
     @torch.no_grad()

@@ -28,6 +28,12 @@ launches on CUDA, the plain version on the CPU) between the WOLA kernels;
 :func:`mpf_update`, plain torch on either device. The output smoother is
 plain torch on both: the JAX package leaves it to XLA. Streaming state is
 ``(WolaCarry, MpfState, smoother tail (smooth_size - 1,))``.
+
+Batched serving (:meth:`PhasempfModel.batched_forward`): one analysis
+launch of the B*M channels, the MPF kernels' one call for the B streams
+(``fused``) or the dual beams over the streams' frames and the march on
+(B, NB) state (``xla``), one synthesis launch of the B outputs and the
+smoother over (B, S).
 """
 
 from __future__ import annotations
@@ -42,8 +48,8 @@ from beamform_tpu_torch.geometry import ArrayGeometry
 # MpfState and mpf_update are part of this module's surface; they live with
 # the MPF kernels, whose plain version needs them too
 from beamform_tpu_torch.kernels.phase_mask import (MpfState, init_state,
-                                                   mpf_march, mpf_out_mag,
-                                                   mpf_update)
+                                                   march_frames, mpf_march,
+                                                   mpf_out_mag, mpf_update)
 from beamform_tpu_torch.models import common
 from beamform_tpu_torch.models.batching import BatchableModel
 from beamform_tpu_torch.models.phase import (SOLVERS, mask_strategy,
@@ -94,10 +100,11 @@ def buggy_freq_smooth(soi_sq, dc_amp):
 
 
 def _ma_shifted_sum(yp, size: int, n: int):
-    """The sum of ``size`` shifted views, over ``size``."""
-    acc = yp[size - 1:size - 1 + n]
+    """The sum of ``size`` shifted views along the last axis, over
+    ``size``."""
+    acc = yp[..., size - 1:size - 1 + n]
     for k in range(1, size):
-        acc = acc + yp[size - 1 - k:size - 1 - k + n]
+        acc = acc + yp[..., size - 1 - k:size - 1 - k + n]
     return acc / size
 
 
@@ -111,12 +118,13 @@ def moving_average_causal(y, size: int):
 
 
 def moving_average_causal_carry(y, size: int, tail):
-    """Streaming variant: ``tail`` is the previous (size-1,) samples.
+    """Streaming variant along the last axis: ``tail`` is the previous
+    (..., size-1) samples (B streams: y (B, S), tail (B, size-1)).
     Returns (smoothed, new_tail)."""
     if size <= 1:
         return y, tail
-    yp = torch.cat([tail.to(y.dtype), y])
-    return _ma_shifted_sum(yp, size, y.shape[0]), yp[-(size - 1):]
+    yp = torch.cat([tail.to(y.dtype), y], dim=-1)
+    return _ma_shifted_sum(yp, size, y.shape[-1]), yp[..., -(size - 1):]
 
 
 class PhasempfModel(BatchableModel, nn.Module):
@@ -156,35 +164,42 @@ class PhasempfModel(BatchableModel, nn.Module):
 
     def _march_batched(self, spec, w_uniq, w_idx, mstate: MpfState):
         """The ``xla`` strategy: the dual beams in frame blocks, then the
-        MCRA/MPF recurrences frame by frame. Returns (y (T, NB), state)."""
+        MCRA/MPF recurrences frame by frame. spec (T, M, NB) and w_idx
+        (T,) -> (y (T, NB), state); or B streams, spec (T, B, M, NB), w_idx
+        (B, T) and the state's vectors (B, NB) -> y (B, T, NB)."""
         p = self.params
+        lead = spec.shape[1:-2]               # (), or (B,)
+        m, nb = spec.shape[-2:]
 
         # chunk the stateless dual-beam mask over frame blocks (the pairwise
-        # tensor is (T, M(M-1)/2, NB) otherwise)
+        # tensor is (T, M(M-1)/2, NB) otherwise); B streams' (T, B) frames
+        # as one frame axis
         def mask_fn(args):
             spec_b, idx_b = args
             return dual_beam(spec_b, w_uniq[idx_b],
                              p.min_phase * math.pi / 180.0, p.min_mag,
                              self.ia, self.ib)
 
-        soi, intf = common.map_frame_blocks(mask_fn, spec, w_idx,
-                                            pairs=len(self.ia))
+        soi, intf = (a.reshape(spec.shape[:-2] + (nb,)) for a in
+                     common.map_frame_blocks(
+                         mask_fn, spec.reshape(-1, m, nb),
+                         w_idx.T.reshape(-1) if lead else w_idx,
+                         pairs=len(self.ia)))
         soi_sq = soi.abs() ** 2
-        soi_sq[:, 0] = 0.0                    # set only for j >= 1
+        soi_sq[..., 0] = 0.0                  # set only for j >= 1
         int_sq = intf.abs() ** 2
-        int_sq[:, 0] = 0.0
-        s_f = buggy_freq_smooth(soi_sq, soi[:, 0].abs())
-        lams, noises = [], []
-        for t in range(spec.shape[0]):
-            mstate, lam = mpf_update(mstate, s_f[t], soi_sq[t], int_sq[t], p)
-            lams.append(lam)
-            noises.append(mstate.lam_noise)
+        int_sq[..., 0] = 0.0
+        s_f = buggy_freq_smooth(soi_sq, soi[..., 0].abs())
+
+        def step(st, t):
+            st, lam = mpf_update(st, s_f[t], soi_sq[t], int_sq[t], p)
+            return st, (lam, st.lam_noise)
+
+        mstate, (lams, noises) = march_frames(mstate, spec.shape[0], step)
         mag_soi, pha = common.polar_mag_phase(soi)
-        y = common.from_mag_phase(
-            mpf_out_mag(mag_soi, torch.stack(lams), torch.stack(noises), p),
-            pha)
-        y[:, 0] = 0.0 if self.engine.bug_dc_zero else soi[:, 0]
-        return y, mstate
+        y = common.from_mag_phase(mpf_out_mag(mag_soi, lams, noises, p), pha)
+        y[..., 0] = 0.0 if self.engine.bug_dc_zero else soi[..., 0]
+        return (y.movedim(0, 1) if lead else y), mstate
 
     def _forward(self, x, thetas, w_idx, state):
         """x (M, T*hop), unique thetas (U,), per-frame index (T,) ->
@@ -202,6 +217,30 @@ class PhasempfModel(BatchableModel, nn.Module):
             y, mstate = self._march_batched(spec, w_uniq, w_idx, mstate)
         out, prev = common.istft_ext_carry(y, self.engine, self.window,
                                            carry.out_prev)
+        out, smooth_tail = moving_average_causal_carry(out, p.smooth_size,
+                                                       smooth_tail)
+        return out, (common.WolaCarry(tail, prev), mstate, smooth_tail)
+
+    @torch.no_grad()
+    def batched_forward(self, x, ctrl, state):
+        """x (B, M, T*hop), (unique thetas (U,), index (B, T)), state with
+        a leading B -> ((B, T*hop) output, new state). The single-stream
+        :meth:`_forward` stays apart: at B = 1 this pipeline's reshapes
+        would cost each call host time that its launches wait for."""
+        thetas, idx = ctrl
+        p = self.params
+        carry, mstate, smooth_tail = state
+        spec, _, tail = common.stft_streams_carry(
+            x, self.engine, self.window, self.cdtype, carry.tail)
+        w_uniq = common.weights_for_thetas(self.geom, self.freqs, thetas,
+                                           self.rdtype, self.cdtype)
+        if self._strategy() == "fused":
+            y, mstate = mpf_march(spec, w_uniq, idx, mstate, p,
+                                  self.engine.bug_dc_zero)
+        else:
+            y, mstate = self._march_batched(spec, w_uniq, idx, mstate)
+        out, prev = common.istft_channels_carry(y, self.engine, self.window,
+                                                carry.out_prev)
         out, smooth_tail = moving_average_causal_carry(out, p.smooth_size,
                                                        smooth_tail)
         return out, (common.WolaCarry(tail, prev), mstate, smooth_tail)

@@ -6,7 +6,9 @@ Inputs are numpy scenes from a seed on aira3 at hop 128 (0.1 s, three
 streams steered at 5, -20 and 40 degrees), as tests/test_batch.py builds
 them. On the CPU the port runs its kernels' plain versions; ``solver``
 variants drive the plain versions of the stream-axis kernels (rows 3-6:
-``mvdr_stream``, ``lcmv_stream``, ``mega_stream``, ``gss_mega``). Bars:
+``mvdr_stream``, ``lcmv_stream``, ``mega_stream``, ``gss_mega``; rows 7
+and 8 and the MCRA march: ``phase_mask``, ``mpf_march``, ``mcra_march``)
+and MVDR's ``dense`` block pipeline over a stream axis. Bars:
 
 * float64, the port's BatchRunner against the JAX BatchRunner, and each
   stream against the port's single-stream ``process``: 1e-10 (the bar of
@@ -17,6 +19,11 @@ variants drive the plain versions of the stream-axis kernels (rows 3-6:
   for float64 through a float32 WAV); each stream against the port's own
   float32 single-stream run: 1e-7, the bar of the JAX package's
   test_batch_vmaps_the_mega_kernel;
+* float32 ``solver="fused"`` phase and phasempf: each stream against the
+  port's own float32 single-stream run bit for bit, and against the JAX
+  float32 runner (its Pallas kernel in interpret mode) under the JAX
+  package's mask contract, tests/test_phase_mask.py
+  ``assert_close_mod_flips``;
 * the plain versions with a stream axis against the old per-stream plain
   version: bit for bit.
 """
@@ -38,13 +45,16 @@ from beamform_tpu_torch.kernels import gss_stream as tgss
 from beamform_tpu_torch.kernels import lcmv_stream as tlcmv
 from beamform_tpu_torch.kernels import mega_stream as tmega
 from beamform_tpu_torch.kernels import mvdr_stream as tmvdr
+from beamform_tpu_torch.kernels import phase_mask as tpm
 from beamform_tpu_torch.kernels import wola as twola
 from beamform_tpu_torch.models import get_model
+from beamform_tpu_torch.models.batching import stack_states
 from beamform_tpu_torch.runtime import batch as batch_mod
 from beamform_tpu_torch.runtime.batch import BatchRunner
 from beamform_tpu_torch.runtime.timeline import static_interference
 
 from conftest import AIRA3, make_scene
+from test_phase_mask import assert_close_mod_flips
 
 HOP = 128
 B = 3
@@ -73,6 +83,8 @@ VARIANTS = {
     "lcmv-stream": ("lcmv", dict(GATED, solver="stream")),
     "lcmv-mega": ("lcmv", dict(GATED, solver="mega")),
     "gss-mega": ("gss", dict(NODES["gss"], solver="mega")),
+    "mvdr-dense": ("mvdr", dict(GATED, solver="dense")),
+    "lcmv-dense": ("lcmv", dict(GATED, solver="dense")),
 }
 CASES = {**{k: (k, v) for k, v in NODES.items()}, **VARIANTS}
 
@@ -132,7 +144,8 @@ def test_batch_matches_single_stream(case):
 
 
 @pytest.mark.parametrize("case", ["das", "mvdr-stream", "lcmv-mega",
-                                  "gss-mega", "gsc", "mcra"])
+                                  "gss-mega", "gsc", "mcra", "phasempf",
+                                  "read", "mvdr-dense"])
 def test_batch_state_carries_across_chunks(case):
     """Two half chunks equal one whole call; the JAX runner's state after
     chunk 1, converted, gives the JAX runner's chunk 2 on the port."""
@@ -304,10 +317,77 @@ def _stream_operands(rng, b=3, t=9, m=4, nb=18, w=3, u=2, s=2):
                 gate=torch.as_tensor(rng.random((b, t, nib)) > 0.3), ib=ib)
 
 
-@pytest.mark.parametrize("row", ["mvdr_stream", "lcmv_stream"])
+def _mask_operands(rng, b=3, t=9, m=4, nb=18, u=2):
+    """Rows 7 and 8 and the MCRA march with a stream axis: spectra (T, B,
+    M, NB) of a source steered by one of ``u`` rows under noise that rises
+    over the bins (so both masks' gates open and close), the steering,
+    each (stream, frame)'s row, and states whose current_l differ per
+    stream (one rolls over at the second frame under L = 3)."""
+    w = torch.as_tensor(np.exp(1j * rng.uniform(-np.pi, np.pi, (u, m, nb))))
+    idx = torch.as_tensor(rng.integers(0, u, (b, t)))
+    src = rng.standard_normal((t, b, 1, nb)) + 1j * rng.standard_normal(
+        (t, b, 1, nb))
+    noise = (rng.standard_normal((t, b, m, nb))
+             + 1j * rng.standard_normal((t, b, m, nb)))
+    spec = torch.as_tensor(src * w.numpy()[idx.numpy().T]
+                           + noise * np.linspace(0.01, 2.0, nb))
+    cur = [0, 2, 4][:b]
+    states = {cls: [tpm.init_state(cls, nb, torch.float64)._replace(
+        current_l=torch.tensor(c, dtype=torch.int32)) for c in cur]
+        for cls in (tpm.MpfState, tpm.McraState)}
+    return spec, w, idx, states
+
+
+def _mask_row(row, spec, w, idx, states):
+    """(the row's plain version on B streams, on each stream alone): each
+    (output, state) or output."""
+    from beamform_tpu_torch.config import McraParams, PhasempfParams
+    b = spec.shape[1]
+    if row == "phase_mask":
+        args = (0.6, 0.001, 0.1, 32)
+        return (tpm.phase_mask_plain(spec, w, idx, *args),
+                [tpm.phase_mask_plain(spec[:, i].contiguous(), w, idx[i],
+                                      *args) for i in range(b)])
+    if row == "mpf_march":
+        p = PhasempfParams(**dict(NODES["phasempf"], MCRA_L=3))
+        sts = states[tpm.MpfState]
+        return (tpm.mpf_march_plain(spec, w, idx, stack_states(sts), p,
+                                    True),
+                [tpm.mpf_march_plain(spec[:, i].contiguous(), w, idx[i],
+                                     sts[i], p, True) for i in range(b)])
+    p = McraParams(L=3)
+    x = spec[:, :, 0]
+    sq = x.abs() ** 2
+    s_f = sq * 0.75
+    sts = states[tpm.McraState]
+    return (tpm.mcra_march_plain(s_f, sq, x, stack_states(sts), p, False),
+            [tpm.mcra_march_plain(s_f[:, i].contiguous(),
+                                  sq[:, i].contiguous(), x[:, i].contiguous(),
+                                  sts[i], p, False) for i in range(b)])
+
+
+@pytest.mark.parametrize("row", ["mvdr_stream", "lcmv_stream", "phase_mask",
+                                 "mpf_march", "mcra_march"])
 def test_stream_axis_plain_equals_per_stream(row):
-    """Rows 3 and 5: the plain version with a stream axis is the old
-    plain version per stream, stacked, bit for bit."""
+    """Rows 3, 5, 7 and 8 and the MCRA march: the plain version with a
+    stream axis is the old plain version per stream, stacked, bit for bit
+    (the marches' states too, current_l differing per stream)."""
+    if row in ("phase_mask", "mpf_march", "mcra_march"):
+        got, refs = _mask_row(row, *_mask_operands(
+            np.random.default_rng(6)))
+        for i, ref in enumerate(refs):
+            if row == "phase_mask":
+                assert got.shape == (3, 9, 18)
+                assert torch.equal(got[i], ref)
+                continue
+            assert got[0].shape == (3, 9, 18)
+            assert torch.equal(got[0][i], ref[0])
+            assert got[1].current_l.shape == (3,)
+            for a, r in zip(got[1], ref[1]):
+                assert torch.equal(a[i], r)
+        if row == "mpf_march":
+            assert got[1].current_l.tolist() != [got[1].current_l[0]] * 3
+        return
     o = _stream_operands(np.random.default_rng(3))
     if row == "mvdr_stream":
         fn, ctrl = tmvdr.mvdr_stream, o["d"]
@@ -358,6 +438,68 @@ def test_fused_stream_axis_plain_equals_per_stream(row):
     for i, ref in enumerate(refs):
         for g, r in zip(got, ref):
             assert torch.equal(g[i], r)
+
+
+@pytest.mark.parametrize("name", ["phase", "phasempf"])
+def test_batch_fused_float32(name):
+    """float32 ``solver="fused"`` batched (one call of the mask kernels'
+    plain version for the B streams): each stream equals the port's own
+    float32 single-stream run bit for bit, and the JAX float32 runner with
+    its Pallas kernel in interpret mode under the mask contract."""
+    jeng, teng = _engines("float32")
+    params = dict(NODES[name], solver="fused")
+    got = BatchRunner(name, teng, parse_array_config(_cfg()), params,
+                      batch=B, device="cpu").process(_scenes(), THETAS)
+    model = get_model(name, teng, parse_array_config(_cfg()), params,
+                      device="cpu")
+    for i in range(B):
+        assert torch.equal(got[i], model.process(_scenes()[i],
+                                                 float(THETAS[i])))
+    ref = np.asarray(JBatchRunner(name, jeng, jparse(_cfg()), params,
+                                  batch=B).process(_scenes(), THETAS))
+    assert np.abs(ref).max() > 0
+    assert_close_mod_flips(got.numpy(), ref)
+
+
+# the kernel wrapper each batched node path calls, by (case, float dtype,
+# the module that imports it)
+SPIED = {"phase-fused": ("phase", dict(NODES["phase"], solver="fused"),
+                         "float32", "phase", "phase_mask"),
+         "phasempf-fused": ("phasempf",
+                            dict(NODES["phasempf"], solver="fused"),
+                            "float32", "phasempf", "mpf_march"),
+         "mcra": ("mcra", NODES["mcra"], "float64", "mcra", "mcra_march"),
+         "mvdr-dense": ("mvdr", dict(GATED, solver="dense"), "float64",
+                        "mvdr", "gj_inverse"),
+         "lcmv-dense": ("lcmv", dict(GATED, solver="dense"), "float64",
+                        "mvdr", "gj_inverse")}
+
+
+@pytest.mark.parametrize("case", list(SPIED))
+def test_batched_forward_calls_each_kernel_as_one_stream_does(case,
+                                                              monkeypatch):
+    """A batched chunk of B = 3 streams calls the node's kernel wrapper as
+    often as B = 1 does (dense: a Gauss-Jordan call a block, two for
+    LCMV), not B times as often."""
+    import importlib
+    name, params, dtype, module, fn = SPIED[case]
+    mod = importlib.import_module(f"beamform_tpu_torch.models.{module}")
+    calls = []
+    real = getattr(mod, fn)
+
+    def spy(*args, **kwargs):
+        calls.append(fn)
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(mod, fn, spy)
+    counts = []
+    for b in (1, B):
+        calls.clear()
+        BatchRunner(name, _engines(dtype)[1], parse_array_config(_cfg()),
+                    params, batch=b, device="cpu").process(_scenes()[:b],
+                                                           THETAS[:b])
+        counts.append(len(calls))
+    assert counts[0] == counts[1] >= 1, counts
 
 
 def test_analysis_gate_statistic_per_stream():

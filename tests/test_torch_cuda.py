@@ -1274,6 +1274,109 @@ def test_march_kernels_ragged_shapes(cuda, kernel, nb, t):
         _assert_close_mod_flips(a, b)
 
 
+def _stream_mask_operands(m, t, nb, b, seed, device):
+    """B streams' spectra (T, B, M, NB), each _phase_operands' scene of
+    its own source under one shared geometry and steering (two rows), and
+    each (stream, frame)'s row (B, T)."""
+    from beamform_tpu_torch.geometry import (ArrayGeometry, steering_delays,
+                                             steering_weights)
+    rng = np.random.default_rng(seed)
+    geom = ArrayGeometry.from_xy(rng.uniform(-0.1, 0.1, (m, 2)).tolist())
+    freqs = torch.linspace(0.0, 24000.0, nb, dtype=torch.float64)
+    w = steering_weights(freqs, steering_delays(geom, [20.0, -40.0]))
+    idx = np.sort(rng.integers(0, 2, (b, t)), axis=1)
+    src = (rng.standard_normal((t, b, 1, nb))
+           + 1j * rng.standard_normal((t, b, 1, nb)))
+    noise = (rng.standard_normal((t, b, m, nb))
+             + 1j * rng.standard_normal((t, b, m, nb)))
+    spec = src * w.numpy()[idx.T] + noise * np.linspace(0.01, 2.0, nb)
+    return (torch.as_tensor(spec, dtype=torch.complex64, device=device),
+            w.to(torch.complex64).to(device),
+            torch.as_tensor(idx, dtype=torch.int64, device=device))
+
+
+@pytest.mark.parametrize("b", [1, 3])
+@pytest.mark.parametrize("m", [3, 16])
+@pytest.mark.parametrize("row", ["phase_mask", "mpf_march", "mcra_march"])
+def test_mask_kernels_take_a_stream_axis(cuda, row, m, b):
+    """Rows 7 and 8 and the MCRA march on B streams (T, B, M, NB), from
+    carried states whose current_L differ per stream (L = 7: the streams
+    roll over at different frames): one launch; each stream equals the same
+    kernel on that stream alone bit for bit, output and state; and the
+    plain version with the stream axis under the flip contract, current_L
+    and first_L exact."""
+    from beamform_tpu_torch.config import McraParams, PhasempfParams
+    from beamform_tpu_torch.kernels import phase_mask as kpm
+    from beamform_tpu_torch.models.batching import stack_states
+    from beamform_tpu_torch.models.mcra import freq_smooth
+    t, nb = 70, 130
+    spec, w, idx = _stream_mask_operands(m, t, nb, b, 40 + m + b, cuda)
+    cur = [7, 2, 5][:b]
+    if row == "phase_mask":
+        fn, plain = kpm.phase_mask, kpm.phase_mask_plain
+        args = lambda i: ((spec, w, idx) if i is None else  # noqa: E731
+                          (spec[:, i].contiguous(), w, idx[i].contiguous()))
+        tail = (0.35, 0.004, 0.1, 2 * (nb - 2))
+        states = None
+    elif row == "mpf_march":
+        fn, plain = kpm.mpf_march, kpm.mpf_march_plain
+        p = PhasempfParams(**dict(load_launch_params("phasempf"), MCRA_L=7))
+        states = [_carried(kpm.MpfState, lambda st, n, i=i: kpm.mpf_march_plain(
+            spec[:n, i].contiguous(), w, idx[i, :n].contiguous(), st, p,
+            True)[1], nb, cuda)._replace(current_l=torch.tensor(
+                c, dtype=torch.int32, device=cuda))
+            for i, c in enumerate(cur)]
+        args = lambda i: ((spec, w, idx) if i is None else  # noqa: E731
+                          (spec[:, i].contiguous(), w, idx[i].contiguous()))
+        tail = (p, True)
+    else:
+        fn, plain = kpm.mcra_march, kpm.mcra_march_plain
+        p = McraParams(**dict(load_launch_params("mcra"), L=7))
+        x = spec[:, :, 0].contiguous()
+        sq = x.abs() ** 2
+        s_f = freq_smooth(sq, x[..., 0].abs())
+        states = [_carried(kpm.McraState, lambda st, n, i=i: kpm.mcra_march_plain(
+            s_f[:n, i], sq[:n, i], x[:n, i], st, p, False)[1], nb,
+            cuda)._replace(current_l=torch.tensor(c, dtype=torch.int32,
+                                                  device=cuda))
+            for i, c in enumerate(cur)]
+        args = lambda i: ((s_f, sq, x) if i is None else  # noqa: E731
+                          tuple(a[:, i].contiguous() for a in (s_f, sq, x)))
+        tail = (p, False)
+
+    def call(f, i):
+        if states is None:
+            return f(*args(i), *tail)
+        st = stack_states(states) if i is None else states[i]
+        return f(*args(i), st, *tail)
+
+    before = fn.launches
+    got = call(fn, None)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    y = got if states is None else got[0]
+    assert y.shape == (b, t, nb)
+    for i in range(b):
+        one = call(fn, i)
+        if states is None:
+            assert torch.equal(y[i], one)
+            continue
+        assert torch.equal(y[i], one[0])
+        for name, a, r in zip(one[1]._fields, got[1], one[1]):
+            assert torch.equal(a[i], r), name
+    ref = call(plain, None)
+    if states is None:
+        _assert_close_mod_flips(y, ref)
+        return
+    _assert_close_mod_flips(y, ref[0])
+    assert torch.equal(got[1].current_l.cpu(), ref[1].current_l.cpu())
+    assert torch.equal(got[1].first_l.cpu(), ref[1].first_l.cpu())
+    if b > 1:
+        assert len(set(got[1].current_l.tolist())) > 1
+    for a, r in zip(got[1][:-2], ref[1][:-2]):
+        _assert_close_mod_flips(a, r)
+
+
 def test_phase_wrappers_refuse_what_they_do_not_take(cuda):
     from beamform_tpu_torch.config import McraParams, PhasempfParams
     from beamform_tpu_torch.kernels import phase_mask as kpm
@@ -1949,15 +2052,22 @@ def test_gss_kernel_takes_a_stream_axis(cuda, b, s):
 @pytest.mark.parametrize("node,solver,exact", [
     ("das", None, True), ("mvdr", "auto", True), ("mvdr", "mega", False),
     ("lcmv", "auto", True), ("lcmv", "mega", False), ("gss", None, False),
-    ("gsc", "sample", True), ("gsc", "blocklms", True)])
+    ("gsc", "sample", True), ("gsc", "blocklms", True),
+    ("phase", None, True), ("phasempf", None, True), ("mcra", None, True),
+    ("ref", None, True), ("read", None, True), ("mvdr", "dense", False),
+    ("lcmv", "dense", False)])
 def test_batch_runner_on_cuda_matches_single_streams(cuda, node, solver,
                                                      exact):
     """BatchRunner at three streams of 16 mics, two chunks: each stream
     equals the same model's single-stream streaming run on the card (bit
     for bit, or within 1e-6 of its peak where the fused kernels add with
-    atomics), with one launch of each kernel of the path per chunk."""
+    atomics or ``dense``'s batched einsums sum in another order), with each
+    kernel of the path launched as often per chunk as one stream's call
+    launches it (once; ``dense``'s Gauss-Jordan inverse once a block, twice
+    for LCMV; ``ref`` and ``read`` launch none)."""
     from beamform_tpu_torch.kernels import gsc as kg
     from beamform_tpu_torch.kernels import gsc_blocklms as kb
+    from beamform_tpu_torch.kernels import phase_mask as kpm
     from beamform_tpu_torch.runtime.batch import BatchRunner
     cfg = load_array_config(os.path.join(ROOT, "beamform_tpu_torch",
                                          "configs", "aira16.yaml"))
@@ -1978,21 +2088,28 @@ def test_batch_runner_on_cuda_matches_single_streams(cuda, node, solver,
                          device=cuda)
     fns = [kw.wola_analysis, kw.wola_synthesis, km.mvdr_stream,
            klc.lcmv_stream, kmega.mega_stream, kgss.gss_mega, kg.gsc_sample,
-           kb.gsc_blocklms]
-    outs = []
+           kb.gsc_blocklms, kpm.phase_mask, kpm.mpf_march, kpm.mcra_march,
+           kl.gj_inverse]
+    sessions = [StreamingSession(get_model(node, EngineConfig(), cfg, params,
+                                           device=cuda))
+                for _ in range(NB16)]
+    outs, ones = [], [[] for _ in range(NB16)]
     for c in range(2):
+        xc = x[:, :, c * t * hop:(c + 1) * t * hop]
         before = [f.launches for f in fns]
-        outs.append(runner.process(x[:, :, c * t * hop:(c + 1) * t * hop],
-                                   thetas))
+        outs.append(runner.process(xc, thetas))
         ran = [f.launches - b for f, b in zip(fns, before)]
-        assert set(ran) <= {0, 1} and sum(ran) >= 1, ran
+        before = [f.launches for f in fns]
+        ones[0].append(sessions[0].process(xc[0], float(thetas[0])))
+        single = [f.launches - b for f, b in zip(fns, before)]
+        assert ran == single, (ran, single)
+        assert sum(ran) >= (0 if node in ("ref", "read") else 1), ran
+        for i in range(1, NB16):
+            ones[i].append(sessions[i].process(xc[i], float(thetas[i])))
     got = torch.cat(outs, dim=1)
     assert torch.isfinite(got).all()
     for i in range(NB16):
-        sess = StreamingSession(get_model(node, EngineConfig(), cfg, params,
-                                          device=cuda))
-        one = torch.cat([sess.process(x[i, :, c * t * hop:(c + 1) * t * hop],
-                                      float(thetas[i])) for c in range(2)])
+        one = torch.cat(ones[i])
         if exact:
             assert torch.equal(got[i], one)
         else:

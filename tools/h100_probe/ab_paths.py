@@ -37,8 +37,10 @@ frames at 678 bins: 55,596 matrices of 16 x 16). A checkout with the
 batched runner (``beamform_tpu_torch/runtime/batch.py``) also times one
 ``BatchRunner.process`` of a 2 s chunk of chip_smoke.py's batched input
 (8 streams of 16 mics, thetas linspace(-60, 60, 8)) for MVDR ``auto``,
-LCMV ``auto``, MVDR ``mega`` and GSS, CUDA events, median of 10 after 3
-warm-ups; a checkout without it reports none of these.
+LCMV ``auto``, MVDR ``mega``, GSS, phase, phasempf, mcra and MVDR
+``dense``, CUDA events, median of 10 after 3 warm-ups; a checkout without
+it reports none of these (one whose nodes lack a native batched step runs
+the protocol's default, a loop over the streams).
 CHANGE_ROOT defaults to this checkout. Prints one line per process, then
 per metric both sides' medians and ranges; imports no JAX.
 """
@@ -77,7 +79,9 @@ PATHS = (("das", "das", None, 10, False), ("mvdr", "mvdr", {}, 10, False),
 # (label, node, parameters over the launch preset) of the batched paths
 BATCHED = (("mvdr B=8", "mvdr", {}), ("lcmv B=8", "lcmv", {}),
            ("mvdr mega B=8", "mvdr", {"solver": "mega"}),
-           ("gss B=8", "gss", {}))
+           ("gss B=8", "gss", {}), ("phase B=8", "phase", {}),
+           ("phasempf B=8", "phasempf", {}), ("mcra B=8", "mcra", {}),
+           ("mvdr dense B=8", "mvdr", {"solver": "dense"}))
 ANALYSIS_T = (1407, 64)
 SYNTHESIS_C = (1, 16)
 
