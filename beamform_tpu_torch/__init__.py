@@ -9,8 +9,10 @@ solves, the batched Gauss-Jordan inverse and the fused audio-to-audio
 kernel; GSS, through its fused kernel; phase and phasempf, through the
 phase-mask and MPF kernels; mcra, through the MCRA march kernel; GSC,
 through the per-sample, block-LMS and lookahead-8 adaptive-stage kernels;
-the ref and read utility nodes (plain torch: no kernel). ROADMAP.md lists
-what follows.
+the ref and read utility nodes (plain torch: no kernel); batched serving;
+the live serving path (``--live`` over a pipe, a JACK graph or an ALSA
+PCM, the write node, output resampling, the run monitor) and the DOA
+steering refiners. ROADMAP.md lists what follows.
 
 Models run on the CUDA card unless the caller asks for the CPU
 (``device="cpu"``). Importing this package never loads JAX.

@@ -23,18 +23,26 @@ from torch.utils import _pytree as pytree
 
 from beamform_tpu_torch.config import ArrayConfig, EngineConfig
 from beamform_tpu_torch.models import get_model
+from beamform_tpu_torch.utils.profiling import RealTimeMonitor
 
 
 class StreamingSession:
     """Stateful wrapper around a model's (stream_init, process_chunk)."""
 
-    def __init__(self, model, chunk_frames: Optional[int] = None):
+    def __init__(self, model, chunk_frames: Optional[int] = None,
+                 monitor=None):
+        """``monitor``: None, True (a new ``RealTimeMonitor`` at the
+        model's rate) or a monitor, which times every ``process`` call up
+        to the moment its output is ready on the model's device."""
         self.model = model
         self.hop = model.engine.hop
         self.chunk_frames = chunk_frames
         self.state = model.stream_init()
         self.frames_done = 0
         self._last_theta = 0.0
+        if monitor is True:
+            monitor = RealTimeMonitor(model.engine.sample_rate)
+        self.monitor = monitor
 
     def process(self, x_chunk, theta=None, interference=None
                 ) -> torch.Tensor:
@@ -55,11 +63,19 @@ class StreamingSession:
                              f"{self.chunk_frames} * hop {self.hop}")
         if theta is None:
             theta = self._last_theta
+        if self.monitor is not None:
+            self.monitor.start_chunk()
         if interference is not None:
             out, self.state = self.model.process_chunk(
                 x, theta, self.state, interference=interference)
         else:
             out, self.state = self.model.process_chunk(x, theta, self.state)
+        if self.monitor is not None:
+            # a launch returns before the card is done: the chunk's
+            # deadline is met only when its output is ready
+            if out.device.type == "cuda":
+                torch.cuda.synchronize(out.device)
+            self.monitor.end_chunk(x.shape[-1])
         self._last_theta = float(np.atleast_1d(
             np.asarray(theta, dtype=np.float64))[-1])
         self.frames_done += x.shape[-1] // self.hop

@@ -31,7 +31,12 @@ against ``ref`` on the steered source). Last, batched serving through
 ``BatchRunner`` at bench.py's bench_batched shape (8 streams, GSC 32, of
 10 s in 2 s chunks: DAS, MVDR and LCMV ``auto`` and ``mega``, GSS, GSC
 ``sample`` and ``blocklms``), each stream against its single-stream run
-on the card, one launch of each kernel a chunk. It checks each output
+on the card, one launch of each kernel a chunk; then the live serving
+path through ``beamform-tpu-torch <node> --live``: DAS through a
+subprocess's pipe at 4 hops a chunk and at one hop a chunk fed at the
+audio rate (no xrun), MVDR and LCMV (``--interf-control``) through OS
+pipes, the JACK loop over the repository's fake server, each equal to
+the card's ``StreamingSession`` bit for bit. It checks each output
 against the float64 CPU path, counts each path's own kernel launches, and
 measures each path's xRT and device time per call (CUDA events). Each
 phase logs ``phase <name>: start`` and ``phase <name>: ok`` and raises on
@@ -2528,6 +2533,486 @@ def batch_kernel_times(xd, card: str):
             f"{REPS}) on {card}")
 
 
+# ---------------------------------------------------------------------------
+# the live serving path
+# ---------------------------------------------------------------------------
+
+LIVE_SECONDS = 10.0      # (b), (c): the first 10 s of the headline input
+LIVE_CHUNK = 4           # (a), (c): hops a chunk (85.3 ms at 48 kHz)
+JACK_CYCLES = 200        # (d): process cycles of the fake JACK server
+# (e): device work queued after a monitored chunk's own, in SM cycles of
+# torch.cuda._sleep (~50 ms at the H100's clock)
+BLOCK_CYCLES = 10 ** 8
+# (c): /theta_interference messages of the LCMV run, by chunk index, over
+# EVENTS' initial set (70 deg): add #2, move it, then move it within the
+# threshold of #1 (a proximity removal)
+LIVE_MSGS = {20: "2:-60.0", 60: "2:-30.0", 90: "2:70.5"}
+
+
+def aira16_yaml(tmp: str, interference=()) -> str:
+    """aira16.yaml with ``interference`` as its static set, in ``tmp``."""
+    path = os.path.join(tmp, f"aira16_{len(interference)}.yaml")
+    with open(os.path.join(ROOT, "beamform_tpu_torch", "configs",
+                           "aira16.yaml")) as f, open(path, "w") as g:
+        g.write(f.read() + "".join(f"\nangle_interf{k + 1}: {a}"
+                                   for k, a in enumerate(interference)))
+    return path
+
+
+def live_argv(node: str, cfg: str, chunk_hops: int, *extra) -> list:
+    """The command line of a 16-channel ``--live`` run on the card."""
+    return [node, "--live", "--live-channels", "16", "--array-config", cfg,
+            "--live-chunk", str(chunk_hops), "--theta", str(THETA),
+            "--device", DEVICE, *extra]
+
+
+def live_params(node: str, dtype: str = "float32"):
+    """A live run's node parameters: the CLI's launch preset; in float64
+    on the CPU the plain stream solve (``auto`` would take the plain
+    inverse), as phase_mvdr's references."""
+    if node == "das":
+        return None
+    return preset(node, **({"solver": "stream"} if dtype == "float64"
+                           else {}))
+
+
+def interf_rows(machine, k: int, chunk_hops: int):
+    """Chunk ``k``'s interference rows after LIVE_MSGS' message of that
+    chunk, as the CLI's poll of its control file gives them."""
+    reset = False
+    if k in LIVE_MSGS:
+        iid, ang = LIVE_MSGS[k].split(":")
+        reset = machine.apply(int(iid), float(ang))
+    return machine.rows(chunk_hops, reset_first=reset)
+
+
+def live_machine():
+    from beamform_tpu_torch.runtime.timeline import (MAX_INTERFERENCES,
+                                                     InterferenceMachine)
+    return InterferenceMachine(
+        list(EVENTS[0]), threshold=preset("lcmv")["interf_angle_threshold"],
+        capacity=MAX_INTERFERENCES)
+
+
+def session_run(node: str, x: np.ndarray, chunk_hops: int, dtype="float32",
+                device=None, timed: bool = False):
+    """``x`` through a StreamingSession in chunks of ``chunk_hops`` (the
+    tail zero-padded, the output cut to the input), as the live loop
+    chunks it; LCMV under LIVE_MSGS. ``timed``: first one zero warm-up
+    chunk and a fresh state, as the live loop starts, then every chunk
+    timed by a ``RealTimeMonitor`` (host numpy in, output ready on the
+    card). Returns (output, the monitor's report with its latency
+    percentiles, or None)."""
+    from beamform_tpu_torch.models import get_model
+    from beamform_tpu_torch.runtime.streaming import StreamingSession
+    from beamform_tpu_torch.utils.profiling import RealTimeMonitor
+    interf = EVENTS[0] if node == "lcmv" else ()
+    model = get_model(node, engine(dtype), aira16(interf),
+                      live_params(node, dtype), device=device or DEVICE)
+    sess = StreamingSession(model)
+    machine = live_machine() if node == "lcmv" else None
+    chunk = chunk_hops * HOP
+
+    def step(k, xc):
+        kw = ({} if machine is None else
+              {"interference": interf_rows(machine, k, chunk_hops)})
+        return sess.process(xc, THETA, **kw).cpu().numpy()
+
+    if timed:
+        step(-1, np.zeros((16, chunk), np.float32))
+        sess.state = model.stream_init()
+        sess.monitor = RealTimeMonitor(FS)
+    xp = np.pad(x, ((0, 0), (0, (-x.shape[1]) % chunk)))
+    y = np.concatenate([step(k, xp[:, k * chunk:(k + 1) * chunk])
+                        for k in range(xp.shape[1] // chunk)])[:x.shape[1]]
+    return y, (dict(sess.monitor.report(), chunk_ms=sess.monitor.latency_ms())
+               if timed else None)
+
+
+def live_reference(node: str, seconds: float, chunk_hops: int):
+    """The float64 CPU path of a live run at its chunking, run in a worker
+    process beside the card's phases."""
+    import torch
+    torch.set_num_threads(2)
+    x = make_input(16, SECONDS)[:, :int(seconds * FS)]
+    return session_run(node, x, chunk_hops, "float64", "cpu")[0]
+
+
+def live_report(err: str) -> dict:
+    """The ``{"live": ...}`` run report, the last JSON line of stderr."""
+    return json.loads([ln for ln in err.splitlines()
+                       if ln.startswith("{")][-1])["live"]
+
+
+def live_subprocess(argv: list, pcm: np.ndarray, paced: bool = False):
+    """``python -m beamform_tpu_torch.runtime.cli <argv>`` fed ``pcm``
+    ((S, 16) float32 frames) through its stdin: at once, or after a
+    handshake (one hop in, one out: the child's start and warm-up do not
+    count) one hop every HOP / FS seconds of the wall clock. Returns
+    (output, run report)."""
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "beamform_tpu_torch.runtime.cli", *argv],
+        stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, cwd=ROOT, env=dict(os.environ,
+                                                   PYTHONPATH=ROOT))
+    try:
+        if not paced:
+            out, err = proc.communicate(pcm.tobytes(), timeout=600)
+        else:
+            import threading
+            hops = [pcm[i:i + HOP].tobytes()
+                    for i in range(0, len(pcm), HOP)]
+            proc.stdin.write(hops[0])
+            proc.stdin.flush()
+            first = proc.stdout.read(HOP * 4)
+            got = []
+            reader = threading.Thread(
+                target=lambda: got.append(proc.stdout.read()), daemon=True)
+            reader.start()
+            t0 = time.perf_counter()
+            for i, h in enumerate(hops[1:], 1):
+                delay = t0 + i * HOP / FS - time.perf_counter()
+                if delay > 0:
+                    time.sleep(delay)
+                proc.stdin.write(h)
+                proc.stdin.flush()
+            proc.stdin.close()
+            reader.join(timeout=120)
+            err = proc.stderr.read()
+            proc.wait(timeout=120)
+            out = first + b"".join(got)
+    finally:
+        proc.kill()
+        proc.wait()
+    err = err.decode()
+    if proc.returncode != 0:
+        raise AssertionError(f"live {' '.join(argv)}: exit "
+                             f"{proc.returncode}\n{err[-3000:]}")
+    return np.frombuffer(out, dtype="<f4"), live_report(err)
+
+
+def live_in_process(argv: list, x: np.ndarray, chunk_hops: int):
+    """``cli.run_live`` in this process through two OS pipes, fed chunk by
+    chunk, each only after the last one's output came back (so that
+    LIVE_MSGS are appended to the control file at their chunk's
+    boundary). Returns (output, run report)."""
+    import contextlib
+    import io
+    import threading
+    import torch
+    from beamform_tpu_torch.runtime import cli
+    args = cli.build_parser().parse_args(argv)
+    rin, win = os.pipe()
+    rout, wout = os.pipe()
+    stdin, stdout = os.fdopen(rin, "rb", buffering=0), os.fdopen(wout, "wb")
+    err, res = io.StringIO(), {}
+
+    def run():
+        try:
+            with contextlib.redirect_stderr(err):
+                res["rc"] = cli.run_live(args, torch.device(DEVICE), stdin,
+                                         stdout)
+        finally:
+            stdout.close()
+            stdin.close()
+
+    th = threading.Thread(target=run, daemon=True)
+    th.start()
+    chunk = chunk_hops * HOP
+    n = -(-x.shape[1] // chunk)
+    out = bytearray()
+    for k in range(n):
+        if args.interf_control and k in LIVE_MSGS:
+            with open(args.interf_control, "a") as f:
+                f.write(LIVE_MSGS[k] + "\n")
+        blk = np.ascontiguousarray(x[:, k * chunk:(k + 1) * chunk].T,
+                                   dtype="<f4")
+        os.write(win, blk.tobytes())
+        if k == n - 1:
+            break            # a short last chunk is processed at EOF
+        want = len(out) + blk.shape[0] * 4
+        while len(out) < want:
+            d = os.read(rout, want - len(out))
+            if not d:
+                break
+            out += d
+    os.close(win)
+    while d := os.read(rout, 1 << 16):
+        out += d
+    th.join(timeout=120)
+    os.close(rout)
+    if th.is_alive() or res.get("rc") != 0:
+        raise AssertionError(f"live {' '.join(argv)}: {res}\n"
+                             f"{err.getvalue()[-3000:]}")
+    return np.frombuffer(bytes(out), dtype="<f4"), live_report(
+        err.getvalue())
+
+
+def check_live(label: str, y: np.ndarray, card_ref: np.ndarray,
+               ref64: np.ndarray):
+    """A live run's output: the card's StreamingSession at the same
+    chunking bit for bit, the float64 CPU path within DAS_ABS_TOL."""
+    if not np.array_equal(y, card_ref):
+        diff = (float(np.abs(y - card_ref).max()) if y.shape ==
+                card_ref.shape else f"shape {y.shape} vs {card_ref.shape}")
+        raise AssertionError(f"{label}: differs from the card's "
+                             f"StreamingSession ({diff})")
+    check_scene(f"{label} (equal to the card's StreamingSession bit for "
+                "bit) vs float64 CPU", y, ref64, len(ref64), False)
+
+
+def jack_live(cfg: str, x: np.ndarray):
+    """(d): ``das --live --jack`` at one hop a chunk, in this process,
+    against the fake JACK server (``csrc/fakejack.cpp`` through
+    BEAMIO_JACK_LIB) at 16 channels and 1024 frames a period, driven for
+    JACK_CYCLES cycles in lockstep: each cycle only after the client wrote
+    the last chunk, so that cycle n + 1 plays chunk n whole. Returns (the
+    JACK_CYCLES played hops, run report, launches of the loop)."""
+    import contextlib
+    import ctypes
+    import io
+    import threading
+    from beamform_tpu_torch.runtime import cli, native
+    path = native.build_library("fakejack.cpp")
+    drv = ctypes.CDLL(path)
+    fp = ctypes.POINTER(ctypes.c_float)
+    drv.fakejack_drive.restype = ctypes.c_int
+    drv.fakejack_drive.argtypes = [fp, ctypes.c_uint32, ctypes.c_int, fp]
+    drv.fakejack_set_buffer_size.argtypes = [ctypes.c_uint32]
+    drv.fakejack_set_buffer_size(HOP)
+    written = threading.Semaphore(0)
+    real_write = native.JackClient.write
+
+    def write(self, data):
+        got = real_write(self, data)
+        written.release()
+        return got
+
+    outs = []
+
+    def server():
+        for k in range(JACK_CYCLES + 1):
+            if k and not written.acquire(timeout=120):
+                return
+            blk = (x[:, k * HOP:(k + 1) * HOP] if k < JACK_CYCLES
+                   else np.zeros((16, HOP), np.float32))
+            inter = np.ascontiguousarray(blk.T, dtype=np.float32)
+            out = np.zeros(HOP, np.float32)
+            # the first cycle waits for the client's process callback
+            while drv.fakejack_drive(inter.ctypes.data_as(fp), HOP, 16,
+                                     out.ctypes.data_as(fp)) != 0:
+                if k or time.perf_counter() > deadline:
+                    return
+                time.sleep(0.001)
+            outs.append(out)
+
+    err = io.StringIO()
+    deadline = time.perf_counter() + 300
+    os.environ["BEAMIO_JACK_LIB"] = path
+    native.JackClient.write = write
+    th = threading.Thread(target=server, daemon=True)
+    th.start()
+    try:
+        reset_launches()
+        with contextlib.redirect_stderr(err):
+            rc = cli.main(live_argv("das", cfg, 1, "--jack", "--max-chunks",
+                                    str(JACK_CYCLES + 1)))
+        launches = read_launches()
+    finally:
+        native.JackClient.write = real_write
+        del os.environ["BEAMIO_JACK_LIB"]
+    th.join(timeout=120)
+    if rc != 0 or th.is_alive() or len(outs) != JACK_CYCLES + 1:
+        raise AssertionError(f"jack loop: rc {rc}, {len(outs)} cycles\n"
+                             f"{err.getvalue()[-3000:]}")
+    return np.concatenate(outs[1:]), live_report(err.getvalue()), launches
+
+
+def host_steal() -> tuple:
+    """(CPU time stolen from this host's cores by its hypervisor, in
+    clock ticks, from /proc/stat; the 1-minute load average)."""
+    with open("/proc/stat") as f:
+        cpu = f.readline().split()
+    return int(cpu[8]) if len(cpu) > 8 else 0, os.getloadavg()[0]
+
+
+def phase_live(card: str, pool, x: np.ndarray):
+    """The live serving path at full width (aira16, 48 kHz, hop 1024, the
+    headline input), through ``beamform-tpu-torch <node> --live``, each
+    output equal to the card's StreamingSession at the same chunking bit
+    for bit: (b) DAS at one hop a chunk on 10 s fed at the audio rate
+    through a subprocess's pipe, first, while the host is otherwise
+    quiet: no xrun, its per-chunk wall times against the 21.3 ms budget;
+    (a) DAS at 4 hops a chunk on the 30 s input through a subprocess's
+    pipe; (c) MVDR ``auto`` (row 3) and LCMV ``auto`` (row 5) with
+    ``--interf-control`` under LIVE_MSGS, 10 s each, in this process
+    through OS pipes with each path's launches counted; (a) and (c) within
+    DAS_ABS_TOL of the float64 CPU path; (d) the JACK loop over the fake
+    server for JACK_CYCLES cycles, equal to (b)'s first hops bit for bit;
+    the per-chunk latency of DAS, MVDR and LCMV at 1 and LIVE_CHUNK hops a
+    chunk (:func:`session_run`, timed); last, as it runs the profiler, (e)
+    (a)'s median per-chunk wall at least the chunk's device time, and a
+    monitored chunk whose model queues more device work after its own
+    waits for it: the monitor synchronises."""
+    import torch
+    from beamform_tpu_torch.models import get_model
+    from beamform_tpu_torch.runtime.streaming import StreamingSession
+    short = int(LIVE_SECONDS * FS)
+    budget = {k: k * HOP / FS * 1e3 for k in (1, LIVE_CHUNK)}
+    with tempfile.TemporaryDirectory(prefix=".chip_smoke_", dir=ROOT) as tmp:
+        cfg = aira16_yaml(tmp)
+        # (b)
+        steal0, load = host_steal()
+        y_b, rep_b = live_subprocess(live_argv("das", cfg, 1),
+                                     np.ascontiguousarray(x[:, :short].T),
+                                     paced=True)
+        steal = host_steal()[0] - steal0
+        lat = rep_b["chunk_ms"]
+        log(f"live das --live-chunk 1, {LIVE_SECONDS:g} s fed at the audio "
+            f"rate: {rep_b['chunks']} chunks, xruns {rep_b['xruns']}, "
+            f"per-chunk wall median {lat['median']:.3f} ms, p99 "
+            f"{lat['p99']:.3f}, worst {lat['worst']:.3f} (chunk "
+            f"{lat['worst_at']}) against the {budget[1]:.1f} ms budget "
+            f"(worst/budget {rep_b['worst_chunk_ratio']}); host: load "
+            f"{load:.2f} before, {steal} ticks stolen during; report "
+            f"{json.dumps(rep_b)}; on {card}")
+        if rep_b["xruns"] != 0:
+            raise AssertionError(f"live das chunk 1 paced: {rep_b['xruns']} "
+                                 "xruns")
+        refs = {"das": pool.apply_async(live_reference,
+                                        ("das", SECONDS, LIVE_CHUNK)),
+                "mvdr": pool.apply_async(live_reference,
+                                         ("mvdr", LIVE_SECONDS, LIVE_CHUNK)),
+                "lcmv": pool.apply_async(live_reference,
+                                         ("lcmv", LIVE_SECONDS, LIVE_CHUNK))}
+        y_b_card = session_run("das", x[:, :short], 1)[0]
+        if not np.array_equal(y_b, y_b_card):
+            raise AssertionError("live das chunk 1 differs from the card's "
+                                 "StreamingSession")
+        log(f"live das --live-chunk 1 equals the card's StreamingSession "
+            f"bit for bit ({len(y_b)} samples)")
+        # (a)
+        t0 = time.perf_counter()
+        y_a, rep_a = live_subprocess(live_argv("das", cfg, LIVE_CHUNK),
+                                     np.ascontiguousarray(x.T))
+        log(f"live das --live-chunk {LIVE_CHUNK}, {SECONDS:g} s through a "
+            f"subprocess's pipe: {time.perf_counter() - t0:.1f} s wall; "
+            f"report {json.dumps(rep_a)}")
+        # (c)
+        launches, outs_c = {}, {}
+        for node in ("mvdr", "lcmv"):
+            extra = ()
+            if node == "lcmv":
+                ctl = os.path.join(tmp, "interf.ctl")
+                open(ctl, "w").close()
+                extra = ("--interf-control", ctl)
+            argv = live_argv(node, aira16_yaml(
+                tmp, EVENTS[0] if node == "lcmv" else ()), LIVE_CHUNK, *extra)
+            reset_launches()
+            outs_c[node], rep = live_in_process(argv, x[:, :short],
+                                                LIVE_CHUNK)
+            launches[node] = read_launches()
+            kernel = f"{node}_stream"
+            log(f"live {node} --live-chunk {LIVE_CHUNK}"
+                f"{' --interf-control ' + str(LIVE_MSGS) if extra else ''}, "
+                f"{LIVE_SECONDS:g} s through OS pipes: launches "
+                f"{launches[node]}; report {json.dumps(rep)}")
+            n_chunks = -(-short // (LIVE_CHUNK * HOP)) + 1      # + warm-up
+            want = dict(wola_analysis=n_chunks, wola_synthesis=n_chunks,
+                        **{kernel: n_chunks})
+            if any(launches[node][k] != v for k, v in want.items()):
+                raise AssertionError(f"live {node}: launches "
+                                     f"{launches[node]}, expected {want}")
+        # the card's sessions at the same chunking
+        y_a_card = session_run("das", x, LIVE_CHUNK)[0]
+        card_c = {n: session_run(n, x[:, :short], LIVE_CHUNK)[0]
+                  for n in ("mvdr", "lcmv")}
+        t0 = time.perf_counter()
+        ref64 = {k: r.get() for k, r in refs.items()}
+        log(f"live float64 CPU references: waited "
+            f"{time.perf_counter() - t0:.1f} s")
+        check_live(f"live das --live-chunk {LIVE_CHUNK} ({SECONDS:g} s)",
+                   y_a, y_a_card, ref64["das"])
+        for node in ("mvdr", "lcmv"):
+            check_live(f"live {node} --live-chunk {LIVE_CHUNK} "
+                       f"({LIVE_SECONDS:g} s)", outs_c[node], card_c[node],
+                       ref64[node][:short])
+        # (d)
+        y_d, rep_d, launches_d = jack_live(cfg, x)
+        log(f"live das --jack, fake server, {JACK_CYCLES} cycles of {HOP} "
+            f"frames x 16 channels: launches {launches_d}; report "
+            f"{json.dumps(rep_d)}")
+        n = JACK_CYCLES + 2                          # + warm-up, + drain
+        if (launches_d["wola_analysis"] != n
+                or launches_d["wola_synthesis"] != n):
+            raise AssertionError(f"jack loop launches {launches_d}, "
+                                 f"expected {n} of each WOLA kernel")
+        if rep_d["jack_xruns"] != 0 or rep_d["jack_connected_in"] != 16:
+            raise AssertionError(f"jack loop report {rep_d}")
+        if not np.array_equal(y_d, y_b[:JACK_CYCLES * HOP]):
+            raise AssertionError("jack loop output differs from the pipe's "
+                                 "at one hop a chunk")
+        log(f"live das --jack equals --live-chunk 1 through the pipe bit "
+            f"for bit ({JACK_CYCLES} hops)")
+    # the live loop's per-chunk latency without its pipe, by node and chunk
+    for node in ("das", "mvdr", "lcmv"):
+        for k in (1, LIVE_CHUNK):
+            rep = session_run(node, x[:, :short], k, timed=True)[1]
+            lat = rep["chunk_ms"]
+            log(f"live latency {node} auto at {k} hop(s) a chunk, "
+                f"{LIVE_SECONDS:g} s, StreamingSession from host numpy: "
+                f"median {lat['median']:.4f} ms, p99 {lat['p99']:.4f}, worst "
+                f"{lat['worst']:.4f} (chunk {lat['worst_at']}) of "
+                f"{rep['chunks']} chunks against {budget[k]:.1f} ms, xruns "
+                f"{rep['xruns']}, xRT {rep['xrt']}; on {card}")
+    # (e) the chunk's device time: its kernels and copies by the profiler,
+    # the mean of 5 calls
+    from torch.profiler import ProfilerActivity, profile
+    model = get_model("das", engine(), aira16(), device=DEVICE)
+    sess = StreamingSession(model)
+    blk = np.ascontiguousarray(x[:, :LIVE_CHUNK * HOP])
+    sess.process(blk, THETA).cpu()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            sess.process(blk, THETA).cpu()
+    busy = sum(getattr(e, "device_time_total", 0.0)
+               for e in prof.key_averages()
+               if not e.key.startswith(("aten::", "cuda"))) / 5e3
+    # and a monitored chunk whose model queues BLOCK_CYCLES of device work
+    # after its own must wait for it: a monitor that did not synchronise
+    # would stop at the launches
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    real = model.process_chunk
+
+    def slow(*args, **kw):
+        out = real(*args, **kw)
+        a.record()
+        torch.cuda._sleep(BLOCK_CYCLES)
+        b.record()
+        return out
+
+    mon = StreamingSession(model, monitor=True)
+    model.process_chunk = slow
+    try:
+        mon.process(blk, THETA)
+    finally:
+        del model.process_chunk
+    queued = a.elapsed_time(b)
+    waited = mon.monitor.chunk_walls[-1] * 1e3
+    wall = rep_a["chunk_ms"]["median"]
+    log(f"live das per-chunk wall (monitor, median of {rep_a['chunks']}) "
+        f"{wall:.4f} ms at {LIVE_CHUNK} hops vs the chunk's device time "
+        f"{busy:.4f} ms (kernels and copies by the profiler, mean of 5); "
+        f"budget {budget[LIVE_CHUNK]:.1f} ms; a monitored chunk with "
+        f"{queued:.3f} ms of device work queued after its own: "
+        f"{waited:.3f} ms; on {card}")
+    if not (busy > 0 and wall >= busy and waited >= queued > 10.0):
+        raise AssertionError(f"live monitor: wall {wall} ms vs device "
+                             f"{busy} ms; {waited} ms with {queued} ms of "
+                             "work queued after the chunk's own")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2679,6 +3164,7 @@ def drive(pool, card: str, t_start: float) -> int:
         phase(f"{node}_xrt", phase_xrt, x, card, node, None, "noise")
     phase("das_vs_ref", phase_das_vs_ref, xsrc)
     phase("batch", phase_batch, card, refs_batch)
+    phase("live", phase_live, card, pool, x)
 
     launches = {"wola_analysis": das_launches["wola_analysis"],
                 "wola_synthesis": das_launches["wola_synthesis"],

@@ -2115,3 +2115,45 @@ def test_batch_runner_on_cuda_matches_single_streams(cuda, node, solver,
         else:
             assert float((got[i] - one).abs().max()
                          / one.abs().max()) <= 1e-6
+
+
+@pytest.mark.parametrize("fs_in,fs_out", [(48000, 16000), (48000, 44100)])
+def test_resample_on_the_card_matches_the_cpu(cuda, fs_in, fs_out):
+    """The output resampler's convolution keeps float32 on the card (no
+    TF32): within 1e-6 of peak of the same function on the CPU."""
+    from beamform_tpu_torch.runtime.resample import resample
+    x = (0.3 * np.random.default_rng(0).standard_normal((2, 48000))
+         ).astype(np.float32)
+    got = resample(x, fs_in, fs_out)
+    ref = resample(x, fs_in, fs_out, device="cpu")
+    assert got.device.type == "cuda" and got.shape == ref.shape
+    assert _rel(got.cpu(), ref) <= 1e-6
+
+
+def test_session_monitor_waits_for_the_card(cuda):
+    """StreamingSession(monitor=True) stops a chunk's clock only once the
+    card is done with the chunk: with ~50 ms of device work queued after
+    the model's own, the chunk's wall takes that long, where its launches
+    alone return in about a millisecond."""
+    cfg = load_array_config(os.path.join(
+        ROOT, "beamform_tpu_torch", "configs", "aira16.yaml"))
+    model = get_model("das", EngineConfig(), cfg, device=cuda)
+    x = (0.1 * np.random.default_rng(1).standard_normal((16, 4 * 1024))
+         ).astype(np.float32)
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    real = model.process_chunk
+
+    def slow(*args, **kw):
+        out = real(*args, **kw)
+        a.record()
+        torch.cuda._sleep(10 ** 8)       # ~50 ms at the H100's SM clock
+        b.record()
+        return out
+
+    sess = StreamingSession(model, monitor=True)
+    sess.process(x, 20.0)
+    model.process_chunk = slow
+    sess.process(x, 20.0)
+    queued = a.elapsed_time(b)
+    assert sess.monitor.chunks == 2 and queued > 20.0
+    assert sess.monitor.chunk_walls[-1] * 1e3 >= queued

@@ -5,6 +5,7 @@ float64 oracle parity 1e-9 (test_parity.py's), float64 JAX-vs-port 1e-12,
 float32 JAX-vs-port 1e-5 of peak (both on the CPU, sums in another order).
 """
 
+import io
 import os
 import re
 import subprocess
@@ -278,19 +279,56 @@ def test_cli_wav_roundtrip_equals_run_offline(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("argv", [["write"], ["das", "--live"]])
-def test_cli_rejects_what_is_not_ported(argv, tmp_path, capsys):
+def test_cli_rejects_what_is_not_ported(argv, tmp_path, capsys,
+                                        monkeypatch):
+    """Both were refused before the live path was ported; now each runs:
+    ``write --in`` plays the file through the decoupling ring into
+    ``<in>.write.wav`` (pass-through in steady state), ``das --live``
+    beamforms its stdin (``--in`` unused) to stdout, one sample out for
+    each frame in."""
     src = _write_scene(tmp_path, seconds=0.05)
-    assert cli.main(argv + ["--in", src, "--device", "cpu"]) == 2
-    assert "not ported" in capsys.readouterr().err
+    x, _ = wav.read_wav(src)
+    pcm = np.ascontiguousarray(x.T[:, :1], dtype="<f4")      # one channel
+    stdin = tmp_path / "stdin.pcm"
+    stdin.write_bytes(pcm.tobytes())
+    out = io.BytesIO()
+    with open(stdin, "rb") as f:
+        monkeypatch.setattr(sys, "stdin", io.TextIOWrapper(f))
+        monkeypatch.setattr(sys, "stdout", io.TextIOWrapper(out))
+        rc = cli.main(argv + ["--in", src, "--device", "cpu",
+                              "--window-size", str(HOP)])
+        sys.stdout.flush()
+        data = out.getvalue()
+    monkeypatch.undo()
+    assert rc == 0
+    err = capsys.readouterr().err
+    assert "not ported" not in err
+    if argv == ["write"]:
+        y, fs = wav.read_wav(src + ".write.wav")
+        n = x.shape[1]
+        assert fs == FS and y.shape == (1, n + (-n) % HOP)
+        np.testing.assert_allclose(y[0, :n], x[0], atol=2 ** -15)
+    else:
+        y = np.frombuffer(data, dtype="<f4")
+        assert y.shape == (x.shape[1],) and np.isfinite(y).all()
+        assert np.abs(y).max() > 0
+        assert '"live"' in err.strip().splitlines()[-1]
 
 
 def test_cli_output_resampling_is_not_ported(tmp_path, capsys):
+    """Refused before output resampling was ported; now the file comes at
+    ``ros_output_sample_rate``."""
     rosjack = tmp_path / "rosjack.yaml"
     rosjack.write_text("ros_output_sample_rate: 16000\n")
-    assert cli.main(["das", "--in", _write_scene(tmp_path, seconds=0.05),
-                     "--rosjack-config", str(rosjack), "--device",
-                     "cpu"]) == 2
-    assert "not ported" in capsys.readouterr().err
+    src = _write_scene(tmp_path, seconds=0.05)
+    dst = str(tmp_path / "out.wav")
+    assert cli.main(["das", "--in", src, "--out", dst, "--rosjack-config",
+                     str(rosjack), "--device", "cpu"]) == 0
+    assert "not ported" not in capsys.readouterr().err
+    x, _ = wav.read_wav(src)
+    y, fs = wav.read_wav(dst)
+    n = x.shape[1] + (-x.shape[1]) % 1024           # the default hop
+    assert fs == 16000 and y.shape == (1, -(-n // 3))
 
 
 def test_default_device_is_cuda_and_never_falls_back():
@@ -337,7 +375,12 @@ def test_import_loads_no_jax():
             " beamform_tpu_torch.models.phasempf,"
             " beamform_tpu_torch.kernels.gsc_block,"
             " beamform_tpu_torch.models.refmic,"
-            " beamform_tpu_torch.runtime.timeline, chip_smoke; "
+            " beamform_tpu_torch.runtime.timeline,"
+            " beamform_tpu_torch.runtime.native,"
+            " beamform_tpu_torch.runtime.playback,"
+            " beamform_tpu_torch.runtime.resample,"
+            " beamform_tpu_torch.utils.profiling,"
+            " beamform_tpu_torch.doa, chip_smoke; "
             "assert 'jax' not in sys.modules, 'jax imported'; "
             "assert 'beamform_tpu' not in sys.modules")
     env = dict(os.environ, PYTHONPATH=ROOT)

@@ -40,7 +40,9 @@ batched runner (``beamform_tpu_torch/runtime/batch.py``) also times one
 LCMV ``auto``, MVDR ``mega``, GSS, phase, phasempf, mcra and MVDR
 ``dense``, CUDA events, median of 10 after 3 warm-ups; a checkout without
 it reports none of these (one whose nodes lack a native batched step runs
-the protocol's default, a loop over the streams).
+the protocol's default, a loop over the streams). Last, one
+``StreamingSession.process`` of a live chunk of 1 and 4 hops from host
+numpy for DAS, MVDR and LCMV ``auto`` (``cuda_ms``).
 CHANGE_ROOT defaults to this checkout. Prints one line per process, then
 per metric both sides' medians and ranges; imports no JAX.
 """
@@ -146,6 +148,26 @@ def worker(root: str) -> dict:
     if os.path.exists(os.path.join(root, "beamform_tpu_torch", "runtime",
                                    "batch.py")):
         out.update(batched_paths(cs))
+    out.update(live_chunks(cs))
+    return out
+
+
+def live_chunks(cs) -> dict:
+    """One StreamingSession.process of a live chunk (ms), 1 and 4 hops of
+    chip_smoke.py's noise input from host numpy, as the live loop feeds
+    it, for DAS, MVDR and LCMV ``auto``."""
+    from beamform_tpu_torch.models import get_model
+    from beamform_tpu_torch.runtime.streaming import StreamingSession
+    x = cs.make_input(16, cs.SECONDS)[:, 40 * cs.HOP:44 * cs.HOP]
+    out = {}
+    for node in ("das", "mvdr", "lcmv"):
+        params = None if node == "das" else cs.preset(node)
+        sess = StreamingSession(get_model(node, cs.engine(), cs.aira16(),
+                                          params, device="cuda"))
+        for hops in (1, 4):
+            xc = np.ascontiguousarray(x[:, :hops * cs.HOP])
+            out[f"{node} live {hops} hop"] = cs.cuda_ms(
+                lambda: sess.process(xc, cs.THETA))
     return out
 
 
