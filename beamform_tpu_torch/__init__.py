@@ -11,8 +11,10 @@ phase-mask and MPF kernels; mcra, through the MCRA march kernel; GSC,
 through the per-sample, block-LMS and lookahead-8 adaptive-stage kernels;
 the ref and read utility nodes (plain torch: no kernel); batched serving;
 the live serving path (``--live`` over a pipe, a JACK graph or an ALSA
-PCM, the write node, output resampling, the run monitor) and the DOA
-steering refiners. ROADMAP.md lists what follows.
+PCM, the write node, output resampling, the run monitor), the DOA
+steering refiners, the evaluation harness and the multi-device layer
+(``parallel``: the (stream, bin) mesh over ``torch.distributed``).
+ROADMAP.md lists what follows.
 
 Models run on the CUDA card unless the caller asks for the CPU
 (``device="cpu"``). Importing this package never loads JAX.

@@ -314,25 +314,29 @@ class MvdrModel(BatchableModel, nn.Module):
                                            carry.out_prev)
         return out * p.out_amp, (common.WolaCarry(tail, prev), hist)
 
-    def _gated_forward_batched(self, x, state, solve):
+    def _gated_forward_batched(self, x, state, solve, bins=None):
         """:meth:`_gated_forward` on B streams: analysis of the B*M channels
         with each stream's gate statistic in one launch, ``solve(spec (T, B,
         M, NB), hist0 (B, W, M, NIB), gate (B, T, NIB)) -> (B, T, NIB)``,
         the history update, bin 0 passed through, one synthesis launch of
         the B outputs. x (B, M, T*hop) -> ((B, T*hop) output, new state).
-        The single-stream pipeline stays apart: at B = 1 these reshapes
-        would cost each call host time that its launches wait for."""
+        ``bins`` (the band by default) are the bins the gate and the
+        history hold: a bin group's under ``parallel/sharded.py``, whose
+        ``solve`` still returns the whole band. The single-stream pipeline
+        stays apart: at B = 1 these reshapes would cost each call host time
+        that its launches wait for."""
         p = self.params
         carry, hist0 = state
+        ib = self.ib if bins is None else bins
         spec, mag, tail = common.stft_streams_carry(
             x, self.engine, self.window, self.cdtype, carry.tail,
             with_mag=True)
-        gate = (mag.index_select(2, self.ib)
+        gate = (mag.index_select(2, ib)
                 > p.freq_mag_threshold).transpose(0, 1).contiguous()
         y_ib = solve(spec, hist0, gate)
         # history: the last W in-band frames seen (mvdr.cpp:100-101)
         t, b, w = spec.shape[0], spec.shape[1], p.past_windows
-        new = spec[max(t - w, 0):].index_select(3, self.ib).movedim(0, 1)
+        new = spec[max(t - w, 0):].index_select(3, ib).movedim(0, 1)
         hist = (new.contiguous() if t >= w
                 else torch.cat([hist0[:, t:], new], dim=1))
 

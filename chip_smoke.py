@@ -36,7 +36,12 @@ path through ``beamform-tpu-torch <node> --live``: DAS through a
 subprocess's pipe at 4 hops a chunk and at one hop a chunk fed at the
 audio rate (no xrun), MVDR and LCMV (``--interf-control``) through OS
 pipes, the JACK loop over the repository's fake server, each equal to
-the card's ``StreamingSession`` bit for bit. It checks each output
+the card's ``StreamingSession`` bit for bit; last, the multi-device layer
+(``beamform_tpu_torch/parallel``): a 2-rank gloo world on the one card
+splits MVDR and LCMV over bin groups and DAS, GSS and phase over streams,
+and a 1-rank NCCL world runs the same, each rank's shards equal to
+``BatchRunner``'s bit for bit, then ``evaluate_separation`` on the card
+against float64 and ``examples/torch_demo.py``. It checks each output
 against the float64 CPU path, counts each path's own kernel launches, and
 measures each path's xRT and device time per call (CUDA events). Each
 phase logs ``phase <name>: start`` and ``phase <name>: ok`` and raises on
@@ -2259,9 +2264,10 @@ def batch_refs(pool) -> dict:
 def same(a: np.ndarray, b: np.ndarray, exact: bool) -> str:
     """'' when ``a`` equals ``b`` (NaN where it has NaN) bit for bit, or
     within BATCH_PEAK_TOL of b's finite peak; else what differs."""
+    if np.array_equal(a, b, equal_nan=True):
+        return ""
     if exact:
-        return "" if np.array_equal(a, b, equal_nan=True) else \
-            f"differs (max {np.nanmax(np.abs(a - b)):.3e})"
+        return f"differs (max {np.nanmax(np.abs(a - b)):.3e})"
     fin = np.isfinite(b)
     if not np.array_equal(np.isfinite(a), fin):
         return "non-finite samples differ"
@@ -3013,6 +3019,338 @@ def phase_live(card: str, pool, x: np.ndarray):
                              "work queued after the chunk's own")
 
 
+# the parallel phase: 8 streams of 2 s of the speech input, each with its
+# quiet lead-in, in 3 chunks of 31 hops, thetas linspace(-60, 60, 8)
+PAR_STREAMS = 8
+PAR_SECONDS = 2.0
+PAR_CHUNK_HOPS = 31
+PAR_CHUNKS = 3
+# (label, node, preset overrides (None: no preset), static interferers, the
+# mesh axis that splits the case, the overrides of the single-process
+# BatchRunner it must equal): the covariance models over bin groups (MVDR
+# ``mega`` runs the stream kernel under sharding, as in the JAX package,
+# so its reference is the ``stream`` runner); DAS (the stateless spectral
+# pipeline), GSS and phase over streams
+PAR_CASES = (
+    ("mvdr stream", "mvdr", {}, (), "bin", {}),
+    ("mvdr mega", "mvdr", {"solver": "mega"}, (), "bin", {"solver": "stream"}),
+    ("lcmv S=3", "lcmv", {}, INTERFERERS, "bin", {}),
+    ("das", "das", None, (), "stream", None),
+    ("gss", "gss", {}, (), "stream", {}),
+    ("phase", "phase", {}, (), "stream", {}))
+# each stream's output and state shard against the single-process run:
+# bit for bit, but GSS, whose fused kernel's overlap-add adds with atomics,
+# within BATCH_PEAK_TOL of the peak (phase_batch's bar)
+PAR_INEXACT = ("gss",)
+PAR_RANK_TIMEOUT_S = 300
+# the card against float64 on the CPU on examples/torch_demo.py's scene:
+# each node's SIR gain (dB)
+EVAL_NODES = ("das", "mvdr", "lcmv", "gss", "phase")
+EVAL_GAIN_DB = 0.05
+
+
+def make_parallel_input() -> np.ndarray:
+    """(8, 16, 93 hops) float32: 8 consecutive 2 s slices of the speech
+    input, each with make_speech_input's quiet lead-in."""
+    hops = int(PAR_SECONDS * FS) // HOP
+    s = int(PAR_SECONDS * FS)
+    x = make_speech_input(16, PAR_STREAMS * PAR_SECONDS)
+    xs = np.stack([x[:, i * s:i * s + hops * HOP]
+                   for i in range(PAR_STREAMS)])
+    xs[1:, :, :12 * HOP] *= 1e-3
+    return xs
+
+
+def parallel_model(node, over, interf):
+    from beamform_tpu_torch.models import get_model
+    return get_model(node, engine(), aira16(interf),
+                     None if over is None else preset(node, **over),
+                     device=DEVICE)
+
+
+def parallel_cases(mesh_bin, mesh_stream) -> dict:
+    """Every case of PAR_CASES on this rank's share of the parallel input:
+    its streams and, over the bin axis, its bin group; from
+    sharded_state_init, one sharded_batched_step a chunk (DAS: one
+    sharded_spectral_pipeline call on the whole input). Returns the
+    rank's outputs, state shards, mesh coordinates and each chunk's
+    launches, as numpy."""
+    import torch
+    from torch.utils import _pytree as pytree
+    from beamform_tpu_torch.models import common
+    from beamform_tpu_torch.parallel.sharded import (
+        axis, sharded_batched_step, sharded_spectral_pipeline,
+        sharded_state_init)
+    xd = torch.as_tensor(make_parallel_input(), device=DEVICE)
+    thetas = np.linspace(-60.0, 60.0, PAR_STREAMS)
+    c = PAR_CHUNK_HOPS * HOP
+    res = {}
+    for label, node, over, interf, ax, _ in PAR_CASES:
+        mesh = mesh_bin if ax == "bin" else mesh_stream
+        (n_s, g), (n_b, k) = axis(mesh, "stream"), axis(mesh, "bin")
+        b = PAR_STREAMS // n_s
+        rows = slice(g * b, (g + 1) * b)
+        model = parallel_model(node, over, interf)
+        launches, leaves = [], []
+        if node == "das":
+            uniq, _ = model.batch_controls(np.full((1, 1), THETA))
+            w = common.weights_for_thetas(model.geom, model.freqs, uniq,
+                                          model.rdtype, model.cdtype)[0]
+            reset_launches()
+            out = sharded_spectral_pipeline(mesh, engine(), w, xd[rows])
+            launches.append(read_launches())
+        else:
+            state = sharded_state_init(mesh, model, PAR_STREAMS)
+            outs = []
+            for i in range(PAR_CHUNKS):
+                reset_launches()
+                o, state = sharded_batched_step(
+                    mesh, model, xd[rows, :, i * c:(i + 1) * c],
+                    thetas[rows], state)
+                launches.append(read_launches())
+                outs.append(o)
+            out = torch.cat(outs, dim=1)
+            leaves = pytree.tree_leaves(state)
+        res[f"{label}/coord"] = np.array([n_s, g, n_b, k])
+        res[f"{label}/out"] = out.cpu().numpy()
+        for i, leaf in enumerate(leaves):
+            res[f"{label}/state{i}"] = leaf.cpu().numpy()
+        res[f"{label}/launches"] = np.array(
+            [[n[name] for name in counters()] for n in launches])
+    return res
+
+
+def parallel_rank(rank: int, port: int, out: str):
+    """One rank of the 2-rank gloo world on the one card (a spawned
+    process): meshes (1, 2) and (2, 1) over the world, every case, its
+    results to ``out``/rank<r>.npz."""
+    import torch
+    import torch.distributed as dist
+    from beamform_tpu_torch.parallel.mesh import make_mesh
+    from beamform_tpu_torch.parallel.multihost import init_multihost
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    init_multihost(f"tcp://127.0.0.1:{port}", world_size=2, rank=rank,
+                   backend="gloo")
+    try:
+        res = parallel_cases(make_mesh(shape=(1, 2)),
+                             make_mesh(shape=(2, 1)))
+        np.savez(os.path.join(out, f"rank{rank}.npz"), **res)
+    finally:
+        dist.destroy_process_group()
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def parallel_references() -> dict:
+    """Each case's single-process BatchRunner run of the parallel input
+    on the card (the reference override of PAR_CASES): output (8, S),
+    state leaves, each chunk's launches."""
+    import torch
+    from torch.utils import _pytree as pytree
+    from beamform_tpu_torch.runtime.batch import BatchRunner
+    xd = torch.as_tensor(make_parallel_input(), device=DEVICE)
+    thetas = np.linspace(-60.0, 60.0, PAR_STREAMS)
+    c = PAR_CHUNK_HOPS * HOP
+    refs = {}
+    for label, node, _, interf, _, ref_over in PAR_CASES:
+        runner = BatchRunner(node, engine(), aira16(interf),
+                             None if ref_over is None
+                             else preset(node, **ref_over),
+                             batch=PAR_STREAMS, device=DEVICE)
+        outs, launches = [], []
+        pieces = ([(xd, THETA)] if node == "das" else
+                  [(xd[..., i * c:(i + 1) * c].contiguous(), thetas)
+                   for i in range(PAR_CHUNKS)])
+        for xc, th in pieces:
+            reset_launches()
+            outs.append(runner.process(xc, th))
+            launches.append(read_launches())
+        refs[label] = dict(
+            out=torch.cat(outs, dim=1).cpu().numpy(),
+            state=[a.cpu().numpy() for a in pytree.tree_leaves(runner.state)]
+            if node != "das" else [],
+            launches=np.array([[n[k] for k in counters()]
+                               for n in launches]))
+    return refs
+
+
+def bin_positions(nib: int, size: int, index: int) -> np.ndarray:
+    """The band positions of bin group ``index`` of ``size``, the band
+    padded by repeating its last bin (parallel/sharded.py _bin_group)."""
+    pos = np.concatenate([np.arange(nib), np.full((-nib) % size, nib - 1)])
+    n = len(pos) // size
+    return pos[index * n:(index + 1) * n]
+
+
+def check_parallel(world: str, results: list, refs: dict):
+    """Each rank's outputs, state shards and launches against the
+    single-process run: its rows of the output; of each state leaf its
+    rows and, for the bin-sharded history (the last leaf of MVDR/LCMV),
+    its bin group's lanes; each chunk's launches equal to the
+    BatchRunner chunk's, one launch of the case's kernels a chunk."""
+    names = list(counters())
+    for label, node, _, _, ax, _ in PAR_CASES:
+        ref = refs[label]
+        exact = label not in PAR_INEXACT
+        for r, res in enumerate(results):
+            n_s, g, n_b, k = (int(v) for v in res[f"{label}/coord"])
+            b = PAR_STREAMS // n_s
+            rows = slice(g * b, (g + 1) * b)
+            why = same(res[f"{label}/out"], ref["out"][rows], exact)
+            for i, want in enumerate(ref["state"]):
+                want = want[rows]
+                if ax == "bin" and i == len(ref["state"]) - 1:
+                    want = want[..., bin_positions(want.shape[-1], n_b, k)]
+                got = res[f"{label}/state{i}"]
+                differs = (f"{got.shape} vs {want.shape}"
+                           if got.shape != want.shape
+                           else same(got, want, exact))
+                if differs:
+                    why = why or f"state {i}: {differs}"
+            if not np.array_equal(res[f"{label}/launches"],
+                                  ref["launches"]):
+                why = why or (f"launches {res[f'{label}/launches'].tolist()}"
+                              f" vs {ref['launches'].tolist()}")
+            if why:
+                raise AssertionError(f"parallel {world} {label}: rank {r}: "
+                                     f"{why}")
+            a = res[f"{label}/out"]
+            match = ("bit for bit" if np.array_equal(
+                a, ref["out"][rows], equal_nan=True)
+                else f"within {peak_rel(a, ref['out'][rows]):.3e} of peak")
+            launched = ", ".join(
+                f"{names[j]} x{v}" for j, v in
+                enumerate(ref["launches"][0]) if v)
+            shards = ", its state shards too" if ref["state"] else ""
+            log(f"parallel {world} {label}: rank {r} at stream {g}/{n_s}, "
+                f"bin {k}/{n_b}: rows {rows.start}:{rows.stop} {match} of "
+                f"BatchRunner (B = {PAR_STREAMS}){shards}; a chunk launches "
+                f"{launched}, as BatchRunner's")
+
+
+def parallel_eval(card: str):
+    """(c): evaluate_separation on examples/torch_demo.py's 2 s scene on
+    the card against the float64 CPU run, each node's SIR gain within
+    EVAL_GAIN_DB."""
+    import importlib.util
+    from beamform_tpu_torch.evaluation import evaluate_separation
+    from beamform_tpu_torch.models import get_model
+    spec = importlib.util.spec_from_file_location(
+        "torch_demo", os.path.join(ROOT, "examples", "torch_demo.py"))
+    demo = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(demo)
+    eng32, cfg, scene = demo.demo_scene(2.0)
+    eng64, _, _ = demo.demo_scene(2.0, "float64")
+    for node in EVAL_NODES:
+        card_rep = evaluate_separation(
+            get_model(node, eng32, cfg, demo.PARAMS[node], device=DEVICE),
+            scene, theta=0.0)
+        cpu_rep = evaluate_separation(
+            get_model(node, eng64, cfg, demo.PARAMS[node], device="cpu"),
+            scene, theta=0.0)
+        gap = abs(card_rep["sir_gain_db"] - cpu_rep["sir_gain_db"])
+        log(f"parallel eval {node}: SIR gain {card_rep['sir_gain_db']:+.2f} "
+            f"dB on the card, {cpu_rep['sir_gain_db']:+.2f} float64 on the "
+            f"CPU (bar {EVAL_GAIN_DB} dB); on {card}")
+        if not gap <= EVAL_GAIN_DB:
+            raise AssertionError(f"eval {node}: {card_rep} vs {cpu_rep}")
+
+
+def parallel_ab(card: str):
+    """The 1-rank sharded MVDR ``stream`` step of a 2 s chunk of the 8
+    streams against BatchRunner's (CUDA events, median of REPS after one
+    warm-up, in turns): the sharding layer's host work and all-gather at
+    world size 1."""
+    import torch
+    from beamform_tpu_torch.parallel.mesh import make_mesh
+    from beamform_tpu_torch.parallel.sharded import (sharded_batched_step,
+                                                     sharded_state_init)
+    from beamform_tpu_torch.runtime.batch import BatchRunner
+    xd = torch.as_tensor(make_parallel_input(), device=DEVICE)
+    thetas = np.linspace(-60.0, 60.0, PAR_STREAMS)
+    model = parallel_model("mvdr", {}, ())
+    mesh = make_mesh(shape=(1, 1))
+    state = sharded_state_init(mesh, model, PAR_STREAMS)
+    runner = BatchRunner("mvdr", engine(), aira16(), preset("mvdr"),
+                         batch=PAR_STREAMS, device=DEVICE)
+    t = {"sharded": [], "runner": []}
+    for _ in range(2):
+        t["runner"].append(cuda_ms(lambda: runner.process(xd, thetas)))
+        t["sharded"].append(cuda_ms(lambda: sharded_batched_step(
+            mesh, model, xd, thetas, state)))
+    log(f"parallel a/b, 1-rank nccl, mvdr stream, {PAR_STREAMS} streams x "
+        f"{xd.shape[-1] // HOP} hops: sharded_batched_step "
+        f"{t['sharded']} ms vs BatchRunner.process {t['runner']} ms "
+        f"(CUDA events, median of {REPS}, two turns); on {card}")
+
+
+def phase_parallel(card: str):
+    """The multi-device layer on the one card. (a) A 2-rank gloo world,
+    both ranks on cuda:0 (spawned processes): the (1, 2) mesh splits MVDR
+    ``stream`` and ``mega`` and LCMV S = 3 over bin groups, the (2, 1)
+    mesh DAS, GSS and phase over streams; each rank's rows and state
+    shards against the single-process BatchRunner run (check_parallel).
+    (b) A 1-rank NCCL world through init_multihost in this process, mesh
+    (1, 1), the same comparison, and the A/B of parallel_ab. (c)
+    evaluate_separation on the card against float64. (d)
+    examples/torch_demo.py --seconds 2 in a subprocess."""
+    import torch.distributed as dist
+    from beamform_tpu_torch.parallel.mesh import make_mesh
+    from beamform_tpu_torch.parallel.multihost import init_multihost
+    ctx = multiprocessing.get_context("spawn")
+    with tempfile.TemporaryDirectory(prefix=".chip_smoke_", dir=ROOT) as tmp:
+        port = free_port()
+        procs = [ctx.Process(target=parallel_rank, args=(r, port, tmp))
+                 for r in range(2)]
+        for p in procs:
+            p.start()
+        try:
+            refs = parallel_references()
+            for p in procs:
+                p.join(PAR_RANK_TIMEOUT_S)
+        finally:
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+        codes = [p.exitcode for p in procs]
+        if codes != [0, 0]:
+            raise AssertionError(f"parallel gloo ranks exited {codes}")
+        results = [dict(np.load(os.path.join(tmp, f"rank{r}.npz")))
+                   for r in range(2)]
+    log("parallel gloo: 2 ranks on cuda:0; gloo took the CUDA all-gathers "
+        "itself, nothing staged through host memory")
+    check_parallel("gloo 2 ranks", results, refs)
+    init_multihost(f"tcp://127.0.0.1:{free_port()}", world_size=1, rank=0)
+    try:
+        log(f"parallel nccl: backend {dist.get_backend()}, world "
+            f"{dist.get_world_size()}")
+        mesh = make_mesh(shape=(1, 1))
+        check_parallel("nccl 1 rank", [parallel_cases(mesh, mesh)], refs)
+        parallel_ab(card)
+    finally:
+        dist.destroy_process_group()
+    parallel_eval(card)
+    with tempfile.TemporaryDirectory(prefix=".chip_smoke_", dir=ROOT) as tmp:
+        t0 = time.perf_counter()
+        run = subprocess.run(
+            [sys.executable, os.path.join(ROOT, "examples", "torch_demo.py"),
+             "--seconds", "2", "--outdir", tmp], capture_output=True,
+            text=True, timeout=PAR_RANK_TIMEOUT_S)
+        log(run.stdout.strip())
+        if run.returncode:
+            raise AssertionError(f"torch_demo.py exited {run.returncode}: "
+                                 f"{run.stderr[-2000:]}")
+        log(f"parallel demo: examples/torch_demo.py --seconds 2 exit 0 in "
+            f"{time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3165,6 +3503,7 @@ def drive(pool, card: str, t_start: float) -> int:
     phase("das_vs_ref", phase_das_vs_ref, xsrc)
     phase("batch", phase_batch, card, refs_batch)
     phase("live", phase_live, card, pool, x)
+    phase("parallel", phase_parallel, card)
 
     launches = {"wola_analysis": das_launches["wola_analysis"],
                 "wola_synthesis": das_launches["wola_synthesis"],

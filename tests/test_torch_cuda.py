@@ -1948,6 +1948,42 @@ def test_stream_kernels_take_a_stream_axis(cuda, row, s):
     assert _rel(got.cpu(), ref) < MVDR_REL
 
 
+@pytest.mark.parametrize("row,s", [("mvdr", 0), ("lcmv", 3)])
+@pytest.mark.parametrize("groups", [2, 4])
+def test_stream_kernels_on_bin_groups_equal_one_launch(cuda, row, s,
+                                                       groups):
+    """Rows 3 and 5 on the presets' band cut into bin groups, as the
+    sharded MVDR/LCMV step (parallel/sharded.py) runs them on each rank:
+    each group's launch (its bins, history, steering and gate, the last
+    group padded by repeating the band's last bin) equals the same lanes
+    of one launch over the whole band, bit for bit, three streams."""
+    rng = np.random.default_rng(400 + s + groups)
+    ib = _preset_band(cuda)
+    t, m, nb, w, u, nib = 45, 16, 1026, 10, 2, len(ib)
+    x = _cplx(rng, (t, NB16, m, nb), cuda)
+    hist = _cplx(rng, (NB16, w, m, nib), cuda)
+    idx = torch.as_tensor(rng.integers(0, u, (NB16, t)), device=cuda)
+    gate = torch.as_tensor(rng.random((NB16, t, nib)) < 0.7, device=cuda)
+    if row == "mvdr":
+        fn, ctrl = km.mvdr_stream, _cplx(rng, (u, m, nib), cuda)
+    else:
+        fn, ctrl = klc.lcmv_stream, _constraints(rng, u, s, m, nib, cuda)
+    full = fn(x, hist, ctrl, idx, gate, ib)
+    per = -(-nib // groups)
+    pos = np.concatenate([np.arange(nib), np.full(per * groups - nib,
+                                                  nib - 1)])
+    for g in range(groups):
+        sel = torch.as_tensor(pos[g * per:(g + 1) * per], device=cuda)
+        before = fn.launches
+        got = fn(x, hist.index_select(3, sel).contiguous(),
+                 ctrl.index_select(ctrl.dim() - 1, sel).contiguous(), idx,
+                 gate.index_select(2, sel).contiguous(),
+                 ib.index_select(0, sel))
+        torch.cuda.synchronize()
+        assert fn.launches == before + 1
+        assert torch.equal(got, full.index_select(2, sel)), (row, g)
+
+
 def _fused_batch_inputs(rng, b, m, t, hop, ib):
     """B streams of audio with quiet hops, their carries, and a gate
     threshold in the widest gap of the pooled statistic near its median

@@ -40,7 +40,11 @@ batched runner (``beamform_tpu_torch/runtime/batch.py``) also times one
 LCMV ``auto``, MVDR ``mega``, GSS, phase, phasempf, mcra and MVDR
 ``dense``, CUDA events, median of 10 after 3 warm-ups; a checkout without
 it reports none of these (one whose nodes lack a native batched step runs
-the protocol's default, a loop over the streams). Last, one
+the protocol's default, a loop over the streams). A checkout with the
+multi-device layer (``beamform_tpu_torch/parallel``) also times the MVDR
+``auto`` chunk through ``sharded_batched_step`` in a 1-rank NCCL world,
+mesh (1, 1): the sharding layer's host work and all-gather at world size
+1, beside the ``B=8`` runner's. Last, one
 ``StreamingSession.process`` of a live chunk of 1 and 4 hops from host
 numpy for DAS, MVDR and LCMV ``auto`` (``cuda_ms``).
 CHANGE_ROOT defaults to this checkout. Prints one line per process, then
@@ -147,7 +151,7 @@ def worker(root: str) -> dict:
     out.update(gj_kernels(cs, x))
     if os.path.exists(os.path.join(root, "beamform_tpu_torch", "runtime",
                                    "batch.py")):
-        out.update(batched_paths(cs))
+        out.update(batched_paths(cs, root))
     out.update(live_chunks(cs))
     return out
 
@@ -171,9 +175,12 @@ def live_chunks(cs) -> dict:
     return out
 
 
-def batched_paths(cs) -> dict:
+def batched_paths(cs, root: str) -> dict:
     """One BatchRunner.process of the first 2 s chunk of chip_smoke.py's
-    batched input (ms), per path of BATCHED."""
+    batched input (ms), per path of BATCHED; in a checkout with the
+    multi-device layer (``beamform_tpu_torch/parallel``), also the same
+    chunk of MVDR ``auto`` through ``sharded_batched_step`` in a 1-rank
+    NCCL world on a (1, 1) mesh, from ``sharded_state_init``."""
     import torch
     from beamform_tpu_torch.runtime.batch import BatchRunner
     xb = torch.as_tensor(cs.make_batch_input(cs.BATCH)[..., :cs.BATCH_CHUNK],
@@ -187,6 +194,27 @@ def batched_paths(cs) -> dict:
         for _ in range(2):
             runner.process(xb, thetas)
         out[label] = cs.cuda_ms(lambda: runner.process(xb, thetas), reps=10)
+    if os.path.isdir(os.path.join(root, "beamform_tpu_torch", "parallel")):
+        import torch.distributed as dist
+        from beamform_tpu_torch.models import get_model
+        from beamform_tpu_torch.parallel.mesh import make_mesh
+        from beamform_tpu_torch.parallel.multihost import init_multihost
+        from beamform_tpu_torch.parallel.sharded import (
+            sharded_batched_step, sharded_state_init)
+        init_multihost(f"tcp://127.0.0.1:{cs.free_port()}", world_size=1,
+                       rank=0)
+        try:
+            mesh = make_mesh(shape=(1, 1))
+            model = get_model("mvdr", cs.engine(), cs.aira16(),
+                              cs.preset("mvdr"), device="cuda")
+            state = sharded_state_init(mesh, model, cs.BATCH)
+            for _ in range(2):
+                sharded_batched_step(mesh, model, xb, thetas, state)
+            out["mvdr sharded 1-rank B=8"] = cs.cuda_ms(
+                lambda: sharded_batched_step(mesh, model, xb, thetas, state),
+                reps=10)
+        finally:
+            dist.destroy_process_group()
     return out
 
 
