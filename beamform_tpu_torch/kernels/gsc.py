@@ -44,6 +44,7 @@ import torch
 
 from beamform_tpu_torch.kernels._build import (check, check_tensor,
                                                device_guard, launch_context)
+from beamform_tpu_torch.utils.profiling import span
 
 K = 128            # the kernel's taps (the reference default, gsc.cpp:219)
 TILE = 128         # samples per tile of the kernel's staging
@@ -247,8 +248,9 @@ def gsc_sample(aligned, block, filt, last_out, params,
     if not aligned.is_cuda:
         return gsc_sample_plain(aligned, block, filt, last_out, params,
                                 with_mu)
-    res = _launch(aligned, aligned.shape, block, filt, last_out, params,
-                  False, with_mu, "gsc_sample")
+    with span("bf.kernel.gsc_sample"):
+        res = _launch(aligned, aligned.shape, block, filt, last_out, params,
+                      False, with_mu, "gsc_sample")
     gsc_sample.launches += 1
     return res
 
@@ -261,12 +263,14 @@ def gsc_xmu(aligned, block, filt, last_out, params, with_mu: bool = False):
     if not aligned.is_cuda:
         return gsc_sample_plain(aligned, block, filt, last_out, params,
                                 with_mu)
-    if aligned.dtype != torch.float32:
-        raise ValueError(f"aligned has dtype {aligned.dtype}, the CUDA GSC "
-                         "kernel takes float32; float64 runs on the CPU only")
-    packed = xmu_inputs(aligned, block, params)
-    res = _launch(packed, aligned.shape, block, filt, last_out, params,
-                  True, with_mu, "gsc_xmu")
+    with span("bf.kernel.gsc_xmu"):
+        if aligned.dtype != torch.float32:
+            raise ValueError(f"aligned has dtype {aligned.dtype}, the CUDA "
+                             "GSC kernel takes float32; float64 runs on the "
+                             "CPU only")
+        packed = xmu_inputs(aligned, block, params)
+        res = _launch(packed, aligned.shape, block, filt, last_out, params,
+                      True, with_mu, "gsc_xmu")
     gsc_xmu.launches += 1
     return res
 

@@ -44,6 +44,7 @@ from beamform_tpu_torch.kernels._build import (check, check_tensor,
                                                device_guard, launch_context)
 from beamform_tpu_torch.kernels.gsc import (K, check_shape, coef_array,
                                             window_sums)
+from beamform_tpu_torch.utils.profiling import span
 
 L = 8              # lookahead: samples per group of frozen filters
 
@@ -142,36 +143,37 @@ def gsc_block(aligned, block, filt, last_out, gram, uold, params):
     if not aligned.is_cuda:
         return gsc_block_plain(aligned, block, filt, last_out, gram, uold,
                                params)
-    b, m, s = aligned.shape
-    c = m - 1
-    dev = aligned.device
-    check_shape(m, filt.shape[-1], s)
-    check_tensor(aligned, "aligned", torch.float32, (b, m, s), dev)
-    check_tensor(block, "block", torch.float32, (b, c, K), dev)
-    check_tensor(filt, "filt", torch.float32, (b, c, K), dev)
-    check_tensor(last_out, "last_out", torch.float32, (b, K), dev)
-    check_tensor(gram, "gram", torch.float32, (b, c, L), dev)
-    check_tensor(uold, "uold", torch.float32, (b, c, L), dev)
-    if aligned.data_ptr() % 16:
-        aligned = aligned.clone()    # the kernel copies 16-byte rows
-    out = torch.empty((b, s), dtype=torch.float32, device=dev)
-    blk_o, flt_o = torch.empty_like(block), torch.empty_like(filt)
-    lo_o = torch.empty_like(last_out)
-    gr_o, uo_o = torch.empty_like(gram), torch.empty_like(uold)
-    if b and s:
-        with device_guard(dev):
-            lib, stream = launch_context(dev)
-            code = lib.bf_gsc_block(
-                aligned.data_ptr(), block.data_ptr(), filt.data_ptr(),
-                last_out.data_ptr(), uold.data_ptr(), out.data_ptr(),
-                blk_o.data_ptr(), flt_o.data_ptr(), lo_o.data_ptr(),
-                gr_o.data_ptr(), uo_o.data_ptr(), b, m, s,
-                int(params.use_vad), coef_array(params, m), stream)
-        check(lib, code, "gsc_block")
-    else:
-        for dst, src in ((blk_o, block), (flt_o, filt), (lo_o, last_out),
-                         (gr_o, gram), (uo_o, uold)):
-            dst.copy_(src)
+    with span("bf.kernel.gsc_block"):
+        b, m, s = aligned.shape
+        c = m - 1
+        dev = aligned.device
+        check_shape(m, filt.shape[-1], s)
+        check_tensor(aligned, "aligned", torch.float32, (b, m, s), dev)
+        check_tensor(block, "block", torch.float32, (b, c, K), dev)
+        check_tensor(filt, "filt", torch.float32, (b, c, K), dev)
+        check_tensor(last_out, "last_out", torch.float32, (b, K), dev)
+        check_tensor(gram, "gram", torch.float32, (b, c, L), dev)
+        check_tensor(uold, "uold", torch.float32, (b, c, L), dev)
+        if aligned.data_ptr() % 16:
+            aligned = aligned.clone()    # the kernel copies 16-byte rows
+        out = torch.empty((b, s), dtype=torch.float32, device=dev)
+        blk_o, flt_o = torch.empty_like(block), torch.empty_like(filt)
+        lo_o = torch.empty_like(last_out)
+        gr_o, uo_o = torch.empty_like(gram), torch.empty_like(uold)
+        if b and s:
+            with device_guard(dev):
+                lib, stream = launch_context(dev)
+                code = lib.bf_gsc_block(
+                    aligned.data_ptr(), block.data_ptr(), filt.data_ptr(),
+                    last_out.data_ptr(), uold.data_ptr(), out.data_ptr(),
+                    blk_o.data_ptr(), flt_o.data_ptr(), lo_o.data_ptr(),
+                    gr_o.data_ptr(), uo_o.data_ptr(), b, m, s,
+                    int(params.use_vad), coef_array(params, m), stream)
+            check(lib, code, "gsc_block")
+        else:
+            for dst, src in ((blk_o, block), (flt_o, filt), (lo_o, last_out),
+                             (gr_o, gram), (uo_o, uold)):
+                dst.copy_(src)
     gsc_block.launches += 1
     return out, blk_o, flt_o, lo_o, gr_o, uo_o
 

@@ -25,6 +25,7 @@ import torch
 from beamform_tpu_torch.kernels._build import (check, check_tensor,
                                                device_guard, launch_context)
 from beamform_tpu_torch.kernels.gsc import coef_array
+from beamform_tpu_torch.utils.profiling import span
 
 K = 128          # filter taps (reference default, gsc.cpp:219)
 L = 128          # default block length
@@ -132,38 +133,39 @@ def gsc_blocklms(aligned, block, filt, last_out, params):
     l; one launch, a thread-block cluster per stream (:func:`cluster_plan`)."""
     if not aligned.is_cuda:
         return gsc_blocklms_plain(aligned, block, filt, last_out, params)
-    l = block_len(params)
-    b, m, s = aligned.shape
-    c = m - 1
-    dev = aligned.device
-    if not 2 <= m <= MAX_MICS:
-        raise ValueError(f"the CUDA block-LMS kernel takes 2 to {MAX_MICS} "
-                         f"mics, got {m}; run on the CPU")
-    if filt.shape[-1] != K:
-        raise ValueError(f"the CUDA block-LMS kernel takes filter_size {K}, "
-                         f"got {filt.shape[-1]}")
-    if s == 0 or s % l:
-        raise ValueError(f"the CUDA block-LMS kernel takes a positive "
-                         f"multiple of block_samples={l} samples, got {s}")
-    check_tensor(aligned, "aligned", torch.float32, (b, m, s), dev)
-    check_tensor(block, "block", torch.float32, (b, c, K), dev)
-    check_tensor(filt, "filt", torch.float32, (b, c, K), dev)
-    check_tensor(last_out, "last_out", torch.float32, (b, K), dev)
-    if aligned.data_ptr() % 16:
-        aligned = aligned.clone()    # the kernel copies 16-byte rows
-    cs, cpc = cluster_plan(m)
-    out = torch.empty((b, s), dtype=torch.float32, device=dev)
-    blk_o, flt_o = torch.empty_like(block), torch.empty_like(filt)
-    lo_o = torch.empty_like(last_out)
-    with device_guard(dev):
-        lib, stream = launch_context(dev)
-        code = lib.bf_gsc_blocklms(
-            aligned.data_ptr(), block.data_ptr(), filt.data_ptr(),
-            last_out.data_ptr(), out.data_ptr(), blk_o.data_ptr(),
-            flt_o.data_ptr(), lo_o.data_ptr(), b, m, s, l,
-            int(params.use_vad), cs, cpc, smem_bytes(l, cpc),
-            coef_array(params, m), stream)
-    check(lib, code, "gsc_blocklms")
+    with span("bf.kernel.gsc_blocklms"):
+        l = block_len(params)
+        b, m, s = aligned.shape
+        c = m - 1
+        dev = aligned.device
+        if not 2 <= m <= MAX_MICS:
+            raise ValueError(f"the CUDA block-LMS kernel takes 2 to "
+                             f"{MAX_MICS} mics, got {m}; run on the CPU")
+        if filt.shape[-1] != K:
+            raise ValueError(f"the CUDA block-LMS kernel takes filter_size "
+                             f"{K}, got {filt.shape[-1]}")
+        if s == 0 or s % l:
+            raise ValueError(f"the CUDA block-LMS kernel takes a positive "
+                             f"multiple of block_samples={l} samples, got {s}")
+        check_tensor(aligned, "aligned", torch.float32, (b, m, s), dev)
+        check_tensor(block, "block", torch.float32, (b, c, K), dev)
+        check_tensor(filt, "filt", torch.float32, (b, c, K), dev)
+        check_tensor(last_out, "last_out", torch.float32, (b, K), dev)
+        if aligned.data_ptr() % 16:
+            aligned = aligned.clone()    # the kernel copies 16-byte rows
+        cs, cpc = cluster_plan(m)
+        out = torch.empty((b, s), dtype=torch.float32, device=dev)
+        blk_o, flt_o = torch.empty_like(block), torch.empty_like(filt)
+        lo_o = torch.empty_like(last_out)
+        with device_guard(dev):
+            lib, stream = launch_context(dev)
+            code = lib.bf_gsc_blocklms(
+                aligned.data_ptr(), block.data_ptr(), filt.data_ptr(),
+                last_out.data_ptr(), out.data_ptr(), blk_o.data_ptr(),
+                flt_o.data_ptr(), lo_o.data_ptr(), b, m, s, l,
+                int(params.use_vad), cs, cpc, smem_bytes(l, cpc),
+                coef_array(params, m), stream)
+        check(lib, code, "gsc_blocklms")
     gsc_blocklms.launches += 1
     return out, blk_o, flt_o, lo_o
 

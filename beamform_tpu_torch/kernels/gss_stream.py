@@ -46,6 +46,7 @@ from beamform_tpu_torch.kernels.mvdr_stream import (MAX_MICS, MAX_SLOTS,
 from beamform_tpu_torch.kernels.wola import (MAX_NFFT, MIN_NFFT,
                                              _analysis_tables, _tables,
                                              wola_analysis_plain)
+from beamform_tpu_torch.utils.profiling import span
 
 
 def gss_fits(m: int, ib, nfft: int, s_cap: int) -> bool:
@@ -200,58 +201,59 @@ def gss_mega(x, tail, out_prev, w0, ah_ib, idx, reset, ib, nfft: int,
     if not x.is_cuda:
         return gss_mega_plain(x, tail, out_prev, w0, ah_ib, idx, reset, ib,
                               mag_threshold, mu, lam, act_bits)
-    m, s = x.shape[-2:]
-    lead = tuple(x.shape[:-2])              # (B,), or () for one stream
-    b = lead[0] if lead else 1
-    t = s // hop
-    nib, s_cap = w0.shape[-3:-1]
-    u = ah_ib.shape[0]
-    if not (_kernel_fits(m, nfft, s_cap) and nib >= 1 and u >= 1
-            and b >= 1):
-        raise ValueError(
-            f"the CUDA fused GSS kernel takes a power-of-two nfft in "
-            f"[{MIN_NFFT}, {MAX_NFFT}], M <= {MAX_MICS} mics, S <= "
-            f"{MAX_SLOTS} source slots and a nonempty band, control and "
-            f"batch, got nfft={nfft}, M={m}, S={s_cap}, NIB={nib}, U={u}, "
-            f"B={b}")
-    seg = min(SEG_FRAMES, t)
-    if smem_bytes(b, s_cap, nfft, seg) > MAX_SMEM:
-        raise ValueError(
-            f"the CUDA fused GSS kernel stages each stream's control rows "
-            f"in a block's shared memory: {b} streams of {seg} frames take "
-            f"{smem_bytes(b, s_cap, nfft, seg)} bytes, past {MAX_SMEM}; "
-            "serve fewer streams a call")
-    dev = x.device
-    check_tensor(x, "x", torch.float32, lead + (m, s), dev)
-    check_tensor(tail, "tail", torch.float32, lead + (m, hop), dev)
-    check_tensor(out_prev, "out_prev", torch.float32, lead + (hop,), dev)
-    check_tensor(w0, "w0", torch.complex64, lead + (nib, s_cap, m), dev)
-    check_tensor(ah_ib, "ah_ib", torch.complex64, (u, s_cap, m, nib), dev)
-    check_tensor(idx, "idx", torch.int64, lead + (t,), dev)
-    check_tensor(reset, "reset", torch.bool, lead + (t,), dev)
-    check_tensor(ib, "ib", torch.int64, (nib,), dev)
-    act = _slot_bits(ah_ib, act_bits)
-    check_tensor(act, "act_bits", torch.int32, (u,), dev)
-    check_scratch("fused GSS", 2 * b * seg * nib * (m + 1) * 8, dev)
-    win, tw = _tables(nfft, dev)
-    ptw = _analysis_tables(nfft, dev)[1]
-    out = torch.empty(lead + (t * hop,), dtype=torch.float32, device=dev)
-    new_prev = torch.empty(lead + (hop,), dtype=torch.float32, device=dev)
-    w_out = torch.empty_like(w0)
-    xsc = torch.empty((2, b, seg, nib, m), dtype=torch.complex64,
-                      device=dev)
-    ys = torch.empty((2, b, seg, nib), dtype=torch.complex64, device=dev)
-    with device_guard(dev):
-        lib, stream = launch_context(dev)
-        code = lib.bf_gss_stream(
-            x.data_ptr(), tail.data_ptr(), out_prev.data_ptr(),
-            w0.data_ptr(), ah_ib.data_ptr(), act.data_ptr(), idx.data_ptr(),
-            reset.data_ptr(), ib.data_ptr(), win.data_ptr(), tw.data_ptr(),
-            ptw.data_ptr(), out.data_ptr(), new_prev.data_ptr(),
-            w_out.data_ptr(), xsc.data_ptr(), ys.data_ptr(), b, m, t, hop,
-            nib, u, s_cap, seg, float(mag_threshold), float(mu), float(lam),
-            stream)
-    check(lib, code, "gss_stream")
+    with span("bf.kernel.gss_mega"):
+        m, s = x.shape[-2:]
+        lead = tuple(x.shape[:-2])              # (B,), or () for one stream
+        b = lead[0] if lead else 1
+        t = s // hop
+        nib, s_cap = w0.shape[-3:-1]
+        u = ah_ib.shape[0]
+        if not (_kernel_fits(m, nfft, s_cap) and nib >= 1 and u >= 1
+                and b >= 1):
+            raise ValueError(
+                f"the CUDA fused GSS kernel takes a power-of-two nfft in "
+                f"[{MIN_NFFT}, {MAX_NFFT}], M <= {MAX_MICS} mics, S <= "
+                f"{MAX_SLOTS} source slots and a nonempty band, control and "
+                f"batch, got nfft={nfft}, M={m}, S={s_cap}, NIB={nib}, U={u}, "
+                f"B={b}")
+        seg = min(SEG_FRAMES, t)
+        if smem_bytes(b, s_cap, nfft, seg) > MAX_SMEM:
+            raise ValueError(
+                f"the CUDA fused GSS kernel stages each stream's control "
+                f"rows in a block's shared memory: {b} streams of {seg} "
+                f"frames take {smem_bytes(b, s_cap, nfft, seg)} bytes, past "
+                f"{MAX_SMEM}; serve fewer streams a call")
+        dev = x.device
+        check_tensor(x, "x", torch.float32, lead + (m, s), dev)
+        check_tensor(tail, "tail", torch.float32, lead + (m, hop), dev)
+        check_tensor(out_prev, "out_prev", torch.float32, lead + (hop,), dev)
+        check_tensor(w0, "w0", torch.complex64, lead + (nib, s_cap, m), dev)
+        check_tensor(ah_ib, "ah_ib", torch.complex64, (u, s_cap, m, nib), dev)
+        check_tensor(idx, "idx", torch.int64, lead + (t,), dev)
+        check_tensor(reset, "reset", torch.bool, lead + (t,), dev)
+        check_tensor(ib, "ib", torch.int64, (nib,), dev)
+        act = _slot_bits(ah_ib, act_bits)
+        check_tensor(act, "act_bits", torch.int32, (u,), dev)
+        check_scratch("fused GSS", 2 * b * seg * nib * (m + 1) * 8, dev)
+        win, tw = _tables(nfft, dev)
+        ptw = _analysis_tables(nfft, dev)[1]
+        out = torch.empty(lead + (t * hop,), dtype=torch.float32, device=dev)
+        new_prev = torch.empty(lead + (hop,), dtype=torch.float32, device=dev)
+        w_out = torch.empty_like(w0)
+        xsc = torch.empty((2, b, seg, nib, m), dtype=torch.complex64,
+                          device=dev)
+        ys = torch.empty((2, b, seg, nib), dtype=torch.complex64, device=dev)
+        with device_guard(dev):
+            lib, stream = launch_context(dev)
+            code = lib.bf_gss_stream(
+                x.data_ptr(), tail.data_ptr(), out_prev.data_ptr(),
+                w0.data_ptr(), ah_ib.data_ptr(), act.data_ptr(),
+                idx.data_ptr(), reset.data_ptr(), ib.data_ptr(),
+                win.data_ptr(), tw.data_ptr(), ptw.data_ptr(),
+                out.data_ptr(), new_prev.data_ptr(), w_out.data_ptr(),
+                xsc.data_ptr(), ys.data_ptr(), b, m, t, hop, nib, u, s_cap,
+                seg, float(mag_threshold), float(mu), float(lam), stream)
+        check(lib, code, "gss_stream")
     gss_mega.launches += 1
     return out, w_out, new_prev
 

@@ -38,6 +38,7 @@ from beamform_tpu_torch.kernels.mvdr_stream import (MAX_MICS, MAX_SLOTS,
                                                     cholesky_refined_solve,
                                                     gated_problems,
                                                     stream_fits)
+from beamform_tpu_torch.utils.profiling import span
 
 
 def lcmv_stream_plain(x: torch.Tensor, hist: torch.Tensor, c: torch.Tensor,
@@ -95,36 +96,37 @@ def lcmv_stream(x: torch.Tensor, hist: torch.Tensor, c: torch.Tensor,
     gives NaN where the plain version raises."""
     if not x.is_cuda:
         return lcmv_stream_plain(x, hist, c, idx, gate, ib)
-    t, m, nb = x.shape[0], x.shape[-2], x.shape[-1]
-    lead = tuple(x.shape[1:-2])             # (B,), or () for one stream
-    b = lead[0] if lead else 1
-    w, nib = hist.shape[-3], hist.shape[-1]
-    u, s = c.shape[:2]
-    if (t == 0 or w == 0 or nib == 0 or u == 0
-            or not 1 <= b <= MAX_STREAMS):
-        raise ValueError(f"empty chunk, history, band or control rows, or "
-                         f"streams outside 1..{MAX_STREAMS}: T={t}, W={w}, "
-                         f"NIB={nib}, U={u}, B={b}")
-    if not (s >= 1 and stream_fits(m, w, s)):
-        raise ValueError(f"the CUDA LCMV stream kernel takes M <= "
-                         f"{MAX_MICS}, 1 <= S <= {MAX_SLOTS} constraint "
-                         f"slots and a tile within {MAX_SMEM} bytes of "
-                         f"shared memory, got M={m}, S={s}, W={w}")
-    dev = x.device
-    check_tensor(x, "x", torch.complex64, (t,) + lead + (m, nb), dev)
-    check_tensor(hist, "hist", torch.complex64, lead + (w, m, nib), dev)
-    check_tensor(c, "c", torch.complex64, (u, s, m, nib), dev)
-    check_tensor(idx, "idx", torch.int64, lead + (t,), dev)
-    check_tensor(gate, "gate", torch.bool, lead + (t, nib), dev)
-    check_tensor(ib, "ib", torch.int64, (nib,), dev)
-    y = torch.empty(lead + (t, nib), dtype=torch.complex64, device=dev)
-    with device_guard(dev):
-        lib, stream = launch_context(dev)
-        code = lib.bf_lcmv_stream(
-            x.data_ptr(), ib.data_ptr(), hist.data_ptr(), c.data_ptr(),
-            idx.data_ptr(), gate.data_ptr(), y.data_ptr(), b, t, m, nb, nib,
-            w, u, s, stream)
-    check(lib, code, "lcmv_stream")
+    with span("bf.kernel.lcmv_stream"):
+        t, m, nb = x.shape[0], x.shape[-2], x.shape[-1]
+        lead = tuple(x.shape[1:-2])             # (B,), or () for one stream
+        b = lead[0] if lead else 1
+        w, nib = hist.shape[-3], hist.shape[-1]
+        u, s = c.shape[:2]
+        if (t == 0 or w == 0 or nib == 0 or u == 0
+                or not 1 <= b <= MAX_STREAMS):
+            raise ValueError(f"empty chunk, history, band or control rows, "
+                             f"or streams outside 1..{MAX_STREAMS}: T={t}, "
+                             f"W={w}, NIB={nib}, U={u}, B={b}")
+        if not (s >= 1 and stream_fits(m, w, s)):
+            raise ValueError(f"the CUDA LCMV stream kernel takes M <= "
+                             f"{MAX_MICS}, 1 <= S <= {MAX_SLOTS} constraint "
+                             f"slots and a tile within {MAX_SMEM} bytes of "
+                             f"shared memory, got M={m}, S={s}, W={w}")
+        dev = x.device
+        check_tensor(x, "x", torch.complex64, (t,) + lead + (m, nb), dev)
+        check_tensor(hist, "hist", torch.complex64, lead + (w, m, nib), dev)
+        check_tensor(c, "c", torch.complex64, (u, s, m, nib), dev)
+        check_tensor(idx, "idx", torch.int64, lead + (t,), dev)
+        check_tensor(gate, "gate", torch.bool, lead + (t, nib), dev)
+        check_tensor(ib, "ib", torch.int64, (nib,), dev)
+        y = torch.empty(lead + (t, nib), dtype=torch.complex64, device=dev)
+        with device_guard(dev):
+            lib, stream = launch_context(dev)
+            code = lib.bf_lcmv_stream(
+                x.data_ptr(), ib.data_ptr(), hist.data_ptr(), c.data_ptr(),
+                idx.data_ptr(), gate.data_ptr(), y.data_ptr(), b, t, m, nb,
+                nib, w, u, s, stream)
+        check(lib, code, "lcmv_stream")
     lcmv_stream.launches += 1
     return y
 

@@ -25,6 +25,7 @@ import torch
 
 from beamform_tpu_torch.kernels._build import (check, check_tensor,
                                                device_guard, launch_context)
+from beamform_tpu_torch.utils.profiling import span
 
 #: the kernel holds one matrix in a group of at most 32 lanes (one warp)
 MAX_M = 32
@@ -70,21 +71,22 @@ def gj_inverse(a: torch.Tensor, polish: bool = True) -> torch.Tensor:
     """
     if not a.is_cuda:
         return gj_inverse_plain(a, polish)
-    if a.dim() != 3 or a.shape[1] != a.shape[2]:
-        raise ValueError(f"a must be (B, M, M), got {tuple(a.shape)}")
-    b, m, _ = a.shape
-    if not 1 <= m <= MAX_M:
-        raise ValueError(f"the CUDA Gauss-Jordan kernel takes M <= {MAX_M}, "
-                         f"got {m}")
-    check_tensor(a, "a", torch.complex64, (b, m, m), a.device)
-    out = torch.empty_like(a)
-    if b == 0:
-        return out
-    with device_guard(a.device):
-        lib, stream = launch_context(a.device)
-        code = lib.bf_gj_inverse(a.data_ptr(), out.data_ptr(), b, m,
-                                 int(polish), stream)
-    check(lib, code, "gj_inverse")
+    with span("bf.kernel.gj_inverse"):
+        if a.dim() != 3 or a.shape[1] != a.shape[2]:
+            raise ValueError(f"a must be (B, M, M), got {tuple(a.shape)}")
+        b, m, _ = a.shape
+        if not 1 <= m <= MAX_M:
+            raise ValueError(f"the CUDA Gauss-Jordan kernel takes M <= "
+                             f"{MAX_M}, got {m}")
+        check_tensor(a, "a", torch.complex64, (b, m, m), a.device)
+        out = torch.empty_like(a)
+        if b == 0:
+            return out
+        with device_guard(a.device):
+            lib, stream = launch_context(a.device)
+            code = lib.bf_gj_inverse(a.data_ptr(), out.data_ptr(), b, m,
+                                     int(polish), stream)
+        check(lib, code, "gj_inverse")
     gj_inverse.launches += 1
     return out
 

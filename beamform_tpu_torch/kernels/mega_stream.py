@@ -52,6 +52,7 @@ from beamform_tpu_torch.kernels.mvdr_stream import (MAX_MICS, MAX_SLOTS,
 from beamform_tpu_torch.kernels.wola import (MAX_NFFT, MIN_NFFT,
                                              _analysis_tables, _tables,
                                              wola_analysis_plain)
+from beamform_tpu_torch.utils.profiling import span
 
 #: frames per segment of the kernel's march: the segment's spectra ring
 #: (SEG_FRAMES + W frames of in-band bins) stays in L2, as the TPU kernel's
@@ -194,54 +195,56 @@ def mega_stream(x: torch.Tensor, tail: torch.Tensor, out_prev: torch.Tensor,
     if not x.is_cuda:
         return mega_plain(x, tail, out_prev, hist, ctrl, idx, ib,
                           mag_threshold, refine)
-    m, s = x.shape[-2:]
-    lead = tuple(x.shape[:-2])              # (B,), or () for one stream
-    b = lead[0] if lead else 1
-    hop = tail.shape[-1]
-    w, _, nib = hist.shape[-3:]
-    u, s_cap = ctrl.shape[:2]
-    t = s // hop
-    if t == 0 or s % hop or w == 0 or nib == 0 or u == 0 or b == 0:
-        raise ValueError(f"empty or ragged chunk, history, band, control "
-                         f"rows or batch: S={s} (hop {hop}), W={w}, "
-                         f"NIB={nib}, U={u}, B={b}")
-    if not (lcmv or s_cap == 1):
-        raise ValueError(f"MVDR steering has one slot, got S={s_cap}")
-    if not _kernel_fits(m, 2 * hop, s_cap if lcmv else 0, w):
-        raise ValueError(
-            f"the CUDA fused MVDR/LCMV kernel takes a power-of-two nfft in "
-            f"[{MIN_NFFT}, {MAX_NFFT}], M <= {MAX_MICS}, S <= {MAX_SLOTS} "
-            f"and a tile within {MAX_SMEM} bytes of shared memory, got "
-            f"nfft={2 * hop}, M={m}, S={s_cap}, W={w}")
-    dev = x.device
-    check_tensor(x, "x", torch.float32, lead + (m, s), dev)
-    check_tensor(tail, "tail", torch.float32, lead + (m, hop), dev)
-    check_tensor(out_prev, "out_prev", torch.float32, lead + (hop,), dev)
-    check_tensor(hist, "hist", torch.complex64, lead + (w, m, nib), dev)
-    check_tensor(ctrl, "ctrl", torch.complex64, (u, s_cap, m, nib), dev)
-    check_tensor(idx, "idx", torch.int64, lead + (t,), dev)
-    check_tensor(ib, "ib", torch.int64, (nib,), dev)
-    seg = min(SEG_FRAMES, t)
-    check_scratch("fused MVDR/LCMV", scratch_bytes(b, m, nib, w, seg), dev)
-    win, tw = _tables(2 * hop, dev)
-    ptw = _analysis_tables(2 * hop, dev)[1]
-    out = torch.empty(lead + (t * hop,), dtype=torch.float32, device=dev)
-    new_prev = torch.empty(lead + (hop,), dtype=torch.float32, device=dev)
-    new_hist = torch.empty_like(hist)
-    ring = torch.empty((b, seg + w, m, nib), dtype=torch.complex64,
-                       device=dev)
-    ys = torch.empty((b, seg, nib), dtype=torch.complex64, device=dev)
-    dc = torch.empty((b, 2, seg), dtype=torch.float32, device=dev)
-    with device_guard(dev):
-        lib, stream = launch_context(dev)
-        code = lib.bf_mega_stream(
-            x.data_ptr(), tail.data_ptr(), out_prev.data_ptr(),
-            hist.data_ptr(), ctrl.data_ptr(), idx.data_ptr(), ib.data_ptr(),
-            win.data_ptr(), tw.data_ptr(), ptw.data_ptr(), out.data_ptr(),
-            new_prev.data_ptr(), new_hist.data_ptr(), ring.data_ptr(),
-            ys.data_ptr(), dc.data_ptr(), b, m, t, hop, nib, w, u, s_cap,
-            seg, float(mag_threshold), int(refine), int(lcmv), stream)
-    check(lib, code, "mega_stream")
+    with span("bf.kernel.mega_stream"):
+        m, s = x.shape[-2:]
+        lead = tuple(x.shape[:-2])              # (B,), or () for one stream
+        b = lead[0] if lead else 1
+        hop = tail.shape[-1]
+        w, _, nib = hist.shape[-3:]
+        u, s_cap = ctrl.shape[:2]
+        t = s // hop
+        if t == 0 or s % hop or w == 0 or nib == 0 or u == 0 or b == 0:
+            raise ValueError(f"empty or ragged chunk, history, band, control "
+                             f"rows or batch: S={s} (hop {hop}), W={w}, "
+                             f"NIB={nib}, U={u}, B={b}")
+        if not (lcmv or s_cap == 1):
+            raise ValueError(f"MVDR steering has one slot, got S={s_cap}")
+        if not _kernel_fits(m, 2 * hop, s_cap if lcmv else 0, w):
+            raise ValueError(
+                f"the CUDA fused MVDR/LCMV kernel takes a power-of-two nfft "
+                f"in [{MIN_NFFT}, {MAX_NFFT}], M <= {MAX_MICS}, S <= "
+                f"{MAX_SLOTS} and a tile within {MAX_SMEM} bytes of shared "
+                f"memory, got nfft={2 * hop}, M={m}, S={s_cap}, W={w}")
+        dev = x.device
+        check_tensor(x, "x", torch.float32, lead + (m, s), dev)
+        check_tensor(tail, "tail", torch.float32, lead + (m, hop), dev)
+        check_tensor(out_prev, "out_prev", torch.float32, lead + (hop,), dev)
+        check_tensor(hist, "hist", torch.complex64, lead + (w, m, nib), dev)
+        check_tensor(ctrl, "ctrl", torch.complex64, (u, s_cap, m, nib), dev)
+        check_tensor(idx, "idx", torch.int64, lead + (t,), dev)
+        check_tensor(ib, "ib", torch.int64, (nib,), dev)
+        seg = min(SEG_FRAMES, t)
+        check_scratch("fused MVDR/LCMV", scratch_bytes(b, m, nib, w, seg), dev)
+        win, tw = _tables(2 * hop, dev)
+        ptw = _analysis_tables(2 * hop, dev)[1]
+        out = torch.empty(lead + (t * hop,), dtype=torch.float32, device=dev)
+        new_prev = torch.empty(lead + (hop,), dtype=torch.float32, device=dev)
+        new_hist = torch.empty_like(hist)
+        ring = torch.empty((b, seg + w, m, nib), dtype=torch.complex64,
+                           device=dev)
+        ys = torch.empty((b, seg, nib), dtype=torch.complex64, device=dev)
+        dc = torch.empty((b, 2, seg), dtype=torch.float32, device=dev)
+        with device_guard(dev):
+            lib, stream = launch_context(dev)
+            code = lib.bf_mega_stream(
+                x.data_ptr(), tail.data_ptr(), out_prev.data_ptr(),
+                hist.data_ptr(), ctrl.data_ptr(), idx.data_ptr(),
+                ib.data_ptr(), win.data_ptr(), tw.data_ptr(), ptw.data_ptr(),
+                out.data_ptr(), new_prev.data_ptr(), new_hist.data_ptr(),
+                ring.data_ptr(),
+                ys.data_ptr(), dc.data_ptr(), b, m, t, hop, nib, w, u, s_cap,
+                seg, float(mag_threshold), int(refine), int(lcmv), stream)
+        check(lib, code, "mega_stream")
     mega_stream.launches += 1
     return out, new_hist, new_prev
 

@@ -34,6 +34,7 @@ import torch
 
 from beamform_tpu_torch.kernels._build import (check, check_tensor,
                                                device_guard, launch_context)
+from beamform_tpu_torch.utils.profiling import span
 
 #: capacity of the CUDA kernels: one problem in at most 32 lanes (a warp);
 #: the LCMV kernel takes at most 16 constraint slots
@@ -164,34 +165,35 @@ def mvdr_stream(x: torch.Tensor, hist: torch.Tensor, d: torch.Tensor,
     gives NaN where the plain version raises."""
     if not x.is_cuda:
         return mvdr_stream_plain(x, hist, d, w_idx, gate, ib)
-    t, m, nb = x.shape[0], x.shape[-2], x.shape[-1]
-    lead = tuple(x.shape[1:-2])             # (B,), or () for one stream
-    b = lead[0] if lead else 1
-    w, nib = hist.shape[-3], hist.shape[-1]
-    u = d.shape[0]
-    if t == 0 or w == 0 or nib == 0 or not 1 <= b <= MAX_STREAMS:
-        raise ValueError(f"empty chunk, history or band, or streams "
-                         f"outside 1..{MAX_STREAMS}: T={t}, W={w}, "
-                         f"NIB={nib}, B={b}")
-    if not stream_fits(m, w):
-        raise ValueError(f"the CUDA MVDR stream kernel takes M <= "
-                         f"{MAX_MICS} and a tile within {MAX_SMEM} bytes "
-                         f"of shared memory, got M={m}, W={w}")
-    dev = x.device
-    check_tensor(x, "x", torch.complex64, (t,) + lead + (m, nb), dev)
-    check_tensor(hist, "hist", torch.complex64, lead + (w, m, nib), dev)
-    check_tensor(d, "d", torch.complex64, (u, m, nib), dev)
-    check_tensor(w_idx, "w_idx", torch.int64, lead + (t,), dev)
-    check_tensor(gate, "gate", torch.bool, lead + (t, nib), dev)
-    check_tensor(ib, "ib", torch.int64, (nib,), dev)
-    y = torch.empty(lead + (t, nib), dtype=torch.complex64, device=dev)
-    with device_guard(dev):
-        lib, stream = launch_context(dev)
-        code = lib.bf_mvdr_stream(
-            x.data_ptr(), ib.data_ptr(), hist.data_ptr(), d.data_ptr(),
-            w_idx.data_ptr(), gate.data_ptr(), y.data_ptr(), b, t, m, nb,
-            nib, w, u, stream)
-    check(lib, code, "mvdr_stream")
+    with span("bf.kernel.mvdr_stream"):
+        t, m, nb = x.shape[0], x.shape[-2], x.shape[-1]
+        lead = tuple(x.shape[1:-2])             # (B,), or () for one stream
+        b = lead[0] if lead else 1
+        w, nib = hist.shape[-3], hist.shape[-1]
+        u = d.shape[0]
+        if t == 0 or w == 0 or nib == 0 or not 1 <= b <= MAX_STREAMS:
+            raise ValueError(f"empty chunk, history or band, or streams "
+                             f"outside 1..{MAX_STREAMS}: T={t}, W={w}, "
+                             f"NIB={nib}, B={b}")
+        if not stream_fits(m, w):
+            raise ValueError(f"the CUDA MVDR stream kernel takes M <= "
+                             f"{MAX_MICS} and a tile within {MAX_SMEM} bytes "
+                             f"of shared memory, got M={m}, W={w}")
+        dev = x.device
+        check_tensor(x, "x", torch.complex64, (t,) + lead + (m, nb), dev)
+        check_tensor(hist, "hist", torch.complex64, lead + (w, m, nib), dev)
+        check_tensor(d, "d", torch.complex64, (u, m, nib), dev)
+        check_tensor(w_idx, "w_idx", torch.int64, lead + (t,), dev)
+        check_tensor(gate, "gate", torch.bool, lead + (t, nib), dev)
+        check_tensor(ib, "ib", torch.int64, (nib,), dev)
+        y = torch.empty(lead + (t, nib), dtype=torch.complex64, device=dev)
+        with device_guard(dev):
+            lib, stream = launch_context(dev)
+            code = lib.bf_mvdr_stream(
+                x.data_ptr(), ib.data_ptr(), hist.data_ptr(), d.data_ptr(),
+                w_idx.data_ptr(), gate.data_ptr(), y.data_ptr(), b, t, m, nb,
+                nib, w, u, stream)
+        check(lib, code, "mvdr_stream")
     mvdr_stream.launches += 1
     return y
 

@@ -69,6 +69,7 @@ import torch
 
 from beamform_tpu_torch.kernels._build import (check, check_tensor,
                                                device_guard, launch_context)
+from beamform_tpu_torch.utils.profiling import span
 
 MAX_MICS = 32
 #: streams one launch takes (the marches' grid y extent)
@@ -404,19 +405,20 @@ def phase_mask(spec, w_uniq, w_idx, min_phase_rad: float,
     if not spec.is_cuda:
         return phase_mask_plain(spec, w_uniq, w_idx, min_phase_rad,
                                 mag_threshold, mag_mult, nfft)
-    t, lead, m, nb, u = _check_front(spec, w_uniq, w_idx, "phase-mask")
-    y = torch.empty(lead + (t, nb), dtype=torch.complex64,
-                    device=spec.device)
-    if t == 0:
-        return y
-    with device_guard(spec.device):
-        lib, stream = launch_context(spec.device)
-        code = lib.bf_phase_mask(
-            spec.data_ptr(), w_uniq.data_ptr(), w_idx.data_ptr(),
-            y.data_ptr(), m, t, nb, u, lead[0] if lead else 1,
-            _floats(min_phase_rad, mag_threshold, mag_mult, 1.0 / nfft),
-            stream)
-    check(lib, code, "phase_mask")
+    with span("bf.kernel.phase_mask"):
+        t, lead, m, nb, u = _check_front(spec, w_uniq, w_idx, "phase-mask")
+        y = torch.empty(lead + (t, nb), dtype=torch.complex64,
+                        device=spec.device)
+        if t == 0:
+            return y
+        with device_guard(spec.device):
+            lib, stream = launch_context(spec.device)
+            code = lib.bf_phase_mask(
+                spec.data_ptr(), w_uniq.data_ptr(), w_idx.data_ptr(),
+                y.data_ptr(), m, t, nb, u, lead[0] if lead else 1,
+                _floats(min_phase_rad, mag_threshold, mag_mult, 1.0 / nfft),
+                stream)
+        check(lib, code, "phase_mask")
     phase_mask.launches += 1
     return y
 
@@ -435,34 +437,35 @@ def mpf_march(spec, w_uniq, w_idx, state: MpfState, p, bug_dc_zero: bool):
     frame, bin) into (4, B, T, NB) planes, then the march."""
     if not spec.is_cuda:
         return mpf_march_plain(spec, w_uniq, w_idx, state, p, bug_dc_zero)
-    t, lead, m, nb, u = _check_front(spec, w_uniq, w_idx, "MPF")
-    dev = spec.device
-    vecs, cur, first = _state_in(state, lead, nb, dev)
-    if t == 0:
-        return (torch.empty(lead + (0, nb), dtype=torch.complex64,
-                            device=dev), state)
-    planes = torch.empty((4,) + lead + (t, nb), dtype=torch.float32,
-                         device=dev)
-    y = torch.empty(lead + (t, nb), dtype=torch.complex64, device=dev)
-    out = _state_out(MpfState, lead, nb, dev)
-    coef = _floats(
-        p.min_phase * math.pi / 180.0, p.min_mag,
-        *_mcra_coefs(p.MCRA_alphaS, p.MCRA_alphaD, p.MCRA_alphaD2,
-                     p.MCRA_delta, p.MCRA_L),
-        p.MPF_alphaS, 1 - p.MPF_alphaS, p.MPF_eta, p.MPF_rev_gamma,
-        1.0 - p.MPF_rev_gamma / p.MPF_rev_delta, p.out_amp, p.noise_floor)
-    flags = ((_ONLY_NOISE if p.out_only_noise else 0)
-             | (_ONLY_MCRA if p.out_only_mcra else 0)
-             | (_DC_ZERO if bug_dc_zero else 0))
-    with device_guard(dev):
-        lib, stream = launch_context(dev)
-        code = lib.bf_mpf_march(
-            spec.data_ptr(), w_uniq.data_ptr(), w_idx.data_ptr(),
-            _ptrs(vecs), cur.data_ptr(), first.data_ptr(),
-            planes.data_ptr(), y.data_ptr(), _ptrs(out[0]),
-            out[1].data_ptr(), out[2].data_ptr(), m, t, nb, u,
-            lead[0] if lead else 1, coef, flags, stream)
-    check(lib, code, "mpf_march")
+    with span("bf.kernel.mpf_march"):
+        t, lead, m, nb, u = _check_front(spec, w_uniq, w_idx, "MPF")
+        dev = spec.device
+        vecs, cur, first = _state_in(state, lead, nb, dev)
+        if t == 0:
+            return (torch.empty(lead + (0, nb), dtype=torch.complex64,
+                                device=dev), state)
+        planes = torch.empty((4,) + lead + (t, nb), dtype=torch.float32,
+                             device=dev)
+        y = torch.empty(lead + (t, nb), dtype=torch.complex64, device=dev)
+        out = _state_out(MpfState, lead, nb, dev)
+        coef = _floats(
+            p.min_phase * math.pi / 180.0, p.min_mag,
+            *_mcra_coefs(p.MCRA_alphaS, p.MCRA_alphaD, p.MCRA_alphaD2,
+                         p.MCRA_delta, p.MCRA_L),
+            p.MPF_alphaS, 1 - p.MPF_alphaS, p.MPF_eta, p.MPF_rev_gamma,
+            1.0 - p.MPF_rev_gamma / p.MPF_rev_delta, p.out_amp, p.noise_floor)
+        flags = ((_ONLY_NOISE if p.out_only_noise else 0)
+                 | (_ONLY_MCRA if p.out_only_mcra else 0)
+                 | (_DC_ZERO if bug_dc_zero else 0))
+        with device_guard(dev):
+            lib, stream = launch_context(dev)
+            code = lib.bf_mpf_march(
+                spec.data_ptr(), w_uniq.data_ptr(), w_idx.data_ptr(),
+                _ptrs(vecs), cur.data_ptr(), first.data_ptr(),
+                planes.data_ptr(), y.data_ptr(), _ptrs(out[0]),
+                out[1].data_ptr(), out[2].data_ptr(), m, t, nb, u,
+                lead[0] if lead else 1, coef, flags, stream)
+        check(lib, code, "mpf_march")
     mpf_march.launches += 1
     return y, _new_state(MpfState, out, state[0].dtype)
 
@@ -474,34 +477,35 @@ def mcra_march(s_f, sq, x, state: McraState, p, bug_dc_zero: bool):
     vectors go through float32; one launch for the B streams."""
     if not x.is_cuda:
         return mcra_march_plain(s_f, sq, x, state, p, bug_dc_zero)
-    if x.dim() not in (2, 3):
-        raise ValueError(f"x must be (T, NB) or (T, B, NB), got "
-                         f"{tuple(x.shape)}")
-    t, nb = x.shape[0], x.shape[-1]
-    lead = tuple(x.shape[1:-1])
-    _check_streams(lead, t, nb, "MCRA")
-    dev = x.device
-    check_tensor(s_f, "s_f", torch.float32, x.shape, dev)
-    check_tensor(sq, "sq", torch.float32, x.shape, dev)
-    check_tensor(x, "x", torch.complex64, x.shape, dev)
-    vecs, cur, first = _state_in(state, lead, nb, dev)
-    if t == 0:
-        return (torch.empty(lead + (0, nb), dtype=torch.complex64,
-                            device=dev), state)
-    y = torch.empty(lead + (t, nb), dtype=torch.complex64, device=dev)
-    out = _state_out(McraState, lead, nb, dev)
-    coef = _floats(*_mcra_coefs(p.alphaS, p.alphaD, p.alphaD2, p.delta,
-                                p.L), p.out_amp)
-    flags = ((_ONLY_NOISE if p.out_only_noise else 0)
-             | (_DC_ZERO if bug_dc_zero else 0))
-    with device_guard(dev):
-        lib, stream = launch_context(dev)
-        code = lib.bf_mcra_march(
-            s_f.data_ptr(), sq.data_ptr(), x.data_ptr(), _ptrs(vecs),
-            cur.data_ptr(), first.data_ptr(), y.data_ptr(), _ptrs(out[0]),
-            out[1].data_ptr(), out[2].data_ptr(), t, nb,
-            lead[0] if lead else 1, coef, flags, stream)
-    check(lib, code, "mcra_march")
+    with span("bf.kernel.mcra_march"):
+        if x.dim() not in (2, 3):
+            raise ValueError(f"x must be (T, NB) or (T, B, NB), got "
+                             f"{tuple(x.shape)}")
+        t, nb = x.shape[0], x.shape[-1]
+        lead = tuple(x.shape[1:-1])
+        _check_streams(lead, t, nb, "MCRA")
+        dev = x.device
+        check_tensor(s_f, "s_f", torch.float32, x.shape, dev)
+        check_tensor(sq, "sq", torch.float32, x.shape, dev)
+        check_tensor(x, "x", torch.complex64, x.shape, dev)
+        vecs, cur, first = _state_in(state, lead, nb, dev)
+        if t == 0:
+            return (torch.empty(lead + (0, nb), dtype=torch.complex64,
+                                device=dev), state)
+        y = torch.empty(lead + (t, nb), dtype=torch.complex64, device=dev)
+        out = _state_out(McraState, lead, nb, dev)
+        coef = _floats(*_mcra_coefs(p.alphaS, p.alphaD, p.alphaD2, p.delta,
+                                    p.L), p.out_amp)
+        flags = ((_ONLY_NOISE if p.out_only_noise else 0)
+                 | (_DC_ZERO if bug_dc_zero else 0))
+        with device_guard(dev):
+            lib, stream = launch_context(dev)
+            code = lib.bf_mcra_march(
+                s_f.data_ptr(), sq.data_ptr(), x.data_ptr(), _ptrs(vecs),
+                cur.data_ptr(), first.data_ptr(), y.data_ptr(), _ptrs(out[0]),
+                out[1].data_ptr(), out[2].data_ptr(), t, nb,
+                lead[0] if lead else 1, coef, flags, stream)
+        check(lib, code, "mcra_march")
     mcra_march.launches += 1
     return y, _new_state(McraState, out, state[0].dtype)
 

@@ -22,6 +22,7 @@ import torch
 from beamform_tpu_torch.dsp.wola import frame_signal_carry, sqrt_hann
 from beamform_tpu_torch.kernels._build import (check, check_tensor,
                                                device_guard, launch_context)
+from beamform_tpu_torch.utils.profiling import span
 
 MIN_NFFT, MAX_NFFT = 256, 4096
 
@@ -190,31 +191,32 @@ def wola_analysis(x: torch.Tensor, tail: torch.Tensor,
     ``mag``."""
     if not x.is_cuda:
         return wola_analysis_plain(x, tail, with_mag, streams)
-    c, s = x.shape
-    hop = tail.shape[-1]
-    _check_nfft(2 * hop)
-    if s % hop or s == 0:
-        raise ValueError(f"x length {s} must be a positive multiple of hop "
-                         f"{hop}")
-    if streams < 1 or c % streams:
-        raise ValueError(f"{c} channels do not split into {streams} "
-                         "streams")
-    t = s // hop
-    check_tensor(x, "x", torch.float32, (c, s), x.device)
-    check_tensor(tail, "tail", torch.float32, (c, hop), x.device)
-    nb = hop + 2
-    win, tw = _analysis_tables(2 * hop, x.device)
-    spec = torch.empty((t, c, nb), dtype=torch.complex64, device=x.device)
-    mag_shape = (t, nb) if streams == 1 else (t, streams, nb)
-    mag = (torch.empty(mag_shape, dtype=torch.float32, device=x.device)
-           if with_mag else None)
-    with device_guard(x.device):
-        lib, stream = launch_context(x.device)
-        code = lib.bf_wola_analysis(
-            x.data_ptr(), tail.data_ptr(), win.data_ptr(), tw.data_ptr(),
-            spec.data_ptr(), mag.data_ptr() if with_mag else None,
-            c, c // streams, t, hop, stream)
-    check(lib, code, "wola_analysis")
+    with span("bf.kernel.wola_analysis"):
+        c, s = x.shape
+        hop = tail.shape[-1]
+        _check_nfft(2 * hop)
+        if s % hop or s == 0:
+            raise ValueError(f"x length {s} must be a positive multiple of "
+                             f"hop {hop}")
+        if streams < 1 or c % streams:
+            raise ValueError(f"{c} channels do not split into {streams} "
+                             "streams")
+        t = s // hop
+        check_tensor(x, "x", torch.float32, (c, s), x.device)
+        check_tensor(tail, "tail", torch.float32, (c, hop), x.device)
+        nb = hop + 2
+        win, tw = _analysis_tables(2 * hop, x.device)
+        spec = torch.empty((t, c, nb), dtype=torch.complex64, device=x.device)
+        mag_shape = (t, nb) if streams == 1 else (t, streams, nb)
+        mag = (torch.empty(mag_shape, dtype=torch.float32, device=x.device)
+               if with_mag else None)
+        with device_guard(x.device):
+            lib, stream = launch_context(x.device)
+            code = lib.bf_wola_analysis(
+                x.data_ptr(), tail.data_ptr(), win.data_ptr(), tw.data_ptr(),
+                spec.data_ptr(), mag.data_ptr() if with_mag else None,
+                c, c // streams, t, hop, stream)
+        check(lib, code, "wola_analysis")
     wola_analysis.launches += 1
     return spec, mag, x[:, -hop:].contiguous()
 
@@ -226,25 +228,26 @@ def wola_synthesis(y_ext: torch.Tensor, out_prev: torch.Tensor):
     [256, 4096]; one launch."""
     if not y_ext.is_cuda:
         return wola_synthesis_plain(y_ext, out_prev)
-    if y_ext.dim() != 3 or y_ext.shape[1] == 0:
-        raise ValueError(f"y_ext must be (C, T>0, NB), got "
-                         f"{tuple(y_ext.shape)}")
-    c, t, nb = y_ext.shape
-    hop = nb - 2
-    _check_nfft(2 * hop)
-    check_tensor(y_ext, "y_ext", torch.complex64, (c, t, nb), y_ext.device)
-    check_tensor(out_prev, "out_prev", torch.float32, (c, hop), y_ext.device)
-    win, tw = _synthesis_tables(2 * hop, y_ext.device)
-    out = torch.empty((c, t * hop), dtype=torch.float32, device=y_ext.device)
-    new_prev = torch.empty((c, hop), dtype=torch.float32,
-                           device=y_ext.device)
-    with device_guard(y_ext.device):
-        lib, stream = launch_context(y_ext.device)
-        code = lib.bf_wola_synthesis(
-            y_ext.data_ptr(), out_prev.data_ptr(), win.data_ptr(),
-            tw.data_ptr(), out.data_ptr(), new_prev.data_ptr(), c, t, hop,
-            stream)
-    check(lib, code, "wola_synthesis")
+    with span("bf.kernel.wola_synthesis"):
+        if y_ext.dim() != 3 or y_ext.shape[1] == 0:
+            raise ValueError(f"y_ext must be (C, T>0, NB), got "
+                             f"{tuple(y_ext.shape)}")
+        c, t, nb = y_ext.shape
+        hop = nb - 2
+        _check_nfft(2 * hop)
+        dev = y_ext.device
+        check_tensor(y_ext, "y_ext", torch.complex64, (c, t, nb), dev)
+        check_tensor(out_prev, "out_prev", torch.float32, (c, hop), dev)
+        win, tw = _synthesis_tables(2 * hop, dev)
+        out = torch.empty((c, t * hop), dtype=torch.float32, device=dev)
+        new_prev = torch.empty((c, hop), dtype=torch.float32, device=dev)
+        with device_guard(dev):
+            lib, stream = launch_context(dev)
+            code = lib.bf_wola_synthesis(
+                y_ext.data_ptr(), out_prev.data_ptr(), win.data_ptr(),
+                tw.data_ptr(), out.data_ptr(), new_prev.data_ptr(), c, t, hop,
+                stream)
+        check(lib, code, "wola_synthesis")
     wola_synthesis.launches += 1
     return out, new_prev
 

@@ -50,6 +50,7 @@ from beamform_tpu_torch.kernels.gss_stream import (active_bits, gss_fits,
 from beamform_tpu_torch.models import common
 from beamform_tpu_torch.models.batching import BatchableConstrainedModel
 from beamform_tpu_torch.models.lcmv import build_constraints_masked
+from beamform_tpu_torch.utils.profiling import span
 
 __all__ = ["GssModel", "gss_update"]
 
@@ -145,13 +146,16 @@ class GssModel(BatchableConstrainedModel, nn.Module):
     def _control_tensors(self, u_theta, u_angles, u_active, u_row0):
         """The unique control rows -> (A^H in the kernel's layout (U, S, M,
         NIB), active slots (U, S) 0/1, theta (U,), the active slots as the
-        fused kernel's bits (U,) int32)."""
-        a = build_constraints_masked(
-            self.geom, self.freqs, u_theta, u_angles, u_active, u_row0,
-            self.rdtype, self.cdtype, self.ib)          # (U, NIB, M, S)
-        act = torch.cat([torch.ones_like(u_theta[:, None]), u_active], dim=1)
-        ah = a.conj().permute(0, 3, 2, 1).contiguous().resolve_conj()
-        return ah, act, u_theta, active_bits(act)
+        fused kernel's bits (U,) int32), built once per control key (the
+        span ``bf.steering``)."""
+        with span("bf.steering"):
+            a = build_constraints_masked(
+                self.geom, self.freqs, u_theta, u_angles, u_active, u_row0,
+                self.rdtype, self.cdtype, self.ib)      # (U, NIB, M, S)
+            act = torch.cat([torch.ones_like(u_theta[:, None]), u_active],
+                            dim=1)
+            ah = a.conj().permute(0, 3, 2, 1).contiguous().resolve_conj()
+            return ah, act, u_theta, active_bits(act)
 
     def _resets(self, u_theta, idx, reset_extra, prev_theta):
         """Per-frame resets (..., T): any theta change or interference

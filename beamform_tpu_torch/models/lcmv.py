@@ -45,6 +45,7 @@ from beamform_tpu_torch.models import common
 from beamform_tpu_torch.models.batching import BatchableConstrainedModel
 from beamform_tpu_torch.models.mvdr import (MvdrModel, batched_inv,
                                             stream_matmul)
+from beamform_tpu_torch.utils.profiling import span
 
 
 def lcmv_solve(r: torch.Tensor, c: torch.Tensor, inactive_diag=None,
@@ -110,13 +111,14 @@ class LcmvModel(BatchableConstrainedModel, MvdrModel):
     def _control_tensors(self, u_theta, u_angles, u_active, u_row0):
         """The unique control rows -> (masked constraints in the stream
         kernel's layout (U, S, M, NIB), inactive-slot indicator (U, S)),
-        built once per control key."""
-        c_ib = build_constraints_masked(
-            self.geom, self.freqs, u_theta, u_angles, u_active, u_row0,
-            self.rdtype, self.cdtype, self.ib)
-        inact = 1.0 - torch.cat([torch.ones_like(u_theta[:, None]),
-                                 u_active], dim=1)
-        return c_ib.permute(0, 3, 2, 1).contiguous(), inact
+        built once per control key (the span ``bf.steering``)."""
+        with span("bf.steering"):
+            c_ib = build_constraints_masked(
+                self.geom, self.freqs, u_theta, u_angles, u_active, u_row0,
+                self.rdtype, self.cdtype, self.ib)
+            inact = 1.0 - torch.cat([torch.ones_like(u_theta[:, None]),
+                                     u_active], dim=1)
+            return c_ib.permute(0, 3, 2, 1).contiguous(), inact
 
     def _forward(self, x, c_k, inact, idx, state):
         """x (M, T*hop); the unique control rows' constraints (U, S, M,

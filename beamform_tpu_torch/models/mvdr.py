@@ -58,6 +58,7 @@ from beamform_tpu_torch.kernels.mvdr_stream import (MAX_MICS, MAX_SLOTS,
                                                     white_r)
 from beamform_tpu_torch.models import common
 from beamform_tpu_torch.models.batching import BatchableModel
+from beamform_tpu_torch.utils.profiling import span
 
 SOLVERS = ("auto", "stream", "dense", "sparse", "mega")
 
@@ -227,10 +228,12 @@ class MvdrModel(BatchableModel, nn.Module):
                                       nfft=self.engine.fft_win)
 
     def _steering_ib(self, thetas):
-        """(U, M, NIB) steering of the unique thetas over the band."""
-        w_uniq = common.weights_for_thetas(self.geom, self.freqs, thetas,
-                                           self.rdtype, self.cdtype)
-        return w_uniq.index_select(2, self.ib)
+        """(U, M, NIB) steering of the unique thetas over the band (the
+        span ``bf.steering``)."""
+        with span("bf.steering"):
+            w_uniq = common.weights_for_thetas(self.geom, self.freqs, thetas,
+                                               self.rdtype, self.cdtype)
+            return w_uniq.index_select(2, self.ib)
 
     def _forward(self, x, thetas, w_idx, state):
         """x (M, T*hop), unique thetas (U,), per-frame index (T,) ->

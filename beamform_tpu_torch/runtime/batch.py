@@ -16,6 +16,7 @@ import torch
 
 from beamform_tpu_torch.config import ArrayConfig, EngineConfig
 from beamform_tpu_torch.models import get_model
+from beamform_tpu_torch.utils.profiling import span
 
 
 class BatchRunner:
@@ -44,20 +45,26 @@ class BatchRunner:
 
         theta: scalar (shared), (B,) per-stream constant angles, or (B, T)
         per-stream timelines.
+
+        Under a profiler the call is the span ``bf.process``, holding
+        ``bf.controls`` and ``bf.forward`` (``utils/profiling.py``).
         """
-        x = torch.as_tensor(x_batch).to(device=self.model.device,
-                                        dtype=self.model.rdtype)
-        b = x.shape[0]
-        if x.dim() != 3 or b != self.batch:
-            raise ValueError(f"x_batch must be (B={self.batch}, M, S), got "
-                             f"{tuple(x.shape)}")
-        t = x.shape[-1] // self.hop
-        th = np.asarray(theta, dtype=np.float64)
-        if th.ndim == 0:
-            th = np.full((b, t), float(th))
-        elif th.ndim == 1:
-            th = np.repeat(th[:, None], t, axis=1)
-        ctrl = self.model.batch_controls(th)
-        out, self.state = self.model.batched_forward(x.contiguous(), ctrl,
-                                                     self.state)
-        return out
+        with span("bf.process"):
+            x = torch.as_tensor(x_batch).to(device=self.model.device,
+                                            dtype=self.model.rdtype)
+            b = x.shape[0]
+            if x.dim() != 3 or b != self.batch:
+                raise ValueError(f"x_batch must be (B={self.batch}, M, S), "
+                                 f"got {tuple(x.shape)}")
+            t = x.shape[-1] // self.hop
+            with span("bf.controls"):
+                th = np.asarray(theta, dtype=np.float64)
+                if th.ndim == 0:
+                    th = np.full((b, t), float(th))
+                elif th.ndim == 1:
+                    th = np.repeat(th[:, None], t, axis=1)
+                ctrl = self.model.batch_controls(th)
+            with span("bf.forward"):
+                out, self.state = self.model.batched_forward(
+                    x.contiguous(), ctrl, self.state)
+            return out

@@ -12,7 +12,36 @@ counts xruns and dumps the count to ~/rosjack_xrun_count.txt at SIGINT
   has finished;
 * ``xrt_report`` is the audio-seconds-per-second summary line;
 * ``trace_to`` records a ``torch.profiler`` trace of a block of code, the
-  CUDA kernels included where a card is present, as a Chrome trace.
+  CUDA kernels included where a card is present, as a Chrome trace;
+* ``span`` names a stretch of the serving path's host work in that trace.
+  While a ``torch.profiler`` records (``trace_to``, or any other profiler
+  of the process), each span is a range of that profiler, a ``cpu_op``
+  event of its Chrome trace on the same clock as the card's kernels;
+  otherwise it is one shared no-op, so an unprofiled call pays a flag read
+  and an empty ``with``. The spans:
+
+  ``bf.process``
+      ``BatchRunner.process``, the whole call (``runtime/batch.py``);
+  ``bf.controls``
+      inside it, the theta timelines' expansion and the model's
+      ``batch_controls``, its control cache included;
+  ``bf.forward``
+      inside it, the model's ``batched_forward``;
+  ``bf.steering``
+      the steering or constraint build: MVDR's ``_steering_ib`` (every
+      call), LCMV's and GSS's ``_control_tensors`` (on a control-cache
+      miss only);
+  ``bf.kernel.<wrapper>``
+      a hand-written kernel's wrapper on a CUDA tensor, from its checks
+      through its output allocations and the launch to the launch's
+      error check (``kernels/*.py``; the plain CPU versions have none):
+      ``wola_analysis``, ``wola_synthesis``, ``mvdr_stream``,
+      ``lcmv_stream``, ``mega_stream``, ``gss_mega``, ``gj_inverse``,
+      ``phase_mask``, ``mpf_march``, ``mcra_march``, ``gsc_sample``,
+      ``gsc_xmu``, ``gsc_block``, ``gsc_blocklms``.
+
+  Each wrapper also counts its launches in ``.launches``, with or without
+  a profiler.
 """
 
 from __future__ import annotations
@@ -26,6 +55,7 @@ from dataclasses import dataclass, field
 from typing import Optional
 
 import numpy as np
+import torch
 
 # per-chunk wall times kept for the latency percentiles: the newest ones,
 # so that an endless live loop holds a bounded history
@@ -94,6 +124,34 @@ class RealTimeMonitor:
             f.write(f"{self.xruns}\n")
 
 
+_autograd_profiler = torch.autograd.profiler
+if hasattr(_autograd_profiler, "_is_profiler_enabled"):
+    def _recording() -> bool:
+        return _autograd_profiler._is_profiler_enabled
+else:   # a torch without the Python flag: the C-level one
+    _recording = torch._C._autograd._profiler_enabled
+
+#: the range a recorded span opens: the profiler's host-operation range,
+#: which a Chrome trace files as ``cpu_op`` among the aten ops it holds
+#: (where ``record_function`` files ``user_annotation``), so a reader of
+#: the trace's host operations (``portbench/trace.py``) finds the spans
+#: there; a torch without it opens ``record_function``
+_range = (getattr(torch._C._profiler, "_RecordFunctionFast", None)
+          or torch.profiler.record_function)
+#: the one span every call gets while no profiler records
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A profiler range named ``name`` while a ``torch.profiler`` records,
+    else the shared no-op (it allocates nothing and calls no torch op).
+    Use as ``with span("bf.forward"):``; the names are in the module's
+    docstring."""
+    if _recording():
+        return _range(name)
+    return _NO_SPAN
+
+
 def xrt_report(audio_seconds: float, wall_seconds: float) -> str:
     xrt = audio_seconds / wall_seconds if wall_seconds else float("inf")
     return json.dumps({"audio_s": round(audio_seconds, 3),
@@ -105,9 +163,9 @@ def xrt_report(audio_seconds: float, wall_seconds: float) -> str:
 def trace_to(logdir: str):
     """Record a ``torch.profiler`` trace of the block, CUDA activity
     included when a card is present, and write it to
-    ``logdir/trace.json`` (open in chrome://tracing or Perfetto). Yields
-    the profiler."""
-    import torch
+    ``logdir/trace.json`` (open in chrome://tracing or Perfetto), the
+    program's spans (:func:`span`) among the host's events. Yields the
+    profiler."""
     from torch.profiler import ProfilerActivity, profile
     acts = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
