@@ -123,7 +123,7 @@ def _declare(lib):
     lib.bf_wola_synthesis.restype = i
     lib.bf_gj_inverse.argtypes = [p, p, i, i, i, p]
     lib.bf_gj_inverse.restype = i
-    lib.bf_mvdr_stream.argtypes = [p] * 7 + [i] * 7 + [p]
+    lib.bf_mvdr_stream.argtypes = [p] * 8 + [i] * 7 + [p]
     lib.bf_mvdr_stream.restype = i
     lib.bf_lcmv_stream.argtypes = [p] * 7 + [i] * 8 + [p]
     lib.bf_lcmv_stream.restype = i

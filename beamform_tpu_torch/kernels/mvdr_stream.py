@@ -23,9 +23,23 @@ B * M channels, and hist, the steering index, the gate and the output
 gain a leading stream axis; the steering d is shared. The single-stream
 form is B = 1 of the same kernel.
 
+Schedule: the kernel solves only the gated pairs. Each block of 8 bins x
+32 frames lists its gated pairs in shared memory (one byte a pair) and
+hands them to its solve slots in turn, so every slot of a warp that runs a
+solve holds a gated pair, except in a block's last round; the pairs off the
+list get the passthrough straight from the spectra, and a block with no
+gated pair stages nothing. A listed pair's output does not depend on the
+other pairs' gates, bit for bit. The tile keeps ``csrc/tri_solve.cuh``'s
+layout, in which two problems of one bin at different frames share banks
+(``csrc/mvdr_stream.cu`` says why that stays).
+
 Routing: a CPU tensor takes the plain version (float32 or float64); a CUDA
 tensor launches the kernel or raises. ``mvdr_stream.launches`` counts
-launches.
+launches; ``mvdr_stream.slot_counts()`` synchronises and returns the pairs
+the kernel solved and the slots it issued (those of the warps that ran a
+solve), summed over every launch and device so far: their ratio is the
+schedule's fill share. The counts live on the device, one atomic add each a
+block that solves, and are never read on the hot path.
 """
 
 from __future__ import annotations
@@ -47,6 +61,10 @@ _TILE_FRAMES, _TILE_BINS, MAX_SMEM, _THREADS = 32, 8, 232448, 256
 _PLAIN_CHUNK = 1 << 16
 #: streams one launch takes (the grid's z extent)
 MAX_STREAMS = 65535
+#: the MVDR kernel's list of a tile's gated pairs: a byte a pair
+_LIST_BYTES = _TILE_FRAMES * _TILE_BINS
+#: per device, the kernel's (pairs solved, slots issued), int64 on the card
+_SLOT_COUNTS: dict = {}
 
 
 def _lanes(n: int) -> int:
@@ -72,15 +90,18 @@ def solve_smem_elems(mp: int, w_hist: int, s_cap: int = 0) -> int:
 def smem_bytes(m: int, w_hist: int, s_cap: int = 0) -> int:
     """Shared memory of one block of the MVDR kernel (``s_cap`` 0) or of
     the LCMV kernel with ``s_cap`` constraint slots: :func:`solve_smem_elems`
-    for MP = max(M, S) rounded up to a power of two."""
-    return solve_smem_elems(_lanes(max(m, s_cap)), w_hist, s_cap) * 8
+    for MP = max(M, S) rounded up to a power of two, and for the MVDR
+    kernel its list of the tile's gated pairs."""
+    return (solve_smem_elems(_lanes(max(m, s_cap)), w_hist, s_cap) * 8
+            + (0 if s_cap else _LIST_BYTES))
 
 
 def stream_fits(m: int, w_hist: int, s_cap: int = 0) -> bool:
     """The streaming kernels' capacity rule: M <= 32, at most 16 slots
-    (LCMV), and the block's shared memory within the card's (MVDR: W <= 162
-    at 16 mics, W <= 70 at 32; LCMV at one slot: W <= 158 at 16 mics,
-    W <= 69 at 32; at 16 slots: W <= 105 at 16 mics, W <= 40 at 32)."""
+    (LCMV), and the block's shared memory within the card's (MVDR, the list
+    of gated pairs included: W <= 162 at 16 mics, W <= 70 at 32; LCMV at
+    one slot: W <= 158 at 16 mics, W <= 69 at 32; at 16 slots: W <= 105 at
+    16 mics, W <= 40 at 32)."""
     return (1 <= m <= MAX_MICS and 0 <= s_cap <= MAX_SLOTS
             and smem_bytes(m, w_hist, s_cap) <= MAX_SMEM)
 
@@ -188,14 +209,29 @@ def mvdr_stream(x: torch.Tensor, hist: torch.Tensor, d: torch.Tensor,
         check_tensor(ib, "ib", torch.int64, (nib,), dev)
         y = torch.empty(lead + (t, nib), dtype=torch.complex64, device=dev)
         with device_guard(dev):
+            counts = _SLOT_COUNTS.get(dev)
+            if counts is None:
+                counts = _SLOT_COUNTS[dev] = torch.zeros(
+                    2, dtype=torch.int64, device=dev)
             lib, stream = launch_context(dev)
             code = lib.bf_mvdr_stream(
                 x.data_ptr(), ib.data_ptr(), hist.data_ptr(), d.data_ptr(),
-                w_idx.data_ptr(), gate.data_ptr(), y.data_ptr(), b, t, m, nb,
-                nib, w, u, stream)
+                w_idx.data_ptr(), gate.data_ptr(), y.data_ptr(),
+                counts.data_ptr(), b, t, m, nb, nib, w, u, stream)
         check(lib, code, "mvdr_stream")
     mvdr_stream.launches += 1
     return y
 
 
+def slot_counts() -> tuple[int, int]:
+    """(pairs solved, slots issued) by the CUDA kernel so far, over every
+    launch and device; (0, 0) before the first. Synchronises."""
+    pairs = slots = 0
+    for counts in _SLOT_COUNTS.values():
+        p, s = counts.tolist()
+        pairs, slots = pairs + p, slots + s
+    return pairs, slots
+
+
 mvdr_stream.launches = 0
+mvdr_stream.slot_counts = slot_counts

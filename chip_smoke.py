@@ -79,6 +79,9 @@ KERNEL_REL_TOL = 1e-5    # kernel vs plain torch, max error / max |ref|
 # with the polish). Each kernel is also held to F64_FACTOR times its plain
 # float32 version's own error against the plain version in complex128.
 MVDR_STREAM_REL_TOL = 5e-4
+# the sparse-gate case of the MVDR stream kernel: the share of (frame, bin)
+# pairs that pass, the quiet mix's (portbench's mvdr-quiet-b32: 17.4%)
+SPARSE_GATE = 0.174
 GJ_REL_TOL = 2e-4
 # lcmv_stream vs its plain version, max error / max |ref|, at the main
 # shapes with interferers: the MVDR solve's conditioning, compounded by the
@@ -842,11 +845,15 @@ def phase_xrt(x: np.ndarray, card: str, node: str = "das", params=None,
     return event_ms
 
 
-def phase_mvdr_kernels(x: np.ndarray) -> dict:
+def phase_mvdr_kernels(x: np.ndarray, xs: np.ndarray) -> dict:
     """The MVDR kernels against their plain versions on the card, on the
     main path's real operands: the analysis of the 30 s input under the
     launch preset (678 in-band bins, 1407 frames, W = 10) for mvdr_stream,
-    with one steering and with a theta timeline; one dense block of
+    with one steering and with a theta timeline, then under a sparse gate
+    (the pairs where the speech-like input's gate statistic passes its
+    quantile that keeps SPARSE_GATE of them, clustered by its envelope and
+    spectrum like the quiet mix's), each with its fill share
+    (``slot_counts``: pairs solved over slots issued); one dense block of
     covariances (82 frames x 678 bins = 55,596 16 x 16 matrices) for
     gj_inverse, unpolished and polished, then LCMV's inner matrices over
     that block (S = 1 and 3, polished) and a seeded 32-mic block. Returns
@@ -871,31 +878,51 @@ def phase_mvdr_kernels(x: np.ndarray) -> dict:
 
     th = np.full(t, 10.0)
     th[t // 2:] = -40.0
-    for label, theta in (("one steering", THETA), ("theta timeline", th)):
+    # the sparse gate's pattern is the speech-like input's; its operands
+    # are the noise input's, whose every window has full rank (a pair the
+    # speech passes right after a pause has a silent window: NaN in every
+    # version)
+    sp_mag = wola_analysis(
+        common.prepare_input(xs, engine(), torch.float32, dev),
+        torch.zeros((16, HOP), device=dev), with_mag=True)[1]
+    sp_stat = sp_mag.index_select(1, ib)
+    sp_gate = sp_stat > torch.quantile(sp_stat.flatten(), 1 - SPARSE_GATE)
+    for label, theta, gx in (
+            ("one steering", THETA, gate),
+            ("theta timeline", th, gate),
+            ("sparse gate", THETA, sp_gate)):
         uniq, w_idx = model._theta_ctrl(theta, t)
         d = common.weights_for_thetas(model.geom, model.freqs, uniq,
                                       torch.float32, torch.complex64)
         d = d.index_select(2, ib)
-        args = (spec, hist, d, w_idx, gate, ib)
+        args = (spec, hist, d, w_idx, gx, ib)
+        before = km.mvdr_stream.slot_counts()
         got = km.mvdr_stream(*args)
+        pairs, slots = (a - b for a, b in zip(km.mvdr_stream.slot_counts(),
+                                             before))
+        if pairs != int(gx.sum()):
+            raise AssertionError(f"mvdr_stream ({label}): slot_counts saw "
+                                 f"{pairs} pairs, the gate holds "
+                                 f"{int(gx.sum())}")
         ref = km.mvdr_stream_plain(*args)
         f64 = km.mvdr_stream_plain(spec.cdouble(), hist.cdouble(),
-                                   d.cdouble(), w_idx, gate, ib)
+                                   d.cdouble(), w_idx, gx, ib)
         torch.cuda.synchronize()
         with SmClocks() as clk:
             ms = cuda_ms(lambda: km.mvdr_stream(*args))
         plain_ms = cuda_ms(lambda: km.mvdr_stream_plain(*args), reps=3)
         abs_err = check_solve_kernel(
             f"mvdr_stream M={m} NIB={len(ib)} T={t} W={w} U={d.shape[0]} "
-            f"({label}; gate passes {float(gate.float().mean()):.4f} of "
+            f"({label}; gate passes {float(gx.float().mean()):.4f} of "
             "(frame, bin) pairs)", got, ref, f64, MVDR_STREAM_REL_TOL, ms,
             plain_ms)
         log(f"  mvdr_stream ({label}): "
-            f"{solve_cycles(ms, clk, int(gate.sum()))}")
+            f"{solve_cycles(ms, clk, int(gx.sum()))}; fill share "
+            f"{pairs / slots:.4f} ({pairs} pairs solved / {slots} slots "
+            "issued)")
         del f64
         if "mvdr_stream" not in results:
             nib = len(ib)
-            pairs = int(gate.sum())
             results["mvdr_stream"] = dict(
                 max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
                 **bound(8 * (t + w + d.shape[0]) * m * nib + 9 * t * nib,
@@ -3381,7 +3408,7 @@ def drive(pool, card: str, t_start: float) -> int:
     wola = phase("kernels", phase_kernels, t_main)
     kern = {"wola_analysis": wola["analysis"],
             "wola_synthesis": wola["synthesis"],
-            **phase("mvdr_kernels", phase_mvdr_kernels, x),
+            **phase("mvdr_kernels", phase_mvdr_kernels, x, xs),
             **phase("lcmv_kernels", phase_lcmv_kernels, x),
             **phase("mega_kernels", phase_mega_kernels, x),
             **phase("gss_kernels", phase_gss_kernels, x),

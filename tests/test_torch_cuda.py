@@ -209,6 +209,68 @@ def test_mvdr_stream_kernel_matches_plain(cuda, m, nib, t, u, gate_kind):
                                                1e-6)
 
 
+def _gate_subset(kind, rng, b, t, nib):
+    """A (B, T, NIB) gate: a random share, a cluster (one bin over all
+    frames, one frame over all bins, the pairs along a tile's edges: frame
+    31 / 32 and bin 7 / 8), none or all."""
+    g = np.zeros((b, t, nib), bool)
+    if kind.startswith("random"):
+        g = rng.random((b, t, nib)) < int(kind[6:]) / 100
+    elif kind == "one_bin":
+        g[:, :, nib // 2] = True
+    elif kind == "one_frame":
+        g[:, t // 2, :] = True
+    elif kind == "tile_edge":
+        g[:, 31:33, :] = True
+        g[:, :, 7:9] = True
+    elif kind == "all":
+        g[:] = True
+    return g
+
+
+@pytest.mark.parametrize("kind", ["random5", "random17", "random50",
+                                  "one_bin", "one_frame", "tile_edge", "none",
+                                  "all"])
+@pytest.mark.parametrize("m,w", [(3, 10), (16, 10), (32, 10), (16, 162)])
+@pytest.mark.parametrize("b", [1, 3])
+def test_mvdr_stream_gate_subsets_are_exact(cuda, kind, m, w, b):
+    """The kernel solves only the gated pairs, each block its own list of
+    them: a pair's output under any gate G equals its output with every
+    pair gated, bit for bit, where G passes, and 0.01 x[mic 0] where it
+    fails; ``slot_counts`` grows by G's pairs exactly and by the slots of
+    the warps that ran (each block's pairs rounded up to a warp's problems,
+    64 / MP)."""
+    rng = np.random.default_rng(1000 * m + w + b)
+    t, nib, u = 70, 37, 2
+    nb = 2 * nib + 5
+    lead = (b,) if b > 1 else ()
+    x = _cplx(rng, (t,) + lead + (m, nb), cuda)
+    hist = _cplx(rng, lead + (w, m, nib), cuda)
+    d = _cplx(rng, (u, m, nib), cuda)
+    ib = torch.as_tensor(np.sort(rng.choice(np.arange(1, nb), nib,
+                                            replace=False)), device=cuda)
+    w_idx = torch.as_tensor(rng.integers(0, u, lead + (t,)), device=cuda)
+    g = _gate_subset(kind, rng, b, t, nib)
+    gate = torch.as_tensor(g.reshape(lead + (t, nib)), device=cuda)
+    y_all = km.mvdr_stream(x, hist, d, w_idx, torch.ones_like(gate), ib)
+    before = km.mvdr_stream.slot_counts()
+    got = km.mvdr_stream(x, hist, d, w_idx, gate, ib)
+    after = km.mvdr_stream.slot_counts()
+    x0 = x.index_select(-1, ib)[..., 0, :]                   # (T, [B,] NIB)
+    passthrough = 0.01 * (x0.transpose(0, 1) if b > 1 else x0)
+    assert torch.equal(got[gate], y_all[gate])
+    assert torch.equal(got[~gate], passthrough[~gate])
+    per_block = np.pad(g, ((0, 0), (0, -t % 32), (0, -nib % 8))).reshape(
+        b, -(-t // 32), 32, -(-nib // 8), 8).sum(axis=(2, 4))
+    warp = 64 // max(4, 1 << (m - 1).bit_length())
+    assert after[0] - before[0] == int(g.sum())
+    assert after[1] - before[1] == int((-(-per_block // warp) * warp).sum())
+    if kind == "all":
+        ref = km.mvdr_stream_plain(x, hist, d, w_idx, gate, ib)
+        assert torch.isfinite(torch.view_as_real(got)).all()
+        assert _rel(got, ref) < MVDR_REL
+
+
 def _hpd(rng, b, m, device):
     a = _cplx(rng, (b, m, m), device)
     return (a @ a.conj().transpose(1, 2) / m

@@ -48,7 +48,9 @@ from beamform_tpu_torch.config import load_array_config
 from beamform_tpu_torch.convert import constants_from_jax, state_from_jax
 from beamform_tpu_torch.kernels.lcmv_stream import (lcmv_stream,
                                                     lcmv_stream_plain)
-from beamform_tpu_torch.kernels.mvdr_stream import smem_bytes, stream_fits
+from beamform_tpu_torch.kernels.mvdr_stream import (MAX_SMEM, smem_bytes,
+                                                    solve_smem_elems,
+                                                    stream_fits)
 from beamform_tpu_torch.models import get_model
 from beamform_tpu_torch.models.batching import trim_inactive_slots
 from beamform_tpu_torch.models.lcmv import (LcmvModel,
@@ -543,11 +545,12 @@ def test_lcmv_stream_smem_bytes_follow_the_kernel_layout():
     MP + 1 pairs for each of the 512 / MP problems in flight, and with slots
     each one's X scratch (SP x MP), MP = max(M, S) rounded up to a power of
     two, at least 4; the MVDR kernel (no slots) is the same layout without
-    the scratch. And the W each rule admits."""
+    the scratch, and with its list of the tile's gated pairs (a byte for
+    each of the 8 x 32 pairs). And the W each rule admits."""
     nb = 8                                     # bytes of a complex64
-    assert smem_bytes(16, 10) == nb * (42 * 8 * 18 + 32 * 34)
-    assert smem_bytes(3, 10) == nb * (42 * 8 * 6 + 128 * 10)
-    assert smem_bytes(32, 10) == nb * (42 * 8 * 34 + 16 * 66)
+    assert smem_bytes(16, 10) == nb * (42 * 8 * 18 + 32 * 34) + 256
+    assert smem_bytes(3, 10) == nb * (42 * 8 * 6 + 128 * 10) + 256
+    assert smem_bytes(32, 10) == nb * (42 * 8 * 34 + 16 * 66) + 256
     assert smem_bytes(16, 10, 1) == nb * (42 * 8 * 18 + 32 * 34 + 32 * 16)
     assert smem_bytes(16, 10, 3) == nb * (42 * 8 * 18 + 32 * 34 + 32 * 64)
     assert smem_bytes(16, 10, 16) == nb * (42 * 8 * 18 + 32 * 34 + 32 * 256)
@@ -558,6 +561,23 @@ def test_lcmv_stream_smem_bytes_follow_the_kernel_layout():
                             (16, 16, 105), (32, 1, 69), (32, 16, 40)):
         assert stream_fits(m, w_max, s_cap)
         assert not stream_fits(m, w_max + 1, s_cap)
+
+
+@pytest.mark.parametrize("m", [1, 3, 4, 5, 8, 9, 16, 17, 32])
+def test_mvdr_stream_fits_admits_the_same_w_with_its_list(m):
+    """The MVDR kernel's list of gated pairs (256 bytes) costs no W: at
+    every size the largest W ``stream_fits`` admits is the largest whose
+    tile and column buffers alone fit the card's shared memory (162 at 16
+    mics, whose block then takes exactly the card's 232,448 bytes, and 70
+    at 32)."""
+    mp = max(4, 1 << (m - 1).bit_length())
+    w_tile = max(w for w in range(1, 4096)
+                 if solve_smem_elems(mp, w) * 8 <= MAX_SMEM)
+    assert stream_fits(m, w_tile) and not stream_fits(m, w_tile + 1)
+    assert smem_bytes(m, w_tile) <= MAX_SMEM
+    assert w_tile == {16: 162, 17: 70, 32: 70}.get(m, w_tile)
+    if m == 16:
+        assert smem_bytes(m, w_tile) == MAX_SMEM == 232448
 
 
 def test_solver_policy_with_slots():
