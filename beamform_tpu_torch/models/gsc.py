@@ -50,6 +50,7 @@ from beamform_tpu_torch.kernels.gsc_block import gsc_block
 from beamform_tpu_torch.kernels.gsc_blocklms import block_len, gsc_blocklms
 from beamform_tpu_torch.models import common
 from beamform_tpu_torch.models.batching import BatchableModel
+from beamform_tpu_torch.utils.profiling import span
 
 SOLVERS = ("sample", "xmu", "blocklms", "block")
 
@@ -240,9 +241,11 @@ class GscModel(BatchableModel, nn.Module):
         else:
             out, blk, flt, lo = gsc_sample(*args)
         k = self.params.filter_size
-        tail = aligned[..., -(k + 9):]
-        gram, uold = gram_refresh(gs.block, gs.uold,
-                                  tail[..., 1:, :] - tail[..., :-1, :], k)
+        with span("bf.gsc.lookahead"):
+            tail = aligned[..., -(k + 9):]
+            gram, uold = gram_refresh(gs.block, gs.uold,
+                                      tail[..., 1:, :] - tail[..., :-1, :],
+                                      k)
         return out, GscState(blk, flt, lo, gram, uold), trace
 
     @torch.no_grad()
@@ -259,14 +262,17 @@ class GscModel(BatchableModel, nn.Module):
         t = s // hop
         if t == 0:
             return x.new_zeros((b, 0)), state
-        w_conj = common.weights_for_thetas(
-            self.geom, self.freqs, thetas, self.rdtype,
-            self.cdtype).conj().resolve_conj()
+        with span("bf.steering"):
+            w_conj = common.weights_for_thetas(
+                self.geom, self.freqs, thetas, self.rdtype,
+                self.cdtype).conj().resolve_conj()
         spec, _, tail = common.stft_streams_carry(
             x, self.engine, self.window, self.cdtype, carry.tail)
-        aligned_spec = (spec.movedim(0, 1) * w_conj[idx]).movedim(1, 2)
+        with span("bf.gsc.align"):
+            aligned_spec = (spec.movedim(0, 1) * w_conj[idx]).movedim(1, 2)
+            aligned_spec = aligned_spec.reshape(b * m, t, -1)
         streams, prev = common.istft_channels_carry(
-            aligned_spec.reshape(b * m, t, -1), self.engine, self.window,
+            aligned_spec, self.engine, self.window,
             carry.out_prev.reshape(b * m, hop))
         out, gs, _ = self._adaptive(streams.reshape(b, m, -1), gs, False)
         return out, (common.WolaCarry(tail, prev.reshape(b, m, hop)), gs)

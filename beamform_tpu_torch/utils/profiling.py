@@ -30,7 +30,14 @@ counts xruns and dumps the count to ~/rosjack_xrun_count.txt at SIGINT
   ``bf.steering``
       the steering or constraint build: MVDR's ``_steering_ib`` (every
       call), LCMV's and GSS's ``_control_tensors`` (on a control-cache
-      miss only);
+      miss only), GSC's ``weights_for_thetas`` in ``batched_forward``
+      (every call);
+  ``bf.gsc.align``
+      GSC's stage-1 product of the B*M spectra with their conjugate
+      steering and its reshape to channels (``batched_forward``);
+  ``bf.gsc.lookahead``
+      GSC's ``gram_refresh`` of the lookahead state after the adaptive
+      stage (``_adaptive``, every route);
   ``bf.kernel.<wrapper>``
       a hand-written kernel's wrapper on a CUDA tensor, from its checks
       through its output allocations and the launch to the launch's
