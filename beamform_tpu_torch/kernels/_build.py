@@ -141,7 +141,7 @@ def _declare(lib):
     lib.bf_mcra_march.restype = i
     lib.bf_march_resources.argtypes = [i, p]
     lib.bf_march_resources.restype = i
-    lib.bf_gsc_sample.argtypes = [p] * 10 + [i] * 5 + [fp, p]
+    lib.bf_gsc_sample.argtypes = [p] * 11 + [i] * 5 + [fp, p]
     lib.bf_gsc_sample.restype = i
     lib.bf_gsc_blocklms.argtypes = [p] * 8 + [i] * 8 + [fp, p]
     lib.bf_gsc_blocklms.restype = i

@@ -31,7 +31,15 @@ the update flag per sample (gsc.cpp:171-174).
 
 Routing: a CPU tensor takes the plain version; a CUDA tensor launches the
 kernel (float32, K = 128 taps, 2 to 16 mics, S a multiple of 128) or
-raises. Each wrapper counts its launches in ``.launches``.
+raises. Each wrapper counts its launches in ``.launches``. The kernel runs
+the recurrence in groups of 8 samples by an exact lookahead factorisation
+and replays a group sample by sample where a step's output or step product
+is not finite or a channel is on the q branch with a non-zero update
+(``csrc/gsc_sample.cu``); ``gsc_sample.group_counts()`` synchronises and
+returns the groups run factorised and those replayed, summed over every
+launch of both modes and every device so far. The counts live on the
+device, one atomic add each per block and launch, and are never read on
+the hot path.
 """
 
 from __future__ import annotations
@@ -49,6 +57,7 @@ from beamform_tpu_torch.utils.profiling import span
 K = 128            # the kernel's taps (the reference default, gsc.cpp:219)
 TILE = 128         # samples per tile of the kernel's staging
 MAX_MICS = 16
+_GROUP_COUNTS: dict = {}   # device -> (2,) int64: groups factorised, replayed
 
 
 def window_sums(x: torch.Tensor, k: int) -> torch.Tensor:
@@ -223,14 +232,19 @@ def _launch(inp, aligned_shape, block, filt, last_out, params, xmu: bool,
         else None
     if b and s:
         with device_guard(dev):
+            counts = _GROUP_COUNTS.get(dev)
+            if counts is None:
+                counts = _GROUP_COUNTS[dev] = torch.zeros(
+                    2, dtype=torch.int64, device=dev)
             lib, stream = launch_context(dev)
             code = lib.bf_gsc_sample(
                 inp.data_ptr(), block.data_ptr(), filt.data_ptr(),
                 last_out.data_ptr(), out.data_ptr(), blk_o.data_ptr(),
                 flt_o.data_ptr(), lo_o.data_ptr(),
                 mu.data_ptr() if with_mu else None,
-                upd.data_ptr() if with_mu else None, b, m, s, int(xmu),
-                int(params.use_vad), coef_array(params, m), stream)
+                upd.data_ptr() if with_mu else None, counts.data_ptr(), b,
+                m, s, int(xmu), int(params.use_vad), coef_array(params, m),
+                stream)
         check(lib, code, what)
     else:
         blk_o.copy_(block)
@@ -244,7 +258,8 @@ def gsc_sample(aligned, block, filt, last_out, params,
                with_mu: bool = False):
     """The faithful per-sample adaptive stage; see :func:`gsc_sample_plain`
     for the contract. On CUDA: float32, contiguous, K = 128, 2 to 16 mics,
-    S a multiple of 128; one launch, four warps per stream."""
+    S a multiple of 128; one launch, six warps per stream (one on the
+    scalar chain, five on the taps and the tables)."""
     if not aligned.is_cuda:
         return gsc_sample_plain(aligned, block, filt, last_out, params,
                                 with_mu)
@@ -275,5 +290,17 @@ def gsc_xmu(aligned, block, filt, last_out, params, with_mu: bool = False):
     return res
 
 
+def group_counts() -> tuple[int, int]:
+    """(groups run factorised, groups replayed sample by sample) by the
+    CUDA kernel so far, in both modes, over every launch and device;
+    (0, 0) before the first. Synchronises."""
+    fact = rep = 0
+    for counts in _GROUP_COUNTS.values():
+        f, r = counts.tolist()
+        fact, rep = fact + f, rep + r
+    return fact, rep
+
+
 gsc_sample.launches = 0
+gsc_sample.group_counts = group_counts
 gsc_xmu.launches = 0

@@ -410,6 +410,26 @@ class SmClocks:
                 f"{len(self.mhz)} samples)")
 
 
+def chain_cycles(ms: float, clk: "SmClocks", samples: int) -> str:
+    """A serial chain's SM-cycles per sample: ms x clocks.sm (the median
+    nvidia-smi read during the timed calls) / the samples of one chain."""
+    if not clk.mhz:
+        return "cycles per sample not measured (clocks.sm not read)"
+    mhz = float(np.median(clk.mhz))
+    return (f"{ms * 1e3 * mhz / samples:.1f} SM-cycles per sample at "
+            f"{mhz:.0f} MHz")
+
+
+def gsc_group_counts(fn) -> str:
+    """fn() run once between two reads of the per-sample kernel's group
+    counts: the groups it ran factorised and those it replayed."""
+    from beamform_tpu_torch.kernels import gsc as kg
+    f0, r0 = kg.gsc_sample.group_counts()
+    fn()
+    f1, r1 = kg.gsc_sample.group_counts()
+    return f"groups factorised {f1 - f0}, replayed {r1 - r0}"
+
+
 def solve_cycles(ms: float, clk: "SmClocks", pairs: int) -> str:
     """A solve kernel's SM-cycles per solved (frame, bin) problem: ms x
     clocks.sm (the median nvidia-smi read during the timed calls) x the
@@ -1909,6 +1929,8 @@ def phase_gsc_kernels(x: np.ndarray, xs: np.ndarray, card: str,
                 f"{name} B=2 M=16 S={n} vad={use_vad} (updates in "
                 f"{share:.3f} of samples)", got[0], ref[0], ref64[0], ms,
                 p_ms)
+            log(f"  {name} B=2 S={n} vad={use_vad}: "
+                f"{gsc_group_counts(lambda: fn(a2, *gsc_zero(2), p))}")
             mu, mu_ref = got[4][0], ref[4][0]
             off = float(((mu - mu_ref).abs()
                          > 1e-3 * mu_ref.abs()).float().mean())
@@ -1973,8 +1995,11 @@ def phase_gsc_kernels(x: np.ndarray, xs: np.ndarray, card: str,
         log(f"  clocks during {name}'s calls: {clk.summary()}")
         log(f"kernel {name} B=1 M=16 S={s} (30 s, noise): {ms:.4f} ms, "
             f"{ms * 1e6 / s:.1f} ns per sample of the chain, "
+            f"{chain_cycles(ms, clk, s)}, "
             f"{SECONDS / ms * 1e3:.1f}x real time on {card}; plain torch "
             f"{plain_ms[name]:.4f} ms over B=2, {hops} hops")
+        if name in ("gsc_sample", "gsc_xmu"):
+            log(f"  {name} B=1 (30 s): {gsc_group_counts(fn)}")
         results[name] = dict(max_abs_err=errs[name], ms=ms,
                              plain_ms=plain_ms[name],
                              **gsc_bound(1, s, 46 if name == "gsc_xmu"
@@ -2017,14 +2042,17 @@ def phase_gsc_kernels(x: np.ndarray, xs: np.ndarray, card: str,
     cs, cpc = kb.cluster_plan(16)
     sms = torch.cuda.get_device_properties(a32.device).multi_processor_count
     for name, fn in batch32:
-        ms = cuda_ms(fn, reps=3)
+        with SmClocks() as clk:
+            ms = cuda_ms(fn, reps=3)
         grid = (f"; {32 * cs} CTAs of {kb.smem_bytes(128, cpc)} B shared "
                 f"memory in clusters of {cs} on {sms} SMs"
                 if name == "gsc_blocklms" else "")
         log(f"kernel {name} B=32 M=16 S={n10} (10 s each): {ms:.4f} ms, "
             f"aggregate {32 * n10 / FS / ms * 1e3:.1f} audio-s per s, "
-            f"{ms * 1e6 / n10:.1f} ns per sample of each chain on {card}"
-            f"{grid}")
+            f"{ms * 1e6 / n10:.1f} ns per sample of each chain, "
+            f"{chain_cycles(ms, clk, n10)} on {card}{grid}")
+        if name == "gsc_sample":
+            log(f"  gsc_sample B=32 (10 s): {gsc_group_counts(fn)}")
     return results
 
 

@@ -1558,14 +1558,15 @@ def _dev64(got, ref64):
     return float((got.double() - ref64.double()).abs().max())
 
 
-@pytest.mark.parametrize("m", [3, 4, 16])
+@pytest.mark.parametrize("m", [2, 3, 4, 9, 16])
 @pytest.mark.parametrize("use_vad", [False, True])
 @pytest.mark.parametrize("xmu", [False, True])
 def test_gsc_sample_kernel_matches_plain(cuda, m, use_vad, xmu):
     """Rows 9 and 10 against the plain recurrence from a carried state,
     two streams: the JAX package's kernel-vs-scan tolerance
     (tests/test_gsc_pallas.py), and the kernel no further from float64
-    than twice the plain float32 version plus that tolerance."""
+    than twice the plain float32 version plus that tolerance. M = 2 leaves
+    two of the kernel's workers without a channel; M = 9 half fills one."""
     from beamform_tpu_torch.kernels import gsc as kg
     ops = _gsc_operands(2, m, 1024, m + 7 * use_vad, cuda)
     p = _gsc_params(use_vad=use_vad)
@@ -1581,6 +1582,70 @@ def test_gsc_sample_kernel_matches_plain(cuda, m, use_vad, xmu):
         torch.testing.assert_close(g, r, atol=2e-5, rtol=1e-4)
     assert torch.equal(got[1], ref[1])               # the registers
     assert _dev64(got[0], ref64[0]) <= 2 * _dev64(ref[0], ref64[0]) + 2e-5
+
+
+@pytest.mark.parametrize("xmu", [False, True])
+@pytest.mark.parametrize("where", [128 + 7, 256])
+def test_gsc_sample_kernel_nan_at_group_and_tile_edges(cuda, xmu, where):
+    """A NaN input sample at a group's last sample (the next group's base
+    dots were formed before it was met) and at a tile's first sample (the
+    pipeline's restart): NaN outputs exactly where the plain recurrence
+    has them, the taps scrubbed, the rest within the matches_plain
+    tolerance; the kernel replayed groups, and ran the rest factorised."""
+    from beamform_tpu_torch.kernels import gsc as kg
+    a, blk, flt, lo = _gsc_operands(1, 16, 1024, 21, cuda)
+    a[0, 5, where] = float("nan")
+    p = _gsc_params()
+    fn = kg.gsc_xmu if xmu else kg.gsc_sample
+    before = kg.gsc_sample.group_counts()
+    got = fn(a, blk, flt, lo, p)
+    after = kg.gsc_sample.group_counts()
+    ref = kg.gsc_sample_plain(a, blk, flt, lo, p)
+    nan = torch.isnan(got[0])
+    assert bool(nan[0, where]) and torch.equal(nan, torch.isnan(ref[0]))
+    assert not torch.isnan(got[2]).any()
+    torch.testing.assert_close(got[0][~nan], ref[0][~nan], atol=2e-5,
+                               rtol=1e-4)
+    torch.testing.assert_close(got[2], ref[2], atol=2e-5, rtol=1e-4)
+    replayed, fact = after[1] - before[1], after[0] - before[0]
+    assert replayed > 0 and fact > 0 and replayed + fact == 1024 // 8
+
+
+@pytest.mark.parametrize("mu0", [1e20, 1e30])
+def test_gsc_sample_kernel_diverging_filter(cuda, mu0):
+    """A step so large that the filters overflow: every third output is
+    NaN and the update scrubs the taps (mu0 = 1e20: they end at 0; 1e30:
+    at +-inf, which no scrub touches). The kernel's NaN positions and
+    final taps equal the plain recurrence's; this is where the lookahead
+    route (row 12, a scrub once a group) departs from it."""
+    from beamform_tpu_torch.kernels import gsc as kg
+    ops = _gsc_operands(1, 4, 512, 9, cuda)
+    p = _gsc_params(mu0=mu0, mu_max=mu0)
+    ref = kg.gsc_sample_plain(*ops, p)
+    for fn in (kg.gsc_sample, kg.gsc_xmu):
+        got = fn(*ops, p)
+        torch.cuda.synchronize()
+        nan = torch.isnan(got[0])
+        assert nan.any() and torch.equal(nan, torch.isnan(ref[0]))
+        assert torch.equal(got[2] == 0, ref[2] == 0)
+        assert torch.equal(torch.isinf(got[2]), torch.isinf(ref[2]))
+        assert torch.equal(torch.isnan(got[2]), torch.isnan(ref[2]))
+        fin = torch.isfinite(ref[2])
+        torch.testing.assert_close(got[2][fin], ref[2][fin], atol=2e-5,
+                                   rtol=1e-3)
+
+
+def test_gsc_sample_kernel_group_counts(cuda):
+    """group_counts() grows by one factorised group per 8 samples of each
+    stream on finite input, with no replay, and the launch count by one."""
+    from beamform_tpu_torch.kernels import gsc as kg
+    ops = _gsc_operands(3, 16, 1024, 4, cuda)
+    for fn in (kg.gsc_sample, kg.gsc_xmu):
+        before, launches = kg.gsc_sample.group_counts(), fn.launches
+        fn(*ops, _gsc_params())
+        after = kg.gsc_sample.group_counts()
+        assert fn.launches == launches + 1
+        assert (after[0] - before[0], after[1] - before[1]) == (3 * 128, 0)
 
 
 def test_gsc_sample_kernel_chunks_equal_one_call(cuda):

@@ -4,6 +4,7 @@ and the others through their wrappers, for two checkouts of the repo, in
 turns, on one NVIDIA GPU.
 
     python3 tools/h100_probe/ab_paths.py PARENT_ROOT [CHANGE_ROOT] [--pairs N]
+        [--only TEXT]
 
 Both checkouts first build their kernels from their own sources, side by
 side. Then each checkout's package and chip_smoke.py run in processes of
@@ -13,8 +14,8 @@ parent, ... Each process drives, on chip_smoke.py's noise input (aira16's
 MVDR ``auto``, ``mega`` and ``dense``, LCMV ``auto`` (one slot, and
 chip_smoke.py's two static interferers: three), ``dense`` (one slot) and
 ``mega`` (one slot and three), phase,
-phasempf and mcra under the launch presets, GSC ``sample``, ``block``
-and ``blocklms`` (l = 128), and GSS (one slot, and chip_smoke.py's two
+phasempf and mcra under the launch presets, GSC ``sample``, ``xmu``,
+``block`` and ``blocklms`` (l = 128), and GSS (one slot, and chip_smoke.py's two
 static interferers: three): the time of one call is CUDA events around
 it, median of 10 after 3 warm-ups (GSC: of 3 after 1). It also times, as
 chip_smoke.py's ``cuda_ms`` does (one call through the wrapper between
@@ -46,7 +47,11 @@ multi-device layer (``beamform_tpu_torch/parallel``) also times the MVDR
 mesh (1, 1): the sharding layer's host work and all-gather at world size
 1, beside the ``B=8`` runner's. Last, one
 ``StreamingSession.process`` of a live chunk of 1 and 4 hops from host
-numpy for DAS, MVDR and LCMV ``auto`` (``cuda_ms``).
+numpy for DAS, MVDR and LCMV ``auto`` (``cuda_ms``), and one call of
+``kernels.gsc.gsc_sample`` and ``gsc_xmu`` at the live size (2 streams of
+48 hops, seeded audio, zero state, the gsc preset; ``cuda_ms``). With
+``--only TEXT`` each process times only the model paths whose label holds
+TEXT and, where TEXT is in "gsc", the two GSC kernel calls.
 CHANGE_ROOT defaults to this checkout. Prints one line per process, then
 per metric both sides' medians and ranges; imports no JAX.
 """
@@ -76,6 +81,7 @@ PATHS = (("das", "das", None, 10, False), ("mvdr", "mvdr", {}, 10, False),
          ("phasempf", "phasempf", {}, 10, False),
          ("mcra", "mcra", {}, 10, False),
          ("gsc", "gsc", {"write_mu": False}, 3, False),
+         ("gsc xmu", "gsc", {"write_mu": False, "solver": "xmu"}, 3, False),
          ("gsc block", "gsc", {"write_mu": False, "solver": "block"}, 3,
           False),
          ("gsc blocklms", "gsc", {"write_mu": False, "solver": "blocklms"},
@@ -92,9 +98,10 @@ ANALYSIS_T = (1407, 64)
 SYNTHESIS_C = (1, 16)
 
 
-def worker(root: str) -> dict:
+def worker(root: str, only: str | None = None) -> dict:
     """The device time per call (ms) of each path and analysis shape, in
-    this process."""
+    this process; with ``only`` the model paths whose label holds it and,
+    where it is in "gsc", the GSC kernel calls."""
     sys.path.insert(0, root)
     os.chdir(root)
     import torch
@@ -105,6 +112,8 @@ def worker(root: str) -> dict:
     x = torch.as_tensor(cs.make_input(16, cs.SECONDS), device="cuda")
     out = {}
     for label, node, over, reps, interf in PATHS:
+        if only is not None and only not in label:
+            continue
         params = None if over is None else cs.preset(node, **over)
         cfg = cs.aira16(cs.INTERFERERS if interf else ())
         model = get_model(node, cs.engine(), cfg, params, device="cuda")
@@ -121,6 +130,11 @@ def worker(root: str) -> dict:
             times.append(a.elapsed_time(b))
         out[label] = float(np.median(times))
         del model
+    if only is not None:
+        if only in "gsc":
+            out.update(gsc_kernels(cs))
+        return out
+    out.update(gsc_kernels(cs))
     hop = cs.HOP
     win = torch.as_tensor(sqrt_hann(2 * hop), dtype=torch.float32,
                           device="cuda")
@@ -154,6 +168,23 @@ def worker(root: str) -> dict:
         out.update(batched_paths(cs, root))
     out.update(live_chunks(cs))
     return out
+
+
+def gsc_kernels(cs) -> dict:
+    """One call of ``kernels.gsc.gsc_sample`` and ``gsc_xmu`` (ms) at the
+    live size: 2 streams of 48 hops of 16 mics, seeded audio of 0.1 rms,
+    zero state, the gsc preset."""
+    import torch
+    from beamform_tpu_torch.config import make_params
+    from beamform_tpu_torch.kernels import gsc as kg
+    rng = np.random.default_rng(7)
+    a = torch.as_tensor(0.1 * rng.standard_normal((2, 16, 48 * cs.HOP)),
+                        dtype=torch.float32, device="cuda")
+    z = torch.zeros((2, 15, 128), device="cuda")
+    lo = torch.zeros((2, 128), device="cuda")
+    p = make_params("gsc", cs.preset("gsc", write_mu=False))
+    return {f"{fn.__name__} B=2 48 hops": cs.cuda_ms(
+        lambda: fn(a, z, z, lo, p)) for fn in (kg.gsc_sample, kg.gsc_xmu)}
 
 
 def live_chunks(cs) -> dict:
@@ -353,13 +384,17 @@ def build(roots) -> None:
 
 def main() -> int:
     if len(sys.argv) >= 3 and sys.argv[1] == "--worker":
-        print(json.dumps(worker(os.path.abspath(sys.argv[2]))), flush=True)
+        only = sys.argv[3] if len(sys.argv) > 3 else None
+        print(json.dumps(worker(os.path.abspath(sys.argv[2]), only)),
+              flush=True)
         return 0
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("parent")
     ap.add_argument("change", nargs="?",
                     default=os.path.dirname(os.path.dirname(HERE)))
     ap.add_argument("--pairs", type=int, default=10)
+    ap.add_argument("--only", default=None,
+                    help="time only the model paths whose label holds this")
     args = ap.parse_args()
     roots = {"parent": os.path.abspath(args.parent),
              "change": os.path.abspath(args.change)}
@@ -373,7 +408,8 @@ def main() -> int:
     runs = {"parent": [], "change": []}
     for label in (lab for pair in order for lab in pair):
         proc = subprocess.run([sys.executable, os.path.abspath(__file__),
-                               "--worker", roots[label]],
+                               "--worker", roots[label]]
+                              + ([args.only] if args.only else []),
                               capture_output=True, text=True)
         if proc.returncode != 0:
             print(proc.stdout[-4000:], proc.stderr[-4000:])
