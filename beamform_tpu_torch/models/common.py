@@ -110,31 +110,6 @@ def _require_kernel_layout(engine: EngineConfig):
                          "§1)")
 
 
-def stft_ext_carry(x: torch.Tensor, engine: EngineConfig,
-                   window: torch.Tensor, cdtype, tail: torch.Tensor):
-    """Streaming analysis: (M, C*hop) + tail (M, hop) -> ((T, M, NB)
-    spectra, new_tail). CUDA tensors go through the fused kernel."""
-    if x.is_cuda:
-        _require_kernel_layout(engine)
-        spec, _, new_tail = wola_analysis(x.contiguous(), tail)
-        return spec, new_tail
-    frames, new_tail = frame_signal_carry(x, engine.hop, tail)
-    spec = _analysis_bins(frames * window, engine, cdtype)   # (M, T, NB)
-    return spec.movedim(0, 1), new_tail
-
-
-def stft_ext_carry_mag(x: torch.Tensor, engine: EngineConfig,
-                       window: torch.Tensor, cdtype, tail: torch.Tensor):
-    """:func:`stft_ext_carry` plus the energy-gate statistic: ((T, M, NB)
-    spectra, (T, NB) :func:`mag_mean_over_mics`, new_tail). On CUDA the
-    analysis kernel computes the statistic in the same launch."""
-    if x.is_cuda:
-        _require_kernel_layout(engine)
-        return wola_analysis(x.contiguous(), tail, with_mag=True)
-    spec, new_tail = stft_ext_carry(x, engine, window, cdtype, tail)
-    return spec, mag_mean_over_mics(spec, engine.fft_win), new_tail
-
-
 def stft_streams_carry(x: torch.Tensor, engine: EngineConfig,
                        window: torch.Tensor, cdtype, tail: torch.Tensor,
                        with_mag: bool = False):
@@ -160,15 +135,6 @@ def stft_streams_carry(x: torch.Tensor, engine: EngineConfig,
         mag = (mag_mean_over_mics(spec, engine.fft_win) if mag is None
                else mag.view(t, b, -1))
     return spec, mag, new_tail.reshape(b, m, hop)
-
-
-def istft_ext_carry(y_ext: torch.Tensor, engine: EngineConfig,
-                    window: torch.Tensor, out_prev: torch.Tensor):
-    """Streaming synthesis: (T, NB) + out_prev (hop,) -> ((T*hop,) stream,
-    new_out_prev). CUDA tensors go through the fused kernel."""
-    out, prev = istft_channels_carry(y_ext[None], engine, window,
-                                     out_prev[None])
-    return out[0], prev[0]
 
 
 def istft_channels_carry(y_ext: torch.Tensor, engine: EngineConfig,

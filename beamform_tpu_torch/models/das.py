@@ -8,10 +8,10 @@ synthesis run in the hand-written kernels (``kernels/wola.py``); the
 weight-and-sum over mics stays plain torch, as the JAX package leaves it to
 XLA outside any Pallas kernel. Streaming state is the WOLA boundary carry.
 
-Batched serving (:meth:`DasModel.batched_forward`) flattens the (B, M)
-channels through one analysis launch and synthesises the B outputs in one
-synthesis launch, steering per (stream, frame); one steering a stream
-broadcasts.
+Its one forward (:meth:`DasModel.batched_forward`; a single stream is a
+batch of one) flattens the (B, M) channels through one analysis launch and
+synthesises the B outputs in one synthesis launch, steering per (stream,
+frame); one steering a stream broadcasts.
 """
 
 from __future__ import annotations
@@ -48,22 +48,6 @@ class DasModel(BatchableModel, nn.Module):
         return common.wola_carry_init(self.engine, self.geom.num_mics,
                                       self.rdtype, self.device)
 
-    def _forward(self, x, thetas, w_idx, carry: common.WolaCarry):
-        """x (M, T*hop), unique thetas (U,), per-frame index (T,) ->
-        ((T*hop,) output, new carry)."""
-        w_uniq = common.weights_for_thetas(self.geom, self.freqs, thetas,
-                                           self.rdtype, self.cdtype)
-        spec, tail = common.stft_ext_carry(x, self.engine, self.window,
-                                           self.cdtype, carry.tail)
-        m = spec.shape[1]                                  # (T, M, NB)
-        # one steering for the whole chunk broadcasts instead of gathering
-        # a (T, M, NB) weight tensor
-        w = w_uniq if w_uniq.shape[0] == 1 else w_uniq[w_idx]
-        y = (w.conj() * spec).sum(dim=1) / m               # (T, NB)
-        out, prev = common.istft_ext_carry(y, self.engine, self.window,
-                                           carry.out_prev)
-        return out, common.WolaCarry(tail, prev)
-
     @torch.no_grad()
     def batched_forward(self, x, ctrl, state: common.WolaCarry):
         """x (B, M, T*hop), (unique thetas (U,), index (B, T) or (B, 1)),
@@ -80,17 +64,3 @@ class DasModel(BatchableModel, nn.Module):
         out, prev = common.istft_channels_carry(y, self.engine, self.window,
                                                 state.out_prev)
         return out, common.WolaCarry(tail, prev)
-
-    @torch.no_grad()
-    def process_chunk(self, x_chunk, theta, state: common.WolaCarry):
-        """Streaming step: (M, C*hop) in, ((C*hop,) out, new state)."""
-        x = torch.as_tensor(x_chunk).to(device=self.device, dtype=self.rdtype)
-        t = x.shape[-1] // self.engine.hop
-        uniq, w_idx = self._theta_ctrl(theta, t)
-        return self._forward(x, uniq, w_idx, state)
-
-    def process(self, x, theta=0.0) -> torch.Tensor:
-        """x: (M, S) -> (S',), S' = S rounded up to a hop multiple."""
-        x = common.prepare_input(x, self.engine, self.rdtype, self.device)
-        out, _ = self.process_chunk(x, theta, self.stream_init())
-        return out

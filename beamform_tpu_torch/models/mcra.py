@@ -17,10 +17,11 @@ recurrence in the MCRA march (``kernels/phase_mask.mcra_march``: the CUDA
 kernel, or its plain version on the CPU, in float32 or float64) and the
 synthesis. Streaming state is ``(WolaCarry of 1 mic, McraState)``.
 
-Batched serving (:meth:`McraModel.batched_forward`): one analysis launch
-of the B streams' mic 0 (each beside a zero channel, so that its spectrum
-rounds as one stream's does), one launch of the march for the B streams,
-one synthesis launch of the B outputs.
+The model's one forward (:meth:`McraModel.batched_forward`; a single
+stream is a batch of one): one analysis launch of the B streams' mic 0
+(each beside a zero channel, so that its spectrum rounds alike at any B),
+one launch of the march for the B streams, one synthesis launch of the B
+outputs.
 """
 
 from __future__ import annotations
@@ -89,32 +90,15 @@ class McraModel(BatchableModel, nn.Module):
                 mcra_init_state(common.num_bins(self.engine), self.rdtype,
                                 self.device))
 
-    def _forward(self, x, thetas, w_idx, state):
-        """x (M, T*hop) -> ((T*hop,) output, new state); mic 0 only. The
-        steering controls are unused: mcra has no steering (mcra.cpp)."""
-        carry, mstate = state
-        spec, tail = common.stft_ext_carry(x[:1], self.engine, self.window,
-                                           self.cdtype, carry.tail)
-        x_spec = spec[:, 0, :]                          # (T, NB) mic0 only
-        sq = x_spec.abs() ** 2
-        s_f = freq_smooth(sq, x_spec[:, 0].abs())
-        y, mstate = mcra_march(s_f, sq, x_spec, mstate, self.params,
-                               self.engine.bug_dc_zero)
-        out, prev = common.istft_ext_carry(y, self.engine, self.window,
-                                           carry.out_prev)
-        return out, (common.WolaCarry(tail, prev), mstate)
-
     @torch.no_grad()
     def batched_forward(self, x, ctrl, state):
         """x (B, M, T*hop), the (unused) steering controls, state with a
         leading B -> ((B, T*hop) output, new state); mic 0 of each stream.
-        The single-stream :meth:`_forward` stays apart: at B = 1 this
-        pipeline's reshapes would cost each call host time that its
-        launches wait for."""
+        mcra has no steering (mcra.cpp)."""
         carry, mstate = state
         # the analysis pairs two real channels in one complex FFT, and a
         # channel's spectrum rounds with its partner: mic 0 of each stream
-        # goes in beside a zero channel, as one stream's lone channel does
+        # goes in beside a zero channel, so that it rounds alike at any B
         b, _, s = x.shape
         x0 = x.new_zeros((b, 2, s))
         x0[:, 0] = x[:, 0]
@@ -131,17 +115,3 @@ class McraModel(BatchableModel, nn.Module):
                                                 carry.out_prev)
         return out, (common.WolaCarry(tail[:, :1].contiguous(), prev),
                      mstate)
-
-    @torch.no_grad()
-    def process_chunk(self, x_chunk, theta, state):
-        """Streaming step: (M, C*hop) in, ((C*hop,) out, new state).
-        ``theta`` is ignored: mcra has no steering (mcra.cpp)."""
-        del theta
-        x = torch.as_tensor(x_chunk).to(device=self.device, dtype=self.rdtype)
-        return self._forward(x, None, None, state)
-
-    def process(self, x, theta=0.0) -> torch.Tensor:
-        """x: (M, S) -> (S',), S' = S rounded up to a hop multiple."""
-        x = common.prepare_input(x, self.engine, self.rdtype, self.device)
-        out, _ = self.process_chunk(x, theta, self.stream_init())
-        return out

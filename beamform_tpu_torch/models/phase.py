@@ -15,10 +15,11 @@ formulation :func:`phase_mask_spectral` in frame blocks, plain torch on
 either device. The node is stateless per frame: its streaming state is the
 WOLA boundary carry.
 
-Batched serving (:meth:`PhaseModel.batched_forward`): one analysis launch
-of the B*M channels, the mask over the B streams (``fused``: one launch of
-the phase-mask kernel; ``xla``: the streams' frames folded into one frame
-axis) and one synthesis launch of the B outputs.
+The model's one forward (:meth:`PhaseModel.batched_forward`; a single
+stream is a batch of one): one analysis launch of the B*M channels, the
+mask over the B streams (``fused``: one launch of the phase-mask kernel;
+``xla``: the streams' frames folded into one frame axis) and one
+synthesis launch of the B outputs.
 """
 
 from __future__ import annotations
@@ -134,40 +135,10 @@ class PhaseModel(BatchableModel, nn.Module):
     def _strategy(self) -> str:
         return mask_strategy(self, self.params.spectra_bf16)
 
-    def _forward(self, x, thetas, w_idx, carry: common.WolaCarry):
-        """x (M, T*hop), unique thetas (U,), per-frame index (T,) ->
-        ((T*hop,) output, new carry)."""
-        p = self.params
-        nfft = self.engine.fft_win
-        spec, tail = common.stft_ext_carry(x, self.engine, self.window,
-                                           self.cdtype, carry.tail)
-        w_uniq = common.weights_for_thetas(self.geom, self.freqs, thetas,
-                                           self.rdtype, self.cdtype)
-        if self._strategy() == "fused":
-            y = phase_mask(spec, w_uniq, w_idx, p.min_phase * math.pi / 180.0,
-                           p.mag_threshold, p.mag_mult, nfft)
-        else:
-            # the pairwise tensor is (T, M(M-1)/2, NB): chunk the stateless
-            # mask over frame blocks so it never materializes whole
-            def mask_fn(args):
-                spec_b, idx_b = args
-                return phase_mask_spectral(spec_b, w_uniq[idx_b], p, nfft,
-                                           self.ia, self.ib,
-                                           bf16=p.spectra_bf16)
-
-            y = common.map_frame_blocks(mask_fn, spec, w_idx,
-                                        pairs=len(self.ia))
-        out, prev = common.istft_ext_carry(y, self.engine, self.window,
-                                           carry.out_prev)
-        return out, common.WolaCarry(tail, prev)
-
     @torch.no_grad()
     def batched_forward(self, x, ctrl, state: common.WolaCarry):
         """x (B, M, T*hop), (unique thetas (U,), index (B, T)), carries
-        with a leading B -> ((B, T*hop) output, new carries). The
-        single-stream :meth:`_forward` stays apart: at B = 1 this
-        pipeline's reshapes would cost each call host time that its
-        launches wait for."""
+        with a leading B -> ((B, T*hop) output, new carries)."""
         thetas, idx = ctrl
         p = self.params
         nfft = self.engine.fft_win
@@ -194,17 +165,3 @@ class PhaseModel(BatchableModel, nn.Module):
         out, prev = common.istft_channels_carry(y, self.engine, self.window,
                                                 state.out_prev)
         return out, common.WolaCarry(tail, prev)
-
-    @torch.no_grad()
-    def process_chunk(self, x_chunk, theta, state: common.WolaCarry):
-        """Streaming step: (M, C*hop) in, ((C*hop,) out, new state)."""
-        x = torch.as_tensor(x_chunk).to(device=self.device, dtype=self.rdtype)
-        t = x.shape[-1] // self.engine.hop
-        uniq, w_idx = self._theta_ctrl(theta, t)
-        return self._forward(x, uniq, w_idx, state)
-
-    def process(self, x, theta=0.0) -> torch.Tensor:
-        """x: (M, S) -> (S',), S' = S rounded up to a hop multiple."""
-        x = common.prepare_input(x, self.engine, self.rdtype, self.device)
-        out, _ = self.process_chunk(x, theta, self.stream_init())
-        return out

@@ -29,11 +29,11 @@ launches on CUDA, the plain version on the CPU) between the WOLA kernels;
 plain torch on both: the JAX package leaves it to XLA. Streaming state is
 ``(WolaCarry, MpfState, smoother tail (smooth_size - 1,))``.
 
-Batched serving (:meth:`PhasempfModel.batched_forward`): one analysis
-launch of the B*M channels, the MPF kernels' one call for the B streams
-(``fused``) or the dual beams over the streams' frames and the march on
-(B, NB) state (``xla``), one synthesis launch of the B outputs and the
-smoother over (B, S).
+The model's one forward (:meth:`PhasempfModel.batched_forward`; a single
+stream is a batch of one): one analysis launch of the B*M channels, the
+MPF kernels' one call for the B streams (``fused``) or the dual beams
+over the streams' frames and the march on (B, NB) state (``xla``), one
+synthesis launch of the B outputs and the smoother over (B, S).
 """
 
 from __future__ import annotations
@@ -162,18 +162,16 @@ class PhasempfModel(BatchableModel, nn.Module):
     def _strategy(self) -> str:
         return mask_strategy(self)
 
-    def _march_batched(self, spec, w_uniq, w_idx, mstate: MpfState):
+    def _march_xla(self, spec, w_uniq, w_idx, mstate: MpfState):
         """The ``xla`` strategy: the dual beams in frame blocks, then the
-        MCRA/MPF recurrences frame by frame. spec (T, M, NB) and w_idx
-        (T,) -> (y (T, NB), state); or B streams, spec (T, B, M, NB), w_idx
-        (B, T) and the state's vectors (B, NB) -> y (B, T, NB)."""
+        MCRA/MPF recurrences frame by frame. spec (T, B, M, NB), w_idx (B,
+        T) and the state's vectors (B, NB) -> (y (B, T, NB), state)."""
         p = self.params
-        lead = spec.shape[1:-2]               # (), or (B,)
         m, nb = spec.shape[-2:]
 
         # chunk the stateless dual-beam mask over frame blocks (the pairwise
-        # tensor is (T, M(M-1)/2, NB) otherwise); B streams' (T, B) frames
-        # as one frame axis
+        # tensor is (T, M(M-1)/2, NB) otherwise), the streams' (T, B)
+        # frames as one frame axis
         def mask_fn(args):
             spec_b, idx_b = args
             return dual_beam(spec_b, w_uniq[idx_b],
@@ -183,8 +181,7 @@ class PhasempfModel(BatchableModel, nn.Module):
         soi, intf = (a.reshape(spec.shape[:-2] + (nb,)) for a in
                      common.map_frame_blocks(
                          mask_fn, spec.reshape(-1, m, nb),
-                         w_idx.T.reshape(-1) if lead else w_idx,
-                         pairs=len(self.ia)))
+                         w_idx.T.reshape(-1), pairs=len(self.ia)))
         soi_sq = soi.abs() ** 2
         soi_sq[..., 0] = 0.0                  # set only for j >= 1
         int_sq = intf.abs() ** 2
@@ -199,34 +196,12 @@ class PhasempfModel(BatchableModel, nn.Module):
         mag_soi, pha = common.polar_mag_phase(soi)
         y = common.from_mag_phase(mpf_out_mag(mag_soi, lams, noises, p), pha)
         y[..., 0] = 0.0 if self.engine.bug_dc_zero else soi[..., 0]
-        return (y.movedim(0, 1) if lead else y), mstate
-
-    def _forward(self, x, thetas, w_idx, state):
-        """x (M, T*hop), unique thetas (U,), per-frame index (T,) ->
-        ((T*hop,) output, new state)."""
-        p = self.params
-        carry, mstate, smooth_tail = state
-        spec, tail = common.stft_ext_carry(x, self.engine, self.window,
-                                           self.cdtype, carry.tail)
-        w_uniq = common.weights_for_thetas(self.geom, self.freqs, thetas,
-                                           self.rdtype, self.cdtype)
-        if self._strategy() == "fused":
-            y, mstate = mpf_march(spec, w_uniq, w_idx, mstate, p,
-                                  self.engine.bug_dc_zero)
-        else:
-            y, mstate = self._march_batched(spec, w_uniq, w_idx, mstate)
-        out, prev = common.istft_ext_carry(y, self.engine, self.window,
-                                           carry.out_prev)
-        out, smooth_tail = moving_average_causal_carry(out, p.smooth_size,
-                                                       smooth_tail)
-        return out, (common.WolaCarry(tail, prev), mstate, smooth_tail)
+        return y.movedim(0, 1), mstate
 
     @torch.no_grad()
     def batched_forward(self, x, ctrl, state):
         """x (B, M, T*hop), (unique thetas (U,), index (B, T)), state with
-        a leading B -> ((B, T*hop) output, new state). The single-stream
-        :meth:`_forward` stays apart: at B = 1 this pipeline's reshapes
-        would cost each call host time that its launches wait for."""
+        a leading B -> ((B, T*hop) output, new state)."""
         thetas, idx = ctrl
         p = self.params
         carry, mstate, smooth_tail = state
@@ -238,23 +213,9 @@ class PhasempfModel(BatchableModel, nn.Module):
             y, mstate = mpf_march(spec, w_uniq, idx, mstate, p,
                                   self.engine.bug_dc_zero)
         else:
-            y, mstate = self._march_batched(spec, w_uniq, idx, mstate)
+            y, mstate = self._march_xla(spec, w_uniq, idx, mstate)
         out, prev = common.istft_channels_carry(y, self.engine, self.window,
                                                 carry.out_prev)
         out, smooth_tail = moving_average_causal_carry(out, p.smooth_size,
                                                        smooth_tail)
         return out, (common.WolaCarry(tail, prev), mstate, smooth_tail)
-
-    @torch.no_grad()
-    def process_chunk(self, x_chunk, theta, state):
-        """Streaming step: (M, C*hop) in, ((C*hop,) out, new state)."""
-        x = torch.as_tensor(x_chunk).to(device=self.device, dtype=self.rdtype)
-        t = x.shape[-1] // self.engine.hop
-        uniq, w_idx = self._theta_ctrl(theta, t)
-        return self._forward(x, uniq, w_idx, state)
-
-    def process(self, x, theta=0.0) -> torch.Tensor:
-        """x: (M, S) -> (S',), S' = S rounded up to a hop multiple."""
-        x = common.prepare_input(x, self.engine, self.rdtype, self.device)
-        out, _ = self.process_chunk(x, theta, self.stream_init())
-        return out

@@ -16,10 +16,12 @@ the model's device.
   first window), the JAX package's leaf, so checkpoints move between the
   packages.
 
-Batched serving: both nodes take B streams with the same torch ops over a
-leading stream axis (``batched_forward``), with no loop over streams; their
-states stack as the JAX package's vmap stacks them (``read``: a (B,)
-int32 pick, -1 before a stream's first window).
+Both nodes' one forward (``batched_forward``; a single stream, which may
+come as one channel (S,), is a batch of one) takes B streams with torch
+ops over a leading stream axis, with no loop over streams; their states
+stack as the JAX package's vmap stacks them (``read``: a (B,) int32 pick,
+-1 before a stream's first window). Neither has a steering: the controls
+are unused (jack_ref.cpp, jack_read.cpp).
 """
 
 from __future__ import annotations
@@ -56,24 +58,6 @@ class RefModel(BatchableModel, nn.Module):
             torch.zeros((h,), dtype=self.rdtype, device=self.device))
 
     @torch.no_grad()
-    def process_chunk(self, x_chunk, theta, state: common.WolaCarry):
-        """Streaming step: (M, C*hop) or (C*hop,) in, ((C*hop,) out, new
-        state); ``theta`` is ignored (no steering, jack_ref.cpp)."""
-        del theta
-        x = torch.as_tensor(x_chunk).to(device=self.device, dtype=self.rdtype)
-        if x.dim() == 1:
-            x = x[None, :]
-        return self._forward(x, None, None, state)
-
-    def _forward(self, x, thetas, w_idx, state: common.WolaCarry):
-        """x (M, T*hop) -> ((T*hop,) output, new state); the steering
-        controls are unused."""
-        frames, tail = frame_signal_carry(x[0], self.engine.hop, state.tail)
-        p = frames * self.window * self.window             # hann, no FFT
-        out, prev = overlap_add_carry(p, self.engine.hop, state.out_prev)
-        return out, common.WolaCarry(tail, prev)
-
-    @torch.no_grad()
     def batched_forward(self, x, ctrl, state: common.WolaCarry):
         """x (B, M, T*hop), the (unused) steering controls, carries (B,
         hop) -> ((B, T*hop) output, new carries): mic 0 of each stream."""
@@ -82,12 +66,6 @@ class RefModel(BatchableModel, nn.Module):
         p = frames * self.window * self.window
         out, prev = overlap_add_carry(p, self.engine.hop, state.out_prev)
         return out, common.WolaCarry(tail, prev)
-
-    def process(self, x, theta=0.0) -> torch.Tensor:
-        """x: (M, S) -> (S',), S' = S rounded up to a hop multiple."""
-        x = common.prepare_input(x, self.engine, self.rdtype, self.device)
-        out, _ = self.process_chunk(x, theta, self.stream_init())
-        return out
 
 
 class ReadModel(BatchableModel, nn.Module):
@@ -109,14 +87,6 @@ class ReadModel(BatchableModel, nn.Module):
     def stream_init(self) -> torch.Tensor:
         return self.no_pick.clone()
 
-    @torch.no_grad()
-    def process_chunk(self, x_chunk, theta, state: torch.Tensor):
-        """Streaming step: (M, C*hop) in, ((C*hop,) out, the last pick);
-        ``theta`` is ignored (no steering, jack_read.cpp)."""
-        del theta
-        x = torch.as_tensor(x_chunk).to(device=self.device, dtype=self.rdtype)
-        return self._forward(x, None, None, state)
-
     def _picks(self, wins, state):
         """Windows (..., M, T, hop) and the last pick (...) -> each window's
         pick (..., T) int64."""
@@ -133,19 +103,6 @@ class ReadModel(BatchableModel, nn.Module):
         return torch.where(last >= 0, pick.gather(-1, last.clamp_min(0)),
                            prev[..., None])
 
-    def _forward(self, x, thetas, w_idx, state: torch.Tensor):
-        """x (M, T*hop) -> ((T*hop,) output, the last pick); the steering
-        controls are unused."""
-        h = self.engine.hop
-        m, s = x.shape
-        t = s // h
-        if t == 0:
-            return x.new_zeros((0,)), state
-        wins = x.reshape(m, t, h)
-        picks = self._picks(wins, state)
-        pos = torch.arange(t, device=self.device)
-        return wins[picks, pos].reshape(-1), picks[-1].to(torch.int32)
-
     @torch.no_grad()
     def batched_forward(self, x, ctrl, state: torch.Tensor):
         """x (B, M, T*hop), the (unused) steering controls, the last picks
@@ -161,9 +118,3 @@ class ReadModel(BatchableModel, nn.Module):
         pos = torch.arange(t, device=self.device)
         return (wins[streams, picks, pos].reshape(b, -1),
                 picks[:, -1].to(torch.int32))
-
-    def process(self, x, theta=0.0) -> torch.Tensor:
-        """x: (M, S) -> (S',), S' = S rounded up to a hop multiple."""
-        x = common.prepare_input(x, self.engine, self.rdtype, self.device)
-        out, _ = self.process_chunk(x, theta, self.stream_init())
-        return out

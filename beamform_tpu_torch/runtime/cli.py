@@ -539,27 +539,26 @@ def run_live(args, device, stdin=None, stdout=None) -> int:
 
     def rows():
         """This chunk's interference rows (the /theta_interference topic,
-        polled per chunk)."""
+        polled per chunk), or None."""
         if interf_ctrl is None:
-            return {}
+            return None
         reset = interf_ctrl.poll()
-        return {"interference": interf_ctrl.machine.rows(
-            args.live_chunk, reset_first=reset)}
+        return interf_ctrl.machine.rows(args.live_chunk, reset_first=reset)
 
     def step(block) -> np.ndarray:
         nonlocal theta
         if args.theta_control:       # the /theta topic, polled per chunk
             theta = _poll_theta(args.theta_control, theta)
-        y = sess.process(block, theta, **rows())
+        y = sess.process(block, theta, interference=rows())
         return y.cpu().numpy().astype(np.float32, copy=False)
 
     # one zero chunk first, its output fetched: the kernels' first-use
     # build and first launches and copies must not count as xruns; then a
     # fresh state and monitor
-    warm = ({} if interf_ctrl is None else
-            {"interference": interf_ctrl.machine.rows(args.live_chunk)})
+    warm = (None if interf_ctrl is None
+            else interf_ctrl.machine.rows(args.live_chunk))
     sess.process(np.zeros((channels, chunk), np.float32), theta,
-                 **warm).cpu()
+                 interference=warm).cpu()
     sess.state = model.stream_init()
     sess.frames_done = 0
     sess.monitor = RealTimeMonitor(fs)
@@ -764,10 +763,8 @@ def main(argv=None) -> int:
         y = _run_stream(sess, x, theta, args, engine.hop, interference,
                         interf_ctrl)
         monitor = sess.monitor
-    elif interference is not None:
-        y = model.process(x, theta, interference=interference).cpu().numpy()
     else:
-        y = model.process(x, theta).cpu().numpy()
+        y = model.process(x, theta, interference=interference).cpu().numpy()
     wall = time.perf_counter() - t0
     audio_sec = x.shape[1] / fs
     xrt = audio_sec / wall if wall > 0 else float("inf")

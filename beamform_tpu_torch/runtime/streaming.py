@@ -50,7 +50,8 @@ class StreamingSession:
         model's device. ``theta``: scalar or per-frame (k,) timeline for
         this chunk; the default holds the previous steering (ROS
         latest-message-wins). ``interference``: optional
-        ``InterferenceTimeline`` rows for this chunk (lcmv only)."""
+        ``InterferenceTimeline`` rows for this chunk (lcmv and gss; the other
+        nodes refuse one)."""
         x = torch.as_tensor(x_chunk)
         if x.dim() == 1:
             x = x[None, :]
@@ -65,11 +66,8 @@ class StreamingSession:
             theta = self._last_theta
         if self.monitor is not None:
             self.monitor.start_chunk()
-        if interference is not None:
-            out, self.state = self.model.process_chunk(
-                x, theta, self.state, interference=interference)
-        else:
-            out, self.state = self.model.process_chunk(x, theta, self.state)
+        out, self.state = self.model.process_chunk(
+            x, theta, self.state, interference=interference)
         if self.monitor is not None:
             # a launch returns before the card is done: the chunk's
             # deadline is met only when its output is ready

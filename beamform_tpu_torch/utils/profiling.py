@@ -18,7 +18,11 @@ counts xruns and dumps the count to ~/rosjack_xrun_count.txt at SIGINT
   of the process), each span is a range of that profiler, a ``cpu_op``
   event of its Chrome trace on the same clock as the card's kernels;
   otherwise it is one shared no-op, so an unprofiled call pays a flag read
-  and an empty ``with``. The spans:
+  and an empty ``with``. ``bf.process``, ``bf.controls`` and
+  ``bf.forward`` open in ``BatchRunner.process``; the spans inside the
+  model open wherever ``batched_forward`` runs, a single stream's
+  ``process_chunk`` (sessions, offline, the CLI, the live loop) included.
+  The spans:
 
   ``bf.process``
       ``BatchRunner.process``, the whole call (``runtime/batch.py``);

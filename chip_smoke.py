@@ -911,7 +911,8 @@ def phase_mvdr_kernels(x: np.ndarray, xs: np.ndarray) -> dict:
             ("one steering", THETA, gate),
             ("theta timeline", th, gate),
             ("sparse gate", THETA, sp_gate)):
-        uniq, w_idx = model._theta_ctrl(theta, t)
+        uniq, w_idx = model.batch_controls(np.broadcast_to(theta, (1, t)))
+        w_idx = w_idx[0]
         d = common.weights_for_thetas(model.geom, model.freqs, uniq,
                                       torch.float32, torch.complex64)
         d = d.index_select(2, ib)
@@ -1089,9 +1090,10 @@ def phase_mvdr(x: np.ndarray, xs: np.ndarray) -> tuple:
     model = get_model("mvdr", engine(), cfg, preset("mvdr"), device=DEVICE)
     for inp, sig in (("noise", x), ("speech", xs)):
         xp = common.prepare_input(sig, engine(), torch.float32, DEVICE)
-        _, mag, _ = common.stft_ext_carry_mag(
-            xp, engine(), model.window, torch.complex64,
-            torch.zeros((16, HOP), device=DEVICE))
+        _, mag, _ = common.stft_streams_carry(
+            xp[None], engine(), model.window, torch.complex64,
+            torch.zeros((1, 16, HOP), device=DEVICE), with_mag=True)
+        mag = mag[:, 0]
         share = float((mag.index_select(1, model.ib)
                        > model.params.freq_mag_threshold).float().mean())
         log(f"mvdr {inp}: the energy gate passes {share:.4f} of "
@@ -1347,7 +1349,6 @@ def phase_gss_kernels(x: np.ndarray) -> dict:
     import torch
     from beamform_tpu_torch.kernels import gss_stream as kgss
     from beamform_tpu_torch.models import get_model
-    from beamform_tpu_torch.runtime.timeline import static_interference
     dev = torch.device(DEVICE)
     xp, tail, prev, mag = fused_inputs(x)
     results = {}
@@ -1358,8 +1359,10 @@ def phase_gss_kernels(x: np.ndarray) -> dict:
         p = model.params
         ib = model.ib
         m, t, nib = xp.shape[0], xp.shape[1] // HOP, len(ib)
-        (ah, _, _, bits), idx, _ = model._interf_ctrl(
-            THETA, t, static_interference(t, interf, capacity=capacity))
+        # the static set at the state's capacity
+        (ah, _, _, bits), idx, _ = model.batch_controls(np.full((1, t),
+                                                                THETA))
+        idx = idx[0]
         s_cap = ah.shape[1]
         w0 = torch.zeros((nib, s_cap, m), dtype=torch.complex64, device=dev)
         reset = torch.zeros(t, dtype=torch.bool, device=dev)
@@ -1619,7 +1622,9 @@ def phase_phase_kernels(x: np.ndarray, xsrc: np.ndarray) -> dict:
         th[t // 2:] = -40.0
         for steer, theta in (("one steering", THETA),
                              ("theta timeline", th)):
-            uniq, w_idx = model._theta_ctrl(theta, t)
+            uniq, w_idx = model.batch_controls(
+                np.broadcast_to(theta, (1, t)))
+            w_idx = w_idx[0]
             w = common.weights_for_thetas(model.geom, model.freqs, uniq,
                                           torch.float32, torch.complex64)
             u = w.shape[0]
@@ -1782,9 +1787,16 @@ def gsc_aligned(sig: np.ndarray):
     from beamform_tpu_torch.models import common
     model = gsc_model({})
     xp = common.prepare_input(sig, engine(), torch.float32, DEVICE)
-    w_conj, w_idx = model._steering(THETA, xp.shape[1] // HOP)
-    aligned, _ = model.aligned_streams(xp, w_conj, w_idx,
-                                       model.stream_init()[0])
+    w_conj = common.weights_for_thetas(
+        model.geom, model.freqs,
+        torch.tensor([float(THETA)], dtype=torch.float32, device=DEVICE),
+        torch.float32, torch.complex64).conj().resolve_conj()
+    spec, _, _ = common.stft_streams_carry(
+        xp[None], engine(), model.window, torch.complex64,
+        torch.zeros((1, 16, HOP), device=DEVICE))
+    aligned, _ = common.istft_channels_carry(
+        (spec[:, 0] * w_conj).movedim(1, 0), engine(), model.window,
+        torch.zeros((16, HOP), device=DEVICE))
     return aligned
 
 
@@ -2504,7 +2516,8 @@ def batch_kernel_times(xd, card: str):
     hist = torch.zeros((b, w, m, len(ib)), dtype=torch.complex64,
                        device=DEVICE)
     uniq, idx = mv.batch_controls(th)
-    d_ib = mv._steering_ib(uniq)
+    d_ib = common.weights_for_thetas(mv.geom, mv.freqs, uniq, torch.float32,
+                                     torch.complex64).index_select(2, ib)
     c_k, _, lidx = lc.batch_controls(th)
     (ah, _, _, bits), gidx, _ = gs.batch_controls(th)
     w0 = torch.zeros((b, len(gs.ib), ah.shape[1], m), dtype=torch.complex64,

@@ -28,12 +28,15 @@ and MVDR's ``dense`` block pipeline over a stream axis. Bars:
   version: bit for bit.
 """
 
+import ast
 import functools
 import inspect
+import pathlib
 
 import numpy as np
 import pytest
 import torch
+from torch.utils import _pytree as pytree
 
 from beamform_tpu.config import EngineConfig as JEngine
 from beamform_tpu.config import parse_array_config as jparse
@@ -47,8 +50,11 @@ from beamform_tpu_torch.kernels import mega_stream as tmega
 from beamform_tpu_torch.kernels import mvdr_stream as tmvdr
 from beamform_tpu_torch.kernels import phase_mask as tpm
 from beamform_tpu_torch.kernels import wola as twola
+from beamform_tpu_torch import models as models_pkg
 from beamform_tpu_torch.models import get_model
-from beamform_tpu_torch.models.batching import stack_states
+from beamform_tpu_torch.models.batching import (BatchableModel,
+                                                stack_states)
+from beamform_tpu_torch.parallel import sharded as sharded_mod
 from beamform_tpu_torch.runtime import batch as batch_mod
 from beamform_tpu_torch.runtime.batch import BatchRunner
 from beamform_tpu_torch.runtime.timeline import static_interference
@@ -141,6 +147,56 @@ def test_batch_matches_single_stream(case):
     for i in range(B):
         yi = model.process(_scenes()[i], float(THETAS[i])).numpy()
         np.testing.assert_allclose(got[i], yi, rtol=0, atol=1e-10)
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_single_stream_is_the_batch_of_one(case, monkeypatch):
+    """A stream's ``process_chunk`` is one call of the model's
+    ``batched_forward`` on a batch of one (the chunk and every state leaf
+    with a leading axis of one), and its output and state are
+    ``BatchRunner(batch=1)``'s bit for bit."""
+    name, params = CASES[case]
+    teng = _engines("float64")[1]
+    cfg = parse_array_config(_cfg())
+    model = get_model(name, teng, cfg, params, device="cpu")
+    real, calls = model.batched_forward, []
+
+    def spy(x, ctrl, state, **kw):
+        calls.append((tuple(x.shape),
+                      {leaf.shape[0] for leaf in pytree.tree_leaves(state)}))
+        return real(x, ctrl, state, **kw)
+
+    monkeypatch.setattr(model, "batched_forward", spy)
+    x = _scenes()[0]
+    x = x[:, :x.shape[-1] // HOP * HOP]
+    out, state = model.process_chunk(x, float(THETAS[0]),
+                                     model.stream_init())
+    assert calls == [((1,) + x.shape, {1})]
+    runner = BatchRunner(name, teng, cfg, params, batch=1, device="cpu")
+    ref = runner.process(x[None], THETAS[:1])
+    assert out.shape == ref[0].shape and torch.equal(out, ref[0])
+    for got, want in zip(pytree.tree_leaves(state),
+                         pytree.tree_leaves(runner.state)):
+        np.testing.assert_array_equal(got.numpy(), want[0].numpy())
+
+
+def test_each_model_has_one_forward_path():
+    """No module of ``models/`` defines a second forward, a second control
+    builder or the single-stream WOLA helpers; the protocol keeps no
+    per-stream default; the mesh layer asks the model, not its name."""
+    gone = {"_forward", "_gated_forward_batched", "_theta_ctrl",
+            "_interf_ctrl", "_steering", "aligned_streams", "stft_ext_carry",
+            "stft_ext_carry_mag", "istft_ext_carry"}
+    for path in pathlib.Path(models_pkg.__file__).parent.glob("*.py"):
+        defined = {node.name for node in ast.walk(ast.parse(path.read_text()))
+                   if isinstance(node, ast.FunctionDef)}
+        assert not defined & gone, (path.name, defined & gone)
+    assert "batched_forward" not in vars(BatchableModel)
+    assert not hasattr(BatchableModel, "batch_axes")
+    src = inspect.getsource(sharded_mod)
+    assert "model.name" not in src
+    for private in ("._steering_ib", "._strategy", "._gated_forward"):
+        assert private not in src
 
 
 @pytest.mark.parametrize("case", ["das", "mvdr-stream", "lcmv-mega",

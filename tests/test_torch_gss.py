@@ -398,7 +398,7 @@ def test_gss_control_holds_conjugated_values():
     model = GssModel(_engine("float32"), tgeom.ArrayGeometry.from_xy(XY4),
                      GssParams(**PARAMS), interference_angles=(60.0,),
                      device="cpu")
-    (ah, _, _, _), _, _ = model._interf_ctrl(THETA, 4)
+    (ah, _, _, _), _, _ = model._controls(np.full((1, 4), THETA))
     assert not ah.is_conj()
     cpu = torch.device("cpu")
     check_tensor(ah, "ah", torch.complex64, ah.shape, cpu)
@@ -418,15 +418,15 @@ def test_gss_active_bits_come_with_the_cached_control():
     model = GssModel(_engine("float32"), tgeom.ArrayGeometry.from_xy(XY4),
                      GssParams(**PARAMS, solver="mega"), capacity=15,
                      device="cpu")
-    ctrl, idx, reset = model._interf_ctrl(THETA, t, tl)
+    ctrl, idx, reset = model._controls(np.full((1, t), THETA), tl)
     ah, act, _, bits = ctrl
     assert bits.dtype == torch.int32 and bits.shape == (ah.shape[0],)
     assert torch.equal(bits, tgss._slot_bits(ah, None))
     assert sorted(bits.tolist()) == [0b1, 0b11]
-    assert model._interf_ctrl(THETA, t, tl)[0][3] is bits
+    assert model._controls(np.full((1, t), THETA), tl)[0][3] is bits
     args = (torch.as_tensor(x), torch.zeros((4, HOP)), torch.zeros(HOP),
             torch.zeros((ah.shape[-1], 16, 4), dtype=torch.complex64), ah,
-            idx, reset | (torch.arange(t) == 0), model.ib, 2 * HOP,
+            idx[0], reset | (torch.arange(t) == 0), model.ib, 2 * HOP,
             model.params.freq_mag_threshold, model.params.mu,
             model.params.lam)
     for a, b in zip(tgss.gss_mega(*args, bits), tgss.gss_mega(*args)):

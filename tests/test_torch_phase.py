@@ -118,8 +118,9 @@ def test_phase_open_gate_keeps_bins():
     tm, _ = _models(AIRA3, "float64", OPEN)
     xs = torch.as_tensor(x)
     from beamform_tpu_torch.models import common
-    spec, _ = common.stft_ext_carry(xs, tm.engine, tm.window, tm.cdtype,
-                                    torch.zeros((3, HOP), dtype=xs.dtype))
+    spec = common.stft_streams_carry(
+        xs[None], tm.engine, tm.window, tm.cdtype,
+        torch.zeros((1, 3, HOP), dtype=xs.dtype))[0][:, 0]
     w = common.weights_for_thetas(tm.geom, tm.freqs,
                                   torch.tensor([THETA], dtype=xs.dtype),
                                   tm.rdtype, tm.cdtype)

@@ -154,24 +154,25 @@ def test_common_carry_path_matches_jax_float64(full_fft):
     jwin = jcommon.make_window(jeng, jnp.float64)
     twin = tcommon.make_window(teng, torch.float64)
     x, _ = _analysis_inputs(3, 8, seed=9, dtype=np.float64)
-    jtail, ttail = jnp.zeros((3, HOP)), torch.zeros(3, HOP,
+    jtail, ttail = jnp.zeros((3, HOP)), torch.zeros(1, 3, HOP,
                                                     dtype=torch.float64)
-    jprev, tprev = jnp.zeros(HOP), torch.zeros(HOP, dtype=torch.float64)
+    jprev, tprev = jnp.zeros(HOP), torch.zeros(1, HOP, dtype=torch.float64)
     for i in range(0, 8 * HOP, 4 * HOP):
         jspec, jtail = jcommon.stft_ext_carry(
             jnp.asarray(x[:, i:i + 4 * HOP]), jeng, jwin, jnp.complex128,
             jtail)
-        tspec, ttail = tcommon.stft_ext_carry(
-            torch.as_tensor(x[:, i:i + 4 * HOP]), teng, twin,
+        # the port's carries take a leading stream axis: one stream here
+        tspec, _, ttail = tcommon.stft_streams_carry(
+            torch.as_tensor(x[None, :, i:i + 4 * HOP]), teng, twin,
             torch.complex128, ttail)
-        np.testing.assert_allclose(tspec.numpy(), np.asarray(jspec), rtol=0,
-                                   atol=F64_ABS)
+        np.testing.assert_allclose(tspec[:, 0].numpy(), np.asarray(jspec),
+                                   rtol=0, atol=F64_ABS)
         y = jspec[:, 0]
         jout, jprev = jcommon.istft_ext_carry(y, jeng, jwin, jprev)
-        tout, tprev = tcommon.istft_ext_carry(
-            torch.as_tensor(np.array(y)), teng, twin, tprev)
-        np.testing.assert_allclose(tout.numpy(), np.asarray(jout), rtol=0,
-                                   atol=F64_ABS)
+        tout, tprev = tcommon.istft_channels_carry(
+            torch.as_tensor(np.array(y))[None], teng, twin, tprev)
+        np.testing.assert_allclose(tout[0].numpy(), np.asarray(jout),
+                                   rtol=0, atol=F64_ABS)
 
 
 def test_dsp_helpers_match_jax_float64():

@@ -302,7 +302,6 @@ def solve_kernels(cs, x) -> dict:
     from beamform_tpu_torch.kernels.wola import wola_analysis
     from beamform_tpu_torch.models import common, get_model
     from beamform_tpu_torch.models.mcra import freq_smooth
-    from beamform_tpu_torch.runtime.timeline import static_interference
     dev = torch.device("cuda")
     params = cs.preset("lcmv")
     model = get_model("lcmv", cs.engine(), cs.aira16(), params, device=dev)
@@ -339,8 +338,10 @@ def solve_kernels(cs, x) -> dict:
                         cs.preset("gss"), device=dev)
         gss.capacity = capacity
         gp = gss.params
-        (ah, _, _, bits), gidx, _ = gss._interf_ctrl(
-            cs.THETA, t, static_interference(t, interf, capacity=capacity))
+        # the static set at the state's capacity, one stream
+        (ah, _, _, bits), gidx, _ = gss.batch_controls(np.full((1, t),
+                                                               cs.THETA))
+        gidx = gidx[0]
         w0 = torch.zeros((len(gss.ib), ah.shape[1], m),
                          dtype=torch.complex64, device=dev)
         reset = torch.zeros(t, dtype=torch.bool, device=dev)
@@ -352,7 +353,8 @@ def solve_kernels(cs, x) -> dict:
     nb = spec.shape[2]
     phase = get_model("phase", cs.engine(), cs.aira16(), cs.preset("phase"),
                       device=dev)
-    uniq, w_idx = phase._theta_ctrl(cs.THETA, t)
+    uniq, w_idx = phase.batch_controls(np.full((1, t), cs.THETA))
+    w_idx = w_idx[0]
     wts = common.weights_for_thetas(phase.geom, phase.freqs, uniq,
                                     torch.float32, torch.complex64)
     pp = phase.params
